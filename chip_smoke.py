@@ -1,0 +1,453 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one NVIDIA H100 and check it.
+
+    python3 chip_smoke.py [--seed 0] [--rows 100000000] [--queries 50]
+
+Phases (each prints its own lines; any failure exits non-zero):
+
+1. Card and build: the card's name and power limit (``nvidia-smi``),
+   torch/CUDA versions, and the kernels built from ``src/repro_torch/
+   kernels/csrc`` (one ``nvcc`` per source, in parallel).
+2. Kernels against their plain PyTorch versions, on the card: the main
+   path's shapes (8 segments of ~4e5 objects, 2x2 split cells), a stress
+   shape (64 segments, 1.6e7 objects, 4x4 cells) and edge cases; counts
+   and extrema must be equal, float64 sums within 1e-12 * sum|v| per
+   cell; a host sample is also held against the float64 numpy mirrors.
+   Median times from CUDA events beside each kernel's bound.
+3. The main path at the paper's scale: a synthetic dataset of ``--rows``
+   objects with 10 value columns resident on the card, an ``AQPEngine``
+   with the default ``IndexConfig`` (16x16 initial grid, the "cuda"
+   backend), the 50-window exploration path of ~1e5 objects per window
+   for ``mean(a0)`` at phi = 0.05 and then phi = 0; every answer checked
+   against an on-device float64 oracle; a second engine replays the
+   first 10 windows on the sequential path and must end with the same
+   index; invariants checked at the end. Launch counts are reset just
+   before this phase and read just after it: every kernel must have run.
+
+The line before the last is a JSON object describing each kernel; the
+last line is ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+PEAK_BYTES_S = 3.35e12      # H100 SXM HBM3
+PEAK_F32_S = 67e12          # H100 SXM float32, outside the tensor cores
+PEAK_F64_S = 34e12          # H100 SXM float64, outside the tensor cores
+SUM_RTOL = 1e-12            # |sum - plain| <= SUM_RTOL * sum|v| per cell
+
+
+class Failed(Exception):
+    pass
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+# --------------------------------------------------------------------- #
+# comparison and timing helpers
+# --------------------------------------------------------------------- #
+
+def compare(what, got, want, abs_sum):
+    """Counts and extrema equal (``==``, so +-0 agree), float64 sums
+    within ``SUM_RTOL * sum|v|``. Returns the largest absolute
+    difference over all channels (equal infinities count 0)."""
+    g = np.asarray(got, np.float64).reshape(-1, 4)
+    w = np.asarray(want, np.float64).reshape(-1, 4)
+    a = np.asarray(abs_sum, np.float64).reshape(-1)
+    if g.shape != w.shape:
+        raise Failed(f"{what}: shape {g.shape} != {w.shape}")
+    if not np.array_equal(g[:, 0], w[:, 0]):
+        raise Failed(f"{what}: counts differ")
+    if not ((g[:, 2] == w[:, 2]).all() and (g[:, 3] == w[:, 3]).all()):
+        raise Failed(f"{what}: extrema differ")
+    d = np.abs(g[:, 1] - w[:, 1])
+    if not (d <= SUM_RTOL * a).all():
+        raise Failed(f"{what}: sums differ by {d.max()} (tol "
+                     f"{SUM_RTOL} * sum|v|)")
+    with np.errstate(invalid="ignore"):
+        diff = np.where(g == w, 0.0, np.abs(g - w))
+    return float(diff.max(initial=0.0))
+
+
+def make_timer(torch, reps):
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+
+    def timed(fn):
+        """Median ms of ``fn`` from CUDA events, L2 flushed before each
+        repetition (the main path meets freshly gathered data)."""
+        for _ in range(3):
+            fn()
+        out = []
+        for _ in range(reps):
+            flush.zero_()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            e.synchronize()
+            out.append(s.elapsed_time(e))
+        return float(np.median(out))
+    return timed
+
+
+def bound_ms(nbytes, f32_ops, f64_ops):
+    t_bytes = nbytes / PEAK_BYTES_S
+    t_ops = f32_ops / PEAK_F32_S + f64_ops / PEAK_F64_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+# --------------------------------------------------------------------- #
+# phase 1
+# --------------------------------------------------------------------- #
+
+def phase_card_and_build(torch, build):
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    log("== phase 1: card and build")
+    log(smi)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]} device "
+        f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    report = build.build_all()
+    log(f"built {sorted(report)} in {time.perf_counter() - t0:.3f} s")
+    for name, r in sorted(report.items()):
+        for line in r["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+
+
+# --------------------------------------------------------------------- #
+# phase 2
+# --------------------------------------------------------------------- #
+
+def segments(torch, gen, n_seg, rows, lo=0.0, hi=1000.0):
+    """Concatenated segments of ~``rows`` objects each, segment s living
+    in its own random bbox; values straddle zero."""
+    counts = np.full(n_seg, rows, np.int64)
+    b = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    n = int(b[-1])
+    bboxes = np.empty((n_seg, 4))
+    xs = torch.empty(n, device="cuda")
+    ys = torch.empty(n, device="cuda")
+    rng = np.random.default_rng(int(torch.randint(
+        0, 2**31, (1,), generator=gen, device="cuda")))
+    for s in range(n_seg):
+        x0, y0 = rng.uniform(lo, hi * 0.7, 2)
+        w, h = rng.uniform(hi * 0.05, hi * 0.3, 2)
+        bboxes[s] = (x0, y0, x0 + w, y0 + h)
+        sl = slice(b[s], b[s + 1])
+        xs[sl] = torch.rand(rows, generator=gen, device="cuda") * w + x0
+        ys[sl] = torch.rand(rows, generator=gen, device="cuda") * h + y0
+    vals = torch.randn(n, generator=gen, device="cuda") * 30 + 5
+    return xs, ys, vals, b, bboxes
+
+
+def edge_cases(torch, gen):
+    """Small inputs at the rules' edges: empty segments, empty and
+    all-covering windows, points on split lines and on the float32
+    neighbours of window edges, negative values."""
+    xs, ys, vals, b, bb = segments(torch, gen, 8, 3000)
+    cases = []
+    # empty segments between and at the ends
+    b_empty = np.array([0, 0, 3000, 3000, 9000, 12000, 12000, 24000, 24000])
+    cases.append(("empty_segments", xs, ys, vals, b_empty, bb,
+                  (100.0, 100.0, 600.0, 600.0)))
+    cases.append(("empty_window", xs, ys, vals, b, bb,
+                  (-5.0, -5.0, -1.0, -1.0)))
+    cases.append(("everywhere", xs, ys, vals, b, bb,
+                  (-np.inf, -np.inf, np.inf, np.inf)))
+    # points exactly on each segment's split lines and window edges and
+    # on their float32 neighbours; all-negative values
+    edge_x, edge_y = [], []
+    for s in range(8):
+        x0, y0, x1, y1 = bb[s]
+        mx, my = 0.5 * (x0 + x1), 0.5 * (y0 + y1)
+        for vx in (x0, mx, x1, np.float32(mx), np.nextafter(
+                np.float32(mx), np.float32(np.inf))):
+            for vy in (y0, my, y1, np.nextafter(np.float32(my),
+                                                np.float32(-np.inf))):
+                edge_x.append(vx)
+                edge_y.append(vy)
+    per = len(edge_x) // 8
+    ex = torch.tensor(np.asarray(edge_x, np.float32), device="cuda")
+    ey = torch.tensor(np.asarray(edge_y, np.float32), device="cuda")
+    ev = -torch.rand(len(edge_x), generator=gen, device="cuda") - 1.0
+    eb = np.arange(0, 8 * per + 1, per, dtype=np.int64)
+    w = tuple(float(v) for v in (bb[0, 0], bb[0, 1], 0.5 * (bb[0, 0] + bb[
+        0, 2]), 0.5 * (bb[0, 1] + bb[0, 3])))
+    cases.append(("split_lines_and_edges", ex, ey, ev, eb, bb, w))
+    return cases
+
+
+def phase_kernels(torch, timed, seed):
+    from repro_torch.kernels import bin_agg as ba
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import segment_agg as sa
+
+    log("== phase 2: kernels against their plain versions")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    rows = {}
+
+    def check_swa(tag, xs, ys, vals, b, window):
+        got = sa.segment_window_agg_cuda(xs, ys, vals, b, window)
+        want = sa.segment_window_agg_torch(xs, ys, vals, b, window)
+        absv = sa.segment_window_agg_torch(xs, ys, vals.abs(), b, window)
+        torch.cuda.synchronize()
+        return compare(f"segment_window_agg[{tag}]", got.cpu(), want.cpu(),
+                       absv[:, 1].cpu())
+
+    def check_sba(tag, xs, ys, vals, b, bb, g):
+        got = sa.segment_bin_agg_cuda(xs, ys, vals, b, bb, g, g)
+        want = sa.segment_bin_agg_torch(xs, ys, vals, b, bb, g, g)
+        absv = sa.segment_bin_agg_torch(xs, ys, vals.abs(), b, bb, g, g)
+        torch.cuda.synchronize()
+        return compare(f"segment_bin_agg[{tag}]", got.cpu(), want.cpu(),
+                       absv[..., 1].cpu())
+
+    def check_ba(tag, xs, ys, vals, bbox, g):
+        got = ba.bin_agg_cuda(xs, ys, vals, bbox, g, g)
+        want = ba.bin_agg_torch(xs, ys, vals, bbox, g, g)
+        absv = ba.bin_agg_torch(xs, ys, vals.abs(), bbox, g, g)
+        torch.cuda.synchronize()
+        return compare(f"bin_agg[{tag}]", got.cpu(), want.cpu(),
+                       absv[:, 1].cpu())
+
+    # --- edge cases, S = 1 / 8 / 64, grids 2x2 and 4x4
+    for name, xs, ys, vals, b, bb, window in edge_cases(torch, gen):
+        check_swa(name, xs, ys, vals, b, window)
+        for g in (2, 4):
+            check_sba(f"{name},{g}x{g}", xs, ys, vals, b, bb, g)
+            n0 = int(b[1] - b[0]) or int(b[2] - b[1])
+            check_ba(f"{name},{g}x{g}", xs[:n0], ys[:n0], vals[:n0], bb[0],
+                     g)
+    xs, ys, vals, b, bb = segments(torch, gen, 64, 500)
+    check_swa("S=64", xs, ys, vals, b, (200.0, 200.0, 700.0, 700.0))
+    check_sba("S=64,4x4", xs, ys, vals, b, bb, 4)
+    b1 = b[[0, -1]]
+    check_swa("S=1", xs, ys, vals, b1, (200.0, 200.0, 700.0, 700.0))
+    log("edge cases: equal")
+
+    # --- the main path's shapes: 8 segments of ~3.9e5 objects, 2x2
+    seg_rows = 390_625
+    xs, ys, vals, b, bb = segments(torch, gen, 8, seg_rows)
+    L = int(b[-1])
+    cx, cy = 0.5 * (bb[:, 0] + bb[:, 2]).mean(), 0.5 * (bb[:, 1] +
+                                                        bb[:, 3]).mean()
+    window = (float(cx - 150), float(cy - 150), float(cx + 150),
+              float(cy + 150))
+    err_swa = check_swa("main", xs, ys, vals, b, window)
+    err_sba = check_sba("main", xs, ys, vals, b, bb, 2)
+    xs1, ys1, vals1 = xs[:seg_rows], ys[:seg_rows], vals[:seg_rows]
+    err_ba = check_ba("main", xs1, ys1, vals1, bb[0], 2)
+
+    # a host sample against the float64 numpy mirrors
+    m = 50_000
+    hb = np.array([0, m, 2 * m], np.int64)
+    sx = torch.cat([xs[:m], xs[b[1]:b[1] + m]])
+    sy = torch.cat([ys[:m], ys[b[1]:b[1] + m]])
+    sv = torch.cat([vals[:m], vals[b[1]:b[1] + m]])
+    hx, hy, hv = (t.cpu().numpy() for t in (sx, sy, sv))
+    habs = np.abs(hv)
+    compare("segment_window_agg[np mirror]",
+            sa.segment_window_agg_cuda(sx, sy, sv, hb, window).cpu(),
+            ref.segment_window_agg_np(hx, hy, hv, hb, window),
+            ref.segment_window_agg_np(hx, hy, habs, hb, window)[:, 1])
+    compare("segment_bin_agg[np mirror]",
+            sa.segment_bin_agg_cuda(sx, sy, sv, hb, bb[:2], 2, 2).cpu(),
+            ref.segment_bin_agg_np(hx, hy, hv, hb, bb[:2], 2, 2),
+            ref.segment_bin_agg_np(hx, hy, habs, hb, bb[:2], 2, 2)[..., 1])
+    # the bin_agg mirror rounds its sums to float32: counts and extrema
+    # equal, sums within float32 rounding of sum|v|
+    got = ba.bin_agg_cuda(sx[:m], sy[:m], sv[:m], bb[0], 2, 2).cpu().numpy()
+    want = ref.bin_agg_np(hx[:m], hy[:m], hv[:m], bb[0], 2, 2, m)
+    wabs = ref.bin_agg_np(hx[:m], hy[:m], habs[:m], bb[0], 2, 2, m)
+    if not (np.array_equal(got[:, 0], want[:, 0])
+            and (got[:, 2:] == want[:, 2:]).all()
+            and (np.abs(got[:, 1] - want[:, 1])
+                 <= 2.0 ** -22 * wabs[:, 1]).all()):
+        raise Failed("bin_agg disagrees with the numpy mirror")
+    log("host sample against the numpy mirrors: equal")
+
+    # --- stress: 64 segments, 1.6e7 objects, 4x4
+    sx, sy, sv, sbnd, sbb = segments(torch, gen, 64, 250_000)
+    check_swa("stress", sx, sy, sv, sbnd, (100.0, 100.0, 800.0, 800.0))
+    check_sba("stress,4x4", sx, sy, sv, sbnd, sbb, 4)
+    t_s = timed(lambda: sa.segment_bin_agg_cuda(sx, sy, sv, sbnd, sbb, 4, 4))
+    t_p = timed(lambda: sa.segment_bin_agg_torch(sx, sy, sv, sbnd, sbb,
+                                                 4, 4))
+    log(f"stress segment_bin_agg (64 x 250000, 4x4): kernel {t_s:.4f} ms, "
+        f"plain {t_p:.4f} ms, bound "
+        f"{bound_ms(12 * int(sbnd[-1]), 0, 5 * int(sbnd[-1]))[0]:.4f} ms")
+    del sx, sy, sv
+
+    # --- times at the main path's shapes
+    n_in = int(ops.window_mask(xs, ys, window).sum())
+    specs = {
+        "segment_window_agg": (
+            lambda: sa.segment_window_agg_cuda(xs, ys, vals, b, window),
+            lambda: sa.segment_window_agg_torch(xs, ys, vals, b, window),
+            bound_ms(8 * L + 4 * n_in + 32 * 8, 4 * L + 2 * n_in, n_in),
+            err_swa, "src/repro_torch/kernels/csrc/segment_window_agg.cu",
+            "src/repro/kernels/segment_agg.py:154"),
+        "segment_bin_agg": (
+            lambda: sa.segment_bin_agg_cuda(xs, ys, vals, b, bb, 2, 2),
+            lambda: sa.segment_bin_agg_torch(xs, ys, vals, b, bb, 2, 2),
+            bound_ms(12 * L + 32 * 8 * 4, 2 * L, 5 * L),
+            err_sba, "src/repro_torch/kernels/csrc/segment_bin_agg.cu",
+            "src/repro/kernels/segment_agg.py:524"),
+        "bin_agg": (
+            lambda: ba.bin_agg_cuda(xs1, ys1, vals1, bb[0], 2, 2),
+            lambda: ba.bin_agg_torch(xs1, ys1, vals1, bb[0], 2, 2),
+            bound_ms(12 * seg_rows + 32 * 4, 2 * seg_rows, 5 * seg_rows),
+            err_ba, "src/repro_torch/kernels/csrc/segment_bin_agg.cu",
+            "src/repro/kernels/bin_agg.py:89"),
+    }
+    for name, (kern, plain, (bms, by), err, src, rep) in specs.items():
+        ms, pms = timed(kern), timed(plain)
+        rows[name] = {"name": name, "route": "cuda", "source": src,
+                      "replaces": rep, "launches": 0, "max_abs_err": err,
+                      "ms": ms, "plain_ms": pms, "bound_ms": bms,
+                      "bound_by": by, "library_ms": None}
+        log(f"{name}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+            f"{bms:.4f} ms ({by}), max_abs_err {err:.3e}")
+    return rows
+
+
+# --------------------------------------------------------------------- #
+# phase 3
+# --------------------------------------------------------------------- #
+
+def phase_main_path(torch, build, seed, n_rows, n_queries):
+    from repro_torch.core import AQPEngine, IndexConfig
+    from repro_torch.core import geometry
+    from repro_torch.data import exploration_path, make_synthetic_dataset
+
+    log(f"== phase 3: main path, {n_rows} rows")
+    t0 = time.perf_counter()
+    ds = make_synthetic_dataset(n=n_rows, n_columns=10, seed=seed,
+                                device="cuda")
+    torch.cuda.synchronize()
+    log(f"dataset: {n_rows} rows x (x, y, a0..a9) on the card in "
+        f"{time.perf_counter() - t0:.3f} s")
+    windows = exploration_path(ds, n_queries=n_queries,
+                               target_objects=100_000, seed=11)
+
+    build.reset_launches()
+    t0 = time.perf_counter()
+    eng = AQPEngine(ds, IndexConfig(init_metadata_attrs=("a0",)))
+    torch.cuda.synchronize()
+    log(f"engine init (16x16 grid, sort, a0 metadata): "
+        f"{time.perf_counter() - t0:.3f} s")
+    ix = eng.index
+    # the device init must own objects by the host's float32 rule
+    hx, hy = ds.x.cpu().numpy(), ds.y.cpu().numpy()
+    cell = geometry.bin_cell_ids(hx, hy, ds.domain(), 16, 16)
+    del hx, hy
+    if not np.array_equal(np.bincount(cell, minlength=256), ix.count[:256]):
+        raise Failed("device init counts differ from the host rule")
+    del cell
+    log("init tile counts equal the host float32 rule")
+
+    n_check = min(10, n_queries)
+    snap = None
+    for phi in (0.05, 0.0):
+        for q, w in enumerate(windows):
+            r = eng.query(w, "mean", "a0", phi=phi)
+            truth = eng.oracle(w, "mean", "a0")
+            if phi > 0:
+                tol = 1e-9 * max(abs(truth), 1.0)
+                ok = (r.lo - tol <= truth <= r.hi + tol
+                      and (r.bound <= phi or r.exact))
+            else:
+                ok = r.exact and abs(r.value - truth) <= 1e-9 * abs(truth)
+            log(f"q phi={phi} {q:2d} t={r.eval_time_s:.6f}s "
+                f"read={r.objects_read} calls={r.read_calls} "
+                f"tiles={r.tiles_processed} value={r.value:.12g} "
+                f"oracle={truth:.12g} bound={r.bound:.3e} ok={ok}")
+            if not ok:
+                raise Failed(f"query {q} at phi={phi}: {r} vs {truth}")
+            if phi > 0 and q == n_check - 1:
+                snap = (ix.n_tiles, ix.count[:ix.n_tiles].copy(),
+                        ix.perm.cpu().numpy())
+
+    seq = AQPEngine(ds, IndexConfig(init_metadata_attrs=("a0",)))
+    for w in windows[:n_check]:
+        seq.query(w, "mean", "a0", phi=0.05, sequential=True)
+    si = seq.index
+    if not (si.n_tiles == snap[0] and np.array_equal(
+            si.count[:si.n_tiles], snap[1])
+            and np.array_equal(si.perm.cpu().numpy(), snap[2])):
+        raise Failed("sequential engine's index differs from batched")
+    log(f"sequential replay of {n_check} windows: same index "
+        f"({si.n_tiles} tiles)")
+    launches = dict(build.LAUNCHES)
+    del seq, si
+
+    ix.check_invariants("a0")
+    log("invariants hold")
+    tot = eng.trace.totals()
+    log(f"totals: {json.dumps(tot)}")
+    log(f"device memory: allocated {torch.cuda.memory_allocated()} B, "
+        f"peak {torch.cuda.max_memory_allocated()} B")
+    log(f"launches on the main path: {json.dumps(launches)}")
+    for k in ("segment_window_agg", "segment_bin_agg", "bin_agg"):
+        if launches.get(k, 0) <= 0:
+            raise Failed(f"{k} was not launched on the main path")
+    return launches
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--rows", type=int, default=100_000_000)
+    ap.add_argument("--queries", type=int, default=50)
+    ap.add_argument("--reps", type=int, default=20)
+    args = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    try:
+        from repro_torch.kernels import build
+    except ImportError as e:
+        print(f"chip_smoke: the port is not beside this script ({e})",
+              file=sys.stderr)
+        return 2
+    try:
+        phase_card_and_build(torch, build)
+        rows = phase_kernels(torch, make_timer(torch, args.reps), args.seed)
+        torch.cuda.empty_cache()
+        launches = phase_main_path(torch, build, args.seed, args.rows,
+                                   args.queries)
+    except Failed as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    for name, row in rows.items():
+        row["launches"] = int(launches.get(name, 0))
+    print(json.dumps({"kernels": list(rows.values())}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,745 @@
+"""VALINOR-style hierarchical tile index, capacity-bounded and flat.
+
+Port of :mod:`repro.core.index` (the scalar part). The index organizes
+objects into disjoint rectangular tiles over the two axis attributes and
+keeps, per tile and per non-axis attribute, the aggregate metadata
+``(count, sum, min, max)`` the confidence intervals are built from. It
+is a fixed-capacity table of tiles plus one permutation of the object
+set such that every tile owns a contiguous segment of it; a split
+appends children, reorganizes the parent's segment and deactivates the
+parent.
+
+Where the state lives, by ``IndexConfig.backend``:
+
+- ``"np"``: everything on the host in numpy — the reference's code,
+  bit for bit (the dataset must hold host data).
+- ``"torch"`` / ``"cuda"``: the object-side state — ``perm``, ``x_s``,
+  ``y_s``, the columns — lives on the dataset's device. A round's gather
+  indices are built there (``repeat_interleave``), the axis-only window
+  masks run there as plain torch ops, the init sort and the split
+  reorganization are stable device sorts, and the float64 control-plane
+  reductions (init metadata, tile enrichment, per-child sums) run there
+  in float64. The data-plane reductions are the kernels of
+  :mod:`repro_torch.kernels.ops` ("torch": plain versions; "cuda": the
+  CUDA kernels). The tile table, metadata and accumulators stay host
+  numpy (capacity 65 536), as in the reference; each round moves only
+  ``(S, 4)``-sized results to the host.
+
+Metadata soundness rule: ``min/max`` for a tile are ALWAYS present and
+sound (children's extremes are clamped into the parent's interval; the
+root fallback is the global attribute min/max); ``sum`` is present only
+when ``meta_valid``.
+
+Refinement runs in two flavors with identical semantics: the sequential
+reference path (:meth:`TileIndex.process`) and the batched pipeline
+(:meth:`TileIndex.read_batch` / :meth:`TileIndex.apply_batch`). The
+heatmap methods, the session bin-grid memory and ``ChunkIndexSet`` come
+with later slices of the port.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..data.rawfile import RawDataset, as_host
+from ..kernels import ops
+from ..kernels import ref as ref_mod
+from ..kernels.segment_agg import (EVERYWHERE, MAX_UNROLL, segment_ids,
+                                   segment_window_agg_torch)
+from . import geometry
+from .geometry import FULL, PARTIAL
+
+
+@dataclasses.dataclass
+class IndexConfig:
+    grid0: Tuple[int, int] = (16, 16)     # crude initial grid
+    split_grid: Tuple[int, int] = (2, 2)  # paper's example splits 2×2
+    capacity: int = 65536                 # max tiles (resource-aware bound)
+    min_split_count: int = 256            # I/O-cost split factor (paper §2.2)
+    max_level: int = 12
+    batch_k: int = 8                      # tiles refined per batched round
+    init_metadata_attrs: Sequence[str] = ()   # metadata computed at init pass
+    backend: str = "cuda"                 # "np" | "torch" | "cuda"
+
+    def max_split_cells(self) -> int:
+        """Children per split — the scalar path's even ``split_grid``."""
+        gx, gy = self.split_grid
+        return gx * gy
+
+    def __post_init__(self):
+        gx, gy = self.split_grid
+        if gx < 2 or gy < 2:
+            raise ValueError(f"split_grid must be >= 2 per axis, got "
+                             f"{self.split_grid}")
+        if self.backend not in ops.BACKENDS:
+            raise ValueError(f"backend must be one of {ops.BACKENDS}, got "
+                             f"{self.backend!r}")
+        if self.max_split_cells() > MAX_UNROLL:
+            raise ValueError(
+                f"split grid {self.max_split_cells()} cells exceeds the "
+                f"round-sizing limit MAX_UNROLL={MAX_UNROLL}")
+
+
+@dataclasses.dataclass
+class AdaptStats:
+    tiles_split: int = 0
+    tiles_enriched: int = 0
+    objects_reorganized: int = 0
+    kernel_calls: int = 0      # data-plane kernel invocations (ops.*)
+    batch_rounds: int = 0      # gathered-read refinement rounds
+    speculative_rows: int = 0  # rows read in a round but never folded
+
+    def snapshot(self):
+        return dataclasses.replace(self)
+
+    def delta(self, before):
+        return AdaptStats(**{
+            f.name: getattr(self, f.name) - getattr(before, f.name)
+            for f in dataclasses.fields(self)})
+
+
+def _host(a) -> np.ndarray:
+    """A kernel result on the host (device results are (S, ·)-sized)."""
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _segment_stats(vals: torch.Tensor, bounds: np.ndarray) -> np.ndarray:
+    """Whole-segment float64 (count, sum, min, max) on the device."""
+    return _host(segment_window_agg_torch(vals, vals, vals, bounds,
+                                          EVERYWHERE))
+
+
+def _check_split_counts(agg: np.ndarray, counts: np.ndarray) -> None:
+    """The split kernel must bin every object where the reorganization
+    puts it (the float64 ownership rule); a mismatch would desynchronize
+    child metadata from child segments."""
+    if not np.array_equal(agg[..., 0], counts):
+        raise RuntimeError("split kernel cell counts disagree with the "
+                           "host ownership rule")
+
+
+class TileIndex:
+    def __init__(self, dataset: RawDataset,
+                 config: Optional[IndexConfig] = None):
+        self._setup(dataset, config)
+        config = self.cfg
+        n = dataset.n
+
+        # --- initialization pass (the "crude" index) ---
+        gx, gy = config.grid0
+        domain = dataset.domain()
+        self.domain = domain
+        if self._np:
+            x, y = as_host(dataset.x), as_host(dataset.y)
+            cell_ids = geometry.bin_cell_ids(x, y, domain, gx, gy)
+            perm = np.argsort(cell_ids, kind="stable")
+            self.perm = perm.astype(np.int64)      # file row id per slot
+            self.x_s = x[perm]                     # axis values, perm order
+            self.y_s = y[perm]
+            counts = np.bincount(cell_ids, minlength=gx * gy)
+        else:
+            cell_ids = geometry.bin_cell_ids_f32(dataset.x, dataset.y,
+                                                 domain, gx, gy)
+            self.perm = torch.sort(cell_ids, stable=True).indices
+            self.x_s = dataset.x[self.perm]
+            self.y_s = dataset.y[self.perm]
+            counts = _host(torch.bincount(cell_ids, minlength=gx * gy))
+            del cell_ids
+        assert counts.sum() == n
+        offsets = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        boxes = geometry.subtile_bboxes(domain, gx, gy)
+        t = gx * gy
+        self.bbox[:t] = boxes
+        self.offset[:t] = offsets
+        self.count[:t] = counts
+        self.active[:t] = True
+        self.level[:t] = 0
+        self.n_tiles = t
+        dataset.account_init_pass()
+
+        for attr in config.init_metadata_attrs:
+            self.ensure_attr(attr)
+            # init-pass metadata: one sequential file scan (accounted)
+            vals = dataset.read_values(attr, self.perm)
+            self._fill_meta_from_segments(attr, np.arange(t), vals)
+
+    def _setup(self, dataset: RawDataset, config: Optional[IndexConfig]):
+        """Tile table and metadata, empty; checks that the backend can
+        reach the dataset's data (shared with ``state.index_from_numpy``)."""
+        # config default must be constructed per instance — a dataclass
+        # default instance would be shared (and mutable) across engines
+        config = IndexConfig() if config is None else config
+        dev = dataset.device
+        if config.backend == "np" and dev is not None and dev.type != "cpu":
+            raise TypeError("the 'np' backend needs host data; the dataset "
+                            f"lives on {dev}")
+        if config.backend == "torch" and dev is None:
+            raise TypeError("the 'torch' backend needs a dataset built "
+                            "with device=")
+        if config.backend == "cuda" and (dev is None or dev.type != "cuda"):
+            raise TypeError("the 'cuda' backend needs a dataset on a CUDA "
+                            "device")
+        self.ds = dataset
+        self.cfg = config
+        self.adapt_stats = AdaptStats()
+        self._backend = config.backend
+        self._np = config.backend == "np"
+        cap = config.capacity
+
+        # --- tile table (SoA) ---
+        self.bbox = np.zeros((cap, 4), np.float64)
+        self.offset = np.zeros(cap, np.int64)
+        self.count = np.zeros(cap, np.int64)
+        self.active = np.zeros(cap, bool)
+        self.level = np.zeros(cap, np.int32)
+        self.parent = np.full(cap, -1, np.int64)
+        self.n_tiles = 0
+
+        # --- per-attribute metadata ---
+        # min/max always sound; sum valid only when meta_valid.
+        self.meta_sum: Dict[str, np.ndarray] = {}
+        self.meta_min: Dict[str, np.ndarray] = {}
+        self.meta_max: Dict[str, np.ndarray] = {}
+        self.meta_valid: Dict[str, np.ndarray] = {}
+        self.global_minmax: Dict[str, Tuple[float, float]] = {}
+
+    # ------------------------------------------------------------------ #
+    # attribute registration
+    # ------------------------------------------------------------------ #
+    def ensure_attr(self, attr: str):
+        if attr in self.meta_sum:
+            return
+        cap = self.cfg.capacity
+        if attr not in self.global_minmax:
+            col = self.ds.read_all_unaccounted(attr)
+            self.global_minmax[attr] = (float(col.min()), float(col.max()))
+        g_lo, g_hi = self.global_minmax[attr]
+        self.meta_sum[attr] = np.zeros(cap, np.float64)
+        self.meta_min[attr] = np.full(cap, g_lo, np.float64)
+        self.meta_max[attr] = np.full(cap, g_hi, np.float64)
+        self.meta_valid[attr] = np.zeros(cap, bool)
+
+    def _fill_meta_from_segments(self, attr, tile_ids, vals_perm_order):
+        """Compute metadata for tiles from values given in perm order."""
+        if not self._np:
+            idx, bounds = self._gather_segments(tile_ids)
+            st = _segment_stats(vals_perm_order[idx], bounds)
+            nz = self.count[tile_ids] > 0
+            self.meta_sum[attr][tile_ids] = np.where(nz, st[:, 1], 0.0)
+            self.meta_min[attr][tile_ids[nz]] = st[nz, 2]
+            self.meta_max[attr][tile_ids[nz]] = st[nz, 3]
+            self.meta_valid[attr][tile_ids] = True
+            return
+        for t in tile_ids:
+            o, c = self.offset[t], self.count[t]
+            if c == 0:
+                self.meta_sum[attr][t] = 0.0
+                self.meta_valid[attr][t] = True
+                continue
+            seg = vals_perm_order[o:o + c]
+            self.meta_sum[attr][t] = float(seg.sum(dtype=np.float64))
+            self.meta_min[attr][t] = float(seg.min())
+            self.meta_max[attr][t] = float(seg.max())
+            self.meta_valid[attr][t] = True
+
+    # ------------------------------------------------------------------ #
+    # part iteration / global-id resolution (chunked-forest seam)
+    # ------------------------------------------------------------------ #
+    def parts(self, window, attr=None, agg=None):
+        """Yield ``(gid_base, TileIndex)`` per live part overlapping the
+        window: a single TileIndex is its own only part, base 0."""
+        yield 0, self
+
+    def resolve(self, gid: int):
+        """Map a global tile id to ``(TileIndex, local_tile_id)``."""
+        return self, int(gid)
+
+    # ------------------------------------------------------------------ #
+    # query-side geometry + axis-only counting (no file access)
+    # ------------------------------------------------------------------ #
+    def classify(self, window):
+        ids = np.flatnonzero(self.active[:self.n_tiles])
+        cls = geometry.classify_tiles(self.bbox[ids], window)
+        return ids[cls == FULL], ids[cls == PARTIAL]
+
+    def _gather_segments(self, tile_ids: np.ndarray):
+        """Gather indices + boundaries of the tiles' concatenated segments.
+
+        Returns ``(idx, boundaries)``: ``idx`` (int64, (L,); a tensor on
+        the device under "torch"/"cuda") indexes the perm-order arrays so
+        that ``x_s[idx]`` is the concatenation of the tiles' segments;
+        ``boundaries`` (host, (S+1,)) delimits segment s.
+        """
+        o = self.offset[tile_ids]
+        c = self.count[tile_ids]
+        boundaries = np.concatenate([[0], np.cumsum(c)]).astype(np.int64)
+        if self._np:
+            idx = np.repeat(o - boundaries[:-1], c) + np.arange(
+                boundaries[-1], dtype=np.int64)
+            return idx, boundaries
+        dev = self.perm.device
+        n = int(boundaries[-1])
+        idx = torch.repeat_interleave(
+            torch.from_numpy(o - boundaries[:-1]).to(dev),
+            torch.from_numpy(c).to(dev), output_size=n)
+        return idx + torch.arange(n, device=dev), boundaries
+
+    def count_in_window_batch(self, tile_ids, window) -> np.ndarray:
+        """Vectorized ``count(t ∩ Q)`` for many tiles — zero file I/O."""
+        tile_ids = np.asarray(tile_ids, np.int64)
+        if tile_ids.size == 0:
+            return np.zeros(0, np.int64)
+        idx, bounds = self._gather_segments(tile_ids)
+        if self._np:
+            m = ops.window_mask_np(self.x_s[idx], self.y_s[idx], window)
+            cs = np.concatenate([[0], np.cumsum(m)])
+            return (cs[bounds[1:]] - cs[bounds[:-1]]).astype(np.int64)
+        m = ops.window_mask(self.x_s[idx], self.y_s[idx], window)
+        cs = torch.cat([m.new_zeros(1, dtype=torch.int64),
+                        torch.cumsum(m, 0)])
+        b = torch.from_numpy(bounds).to(cs.device)
+        return _host(cs[b[1:]] - cs[b[:-1]]).astype(np.int64)
+
+    # ------------------------------------------------------------------ #
+    # processing (the accounted, expensive path)
+    # ------------------------------------------------------------------ #
+    def process(self, tile_id: int, window, attr: str, *, split: bool = True):
+        """The paper's ``process(t)``: read t's objects from the file,
+        compute the exact in-window contribution, split t into sub-tiles,
+        reorganize its object segment, and store sub-tile metadata.
+
+        Returns (cnt_q, sum_q, min_q, max_q) — exact contribution of t∩Q,
+        or ``None`` when the dataset retired mid-query.
+        """
+        if self.ds.closed:
+            return None
+        self.ensure_attr(attr)
+        o, c = int(self.offset[tile_id]), int(self.count[tile_id])
+        if c == 0:
+            return (0, 0.0, np.inf, -np.inf)
+        rows = self.perm[o:o + c]
+        vals = self.ds.read_values(attr, rows)        # ← accounted file I/O
+        xs, ys = self.x_s[o:o + c], self.y_s[o:o + c]
+
+        if self._np:
+            m = ops.window_mask_np(xs, ys, window)
+            cnt_q = int(m.sum())
+            if cnt_q:
+                sel = vals[m]
+                contrib = (cnt_q, float(sel.sum(dtype=np.float64)),
+                           float(sel.min()), float(sel.max()))
+            else:
+                contrib = (0, 0.0, np.inf, -np.inf)
+        else:
+            st = _host(segment_window_agg_torch(
+                xs, ys, vals, np.array([0, c], np.int64), window))[0]
+            contrib = ((int(st[0]), float(st[1]), float(st[2]),
+                        float(st[3])) if st[0] else (0, 0.0, np.inf, -np.inf))
+
+        self._enrich_and_split(tile_id, vals, attr, split)
+        return contrib
+
+    def _enrich_and_split(self, tile_id: int, vals, attr: str, split: bool):
+        """Shared processing epilogue: tile-level metadata enrichment
+        (now exact for this attr) + the split-or-enrich decision."""
+        if self._np:
+            self.meta_sum[attr][tile_id] = float(vals.sum(dtype=np.float64))
+            self.meta_min[attr][tile_id] = float(vals.min())
+            self.meta_max[attr][tile_id] = float(vals.max())
+        else:
+            st = _segment_stats(vals, np.array([0, len(vals)], np.int64))[0]
+            self.meta_sum[attr][tile_id] = float(st[1])
+            self.meta_min[attr][tile_id] = float(st[2])
+            self.meta_max[attr][tile_id] = float(st[3])
+        self.meta_valid[attr][tile_id] = True
+        if split:
+            self._split(tile_id, vals, attr)
+        else:
+            self.adapt_stats.tiles_enriched += 1
+
+    def can_split(self, tile_id: int) -> bool:
+        gx, gy = self.cfg.split_grid
+        k = gx * gy
+        return (self.count[tile_id] >= self.cfg.min_split_count
+                and self.level[tile_id] < self.cfg.max_level
+                and self.n_tiles + k <= self.cfg.capacity)
+
+    def _split(self, tile_id: int, vals, attr: str):
+        """Split + reorganize + per-child metadata (one bin_agg pass)."""
+        gx, gy = self.cfg.split_grid
+        if not self.can_split(tile_id):
+            self.adapt_stats.tiles_enriched += 1
+            return
+        o, c = int(self.offset[tile_id]), int(self.count[tile_id])
+        # NOTE: copies, not views — the segment reorganization below
+        # writes into self.x_s/y_s in place and bin_agg must see the
+        # pristine (coordinate, value)-aligned arrays
+        xs = self.x_s[o:o + c].copy() if self._np else \
+            self.x_s[o:o + c].clone()
+        ys = self.y_s[o:o + c].copy() if self._np else \
+            self.y_s[o:o + c].clone()
+        bbox = self.bbox[tile_id]
+
+        if self._np:
+            cell = geometry.bin_cell_ids(xs, ys, bbox, gx, gy)
+            counts = np.bincount(cell, minlength=gx * gy)
+        else:
+            sid = torch.zeros(c, dtype=torch.int64, device=xs.device)
+            cell = geometry.segment_cell_ids(xs, ys, sid, bbox[None],
+                                             gx, gy)
+            counts = _host(torch.bincount(cell, minlength=gx * gy))
+        boxes = geometry.subtile_bboxes(bbox, gx, gy)
+        child_off = o + np.concatenate([[0], np.cumsum(counts)[:-1]])
+
+        # child metadata for the processed attribute: one binned pass
+        # (data plane — the bin_agg kernel)
+        agg = _host(ops.bin_agg(xs, ys, vals, bbox, gx=gx, gy=gy,
+                                backend=self._backend))
+        self.adapt_stats.kernel_calls += 1
+
+        if self._np:
+            order = np.argsort(cell, kind="stable")
+        else:
+            _check_split_counts(agg, counts)
+            order = torch.sort(cell, stable=True).indices
+        # local reorganization of the parent's segment
+        self.perm[o:o + c] = self.perm[o:o + c][order]
+        self.x_s[o:o + c] = xs[order]
+        self.y_s[o:o + c] = ys[order]
+        vals_sorted = vals[order]
+        self.adapt_stats.objects_reorganized += c
+
+        t0 = self.n_tiles
+        k = gx * gy
+        sl = slice(t0, t0 + k)
+        self.bbox[sl] = boxes
+        self.offset[sl] = child_off
+        self.count[sl] = counts
+        self.active[sl] = True
+        self.level[sl] = self.level[tile_id] + 1
+        self.parent[sl] = tile_id
+        self.n_tiles += k
+        self.active[tile_id] = False
+
+        for a in self.meta_sum:
+            if a == attr:
+                nonzero = counts > 0
+                # the parent's bounds are exact (just enriched) and sound;
+                # clamp children into the parent's interval so metadata
+                # soundness holds exactly
+                pmn = self.meta_min[a][tile_id]
+                pmx = self.meta_max[a][tile_id]
+                self.meta_sum[a][sl] = agg[:, 1].astype(np.float64)
+                self.meta_min[a][sl] = np.where(
+                    nonzero, np.maximum(agg[:, 2], pmn), pmn)
+                self.meta_max[a][sl] = np.where(
+                    nonzero, np.minimum(agg[:, 3], pmx), pmx)
+                self.meta_valid[a][sl] = True
+                # exact f64 sums per child, in the control plane's order
+                if self._np:
+                    for j in range(k):
+                        oj, cj = child_off[j], counts[j]
+                        self.meta_sum[a][t0 + j] = float(
+                            vals_sorted[oj - o:oj - o + cj].sum(
+                                dtype=np.float64))
+                else:
+                    self.meta_sum[a][sl] = _segment_stats(
+                        vals_sorted, np.concatenate(
+                            [[0], np.cumsum(counts)]))[:, 1]
+            else:
+                # inherit sound min/max bounds; sum unknown for children
+                self.meta_min[a][sl] = self.meta_min[a][tile_id]
+                self.meta_max[a][sl] = self.meta_max[a][tile_id]
+                self.meta_valid[a][sl] = False
+        self.adapt_stats.tiles_split += 1
+
+    # ------------------------------------------------------------------ #
+    # batched processing (the amortized, crack-in-batch path)
+    # ------------------------------------------------------------------ #
+    def _dead_batch(self, tile_ids, attr: str):
+        """Degraded phase-1 result when the dataset retired mid-query:
+        every contribution is ``None`` and the payload is inert."""
+        tile_ids = np.asarray(tile_ids, np.int64)
+        payload = {"tile_ids": tile_ids,
+                   "bounds": np.zeros(len(tile_ids) + 1, np.int64),
+                   "attr": attr, "dead": True}
+        return [None] * len(tile_ids), payload
+
+    def read_batch(self, tile_ids, window, attr: str):
+        """Phase 1 of a batched refinement round: ONE gathered
+        ``read_values`` over the tiles' concatenated segments and ONE
+        packed ``segment_window_agg`` kernel give every tile's exact
+        in-window contribution. No index state is mutated.
+
+        Returns ``(contribs, payload)``: ``contribs`` is a list of
+        ``(cnt_q, sum_q, min_q, max_q)`` aligned with ``tile_ids``;
+        ``payload`` carries the gathered segments for :meth:`apply_batch`.
+        Under "np" the contributions are bit for bit the sequential
+        path's; under "torch"/"cuda" the sums are float64 in another
+        order (counts and extrema exact).
+        """
+        if self.ds.closed:
+            return self._dead_batch(tile_ids, attr)
+        self.ensure_attr(attr)
+        tile_ids = np.asarray(tile_ids, np.int64)
+        idx, bounds = self._gather_segments(tile_ids)
+        rows = self.perm[idx]
+        vals = self.ds.read_values(attr, rows)     # ← ONE accounted read
+        xs, ys = self.x_s[idx], self.y_s[idx]
+        self.adapt_stats.batch_rounds += 1
+        payload = {"tile_ids": tile_ids, "idx": idx, "bounds": bounds,
+                   "xs": xs, "ys": ys, "vals": vals, "attr": attr}
+        # exact in-window contributions: one packed kernel over the batch
+        contrib = _host(ops.segment_window_agg(
+            xs, ys, vals, bounds, window, backend=self._backend))
+        self.adapt_stats.kernel_calls += 1
+        contribs = [
+            (int(contrib[s, 0]), float(contrib[s, 1]),
+             float(contrib[s, 2]), float(contrib[s, 3]))
+            if contrib[s, 0] else (0, 0.0, np.inf, -np.inf)
+            for s in range(len(tile_ids))]
+        return contribs, payload
+
+    def apply_batch(self, payload, n_used: int, split_flags):
+        """Phase 2: enrich + split the round's first ``n_used`` tiles.
+
+        Tiles past ``n_used`` (read speculatively but never folded) are
+        left untouched, so the index evolves exactly as under sequential
+        processing. ``split_flags[i]`` requests a split for tile i of the
+        prefix (subject to the split rule, evaluated in order with
+        in-round capacity growth). All children of all split tiles are
+        appended in one SoA update.
+        """
+        if n_used == 0 or payload.get("dead"):
+            return
+        attr = payload["attr"]
+        tile_ids = payload["tile_ids"][:n_used]
+        bounds = payload["bounds"][:n_used + 1]
+        end = int(bounds[-1])
+        idx = payload["idx"][:end]
+        xs, ys = payload["xs"][:end], payload["ys"][:end]
+        vals = payload["vals"][:end]
+        counts = np.diff(bounds)
+
+        # tile-level enrichment — control-plane metadata, float64 (on the
+        # host under "np", on the device otherwise)
+        if self._np:
+            full = ref_mod.segment_window_agg_np(xs, ys, vals, bounds,
+                                                 EVERYWHERE)
+        else:
+            full = _segment_stats(vals, bounds)
+        nz = counts > 0
+        self.meta_sum[attr][tile_ids[nz]] = full[nz, 1]
+        self.meta_min[attr][tile_ids[nz]] = full[nz, 2]
+        self.meta_max[attr][tile_ids[nz]] = full[nz, 3]
+        self.meta_valid[attr][tile_ids[nz]] = True
+
+        # split decisions in order, accounting in-round capacity growth
+        gx, gy = self.cfg.split_grid
+        k = gx * gy
+        nt = self.n_tiles
+        will_split = np.zeros(len(tile_ids), bool)
+        for i, t in enumerate(tile_ids):
+            if not (split_flags[i] and counts[i] > 0):
+                continue
+            if (self.count[t] >= self.cfg.min_split_count
+                    and self.level[t] < self.cfg.max_level
+                    and nt + k <= self.cfg.capacity):
+                will_split[i] = True
+                nt += k
+        self.adapt_stats.tiles_enriched += int(nz.sum() - will_split.sum())
+
+        # every split tile shares the even grid: one packed pass, children
+        # appended in fold order (the sequential path's tile ids)
+        run = np.flatnonzero(will_split)
+        if run.size == 0:
+            return
+        # boolean indexing copies, and xs/ys are gathered copies to begin
+        # with — _split_batch may reorganize x_s/y_s in place
+        if self._np:
+            keep = np.repeat(will_split, counts)
+        else:
+            dev = vals.device
+            keep = torch.repeat_interleave(
+                torch.from_numpy(will_split).to(dev),
+                torch.from_numpy(counts).to(dev), output_size=end)
+        self._split_batch(tile_ids[run], idx[keep], xs[keep], ys[keep],
+                          vals[keep], attr)
+
+    def _split_batch(self, parents, idx, xs, ys, vals, attr: str):
+        """Vectorized multi-tile split: every parent's segment is binned
+        against its own bbox, reorganized in place, and ALL children are
+        appended in one SoA update. ``idx/xs/ys/vals`` cover the parents'
+        concatenated segments (pristine copies, concat order)."""
+        gx, gy = self.cfg.split_grid
+        k = gx * gy
+        s_n = len(parents)
+        off = self.offset[parents]
+        cnt = self.count[parents]
+        bboxes = self.bbox[parents]
+        bounds = np.concatenate([[0], np.cumsum(cnt)]).astype(np.int64)
+
+        # per-element cell ids under each parent's own ownership rule
+        if self._np:
+            sid = np.repeat(np.arange(s_n), cnt)
+            cw = np.maximum((bboxes[:, 2] - bboxes[:, 0]) / gx, 1e-30)
+            ch = np.maximum((bboxes[:, 3] - bboxes[:, 1]) / gy, 1e-30)
+            cx = np.clip(np.floor((xs - bboxes[sid, 0]) / cw[sid]).astype(
+                np.int64), 0, gx - 1)
+            cy = np.clip(np.floor((ys - bboxes[sid, 1]) / ch[sid]).astype(
+                np.int64), 0, gy - 1)
+            key = sid * k + cy * gx + cx
+            counts_sk = np.bincount(key, minlength=s_n * k).reshape(s_n, k)
+        else:
+            sid = segment_ids(bounds, xs.device)
+            key = geometry.segment_cell_ids(xs, ys, sid, bboxes, gx, gy)
+            counts_sk = _host(torch.bincount(
+                key, minlength=s_n * k)).reshape(s_n, k)
+        child_off = off[:, None] + np.concatenate(
+            [np.zeros((s_n, 1), np.int64),
+             np.cumsum(counts_sk, axis=1)[:, :-1]], axis=1)
+
+        # child metadata for the processed attribute: one packed kernel
+        agg = _host(ops.segment_bin_agg(
+            xs, ys, vals, bounds, bboxes, gx=gx, gy=gy,
+            backend=self._backend))
+        self.adapt_stats.kernel_calls += 1
+
+        # one global stable sort reorganizes every parent's segment
+        # (keys are segment-major, so the permutation never crosses
+        # segment boundaries — identical to the per-tile counting sort)
+        if self._np:
+            order = np.argsort(key, kind="stable")
+        else:
+            _check_split_counts(agg, counts_sk)
+            order = torch.sort(key, stable=True).indices
+        self.perm[idx] = self.perm[idx][order]
+        self.x_s[idx] = xs[order]
+        self.y_s[idx] = ys[order]
+        vals_sorted = vals[order]
+        self.adapt_stats.objects_reorganized += int(cnt.sum())
+
+        # one SoA append for all children of all parents
+        t0 = self.n_tiles
+        sl = slice(t0, t0 + s_n * k)
+        self.bbox[sl] = np.concatenate(
+            [geometry.subtile_bboxes(b, gx, gy) for b in bboxes])
+        self.offset[sl] = child_off.reshape(-1)
+        self.count[sl] = counts_sk.reshape(-1)
+        self.active[sl] = True
+        self.level[sl] = np.repeat(self.level[parents] + 1, k)
+        self.parent[sl] = np.repeat(parents, k)
+        self.n_tiles += s_n * k
+        self.active[parents] = False
+
+        rel_off = child_off - off[:, None] + bounds[:-1, None]
+        for a in self.meta_sum:
+            if a == attr:
+                nonzero = counts_sk > 0
+                pmn = self.meta_min[a][parents][:, None]
+                pmx = self.meta_max[a][parents][:, None]
+                # clamp kernel extremes into the parents' sound
+                # intervals (same rule as the sequential _split)
+                self.meta_min[a][sl] = np.where(
+                    nonzero, np.maximum(agg[:, :, 2], pmn), pmn).reshape(-1)
+                self.meta_max[a][sl] = np.where(
+                    nonzero, np.minimum(agg[:, :, 3], pmx), pmx).reshape(-1)
+                self.meta_valid[a][sl] = True
+                # exact f64 sums per child, in the control plane's order
+                flat_cnt = counts_sk.reshape(-1)
+                if self._np:
+                    flat_rel = rel_off.reshape(-1)
+                    sums = np.empty(s_n * k, np.float64)
+                    for j in range(s_n * k):
+                        sums[j] = vals_sorted[flat_rel[j]:flat_rel[j] +
+                                              flat_cnt[j]].sum(
+                                                  dtype=np.float64)
+                else:
+                    # children are contiguous in key order
+                    sums = _segment_stats(vals_sorted, np.concatenate(
+                        [[0], np.cumsum(flat_cnt)]))[:, 1]
+                self.meta_sum[a][sl] = sums
+            else:
+                # inherit sound min/max bounds; sum unknown for children
+                self.meta_min[a][sl] = np.repeat(self.meta_min[a][parents], k)
+                self.meta_max[a][sl] = np.repeat(self.meta_max[a][parents], k)
+                self.meta_valid[a][sl] = False
+        self.adapt_stats.tiles_split += s_n
+
+    # ------------------------------------------------------------------ #
+    # invariant checking (used by property tests and the chip smoke)
+    # ------------------------------------------------------------------ #
+    def check_invariants(self, attr: Optional[str] = None):
+        ids = np.flatnonzero(self.active[:self.n_tiles])
+        assert self.count[ids].sum() == self.ds.n, "object conservation"
+        # Extent containment is approximate BY the ownership rule: init
+        # cells are assigned in float32, so a boundary point can round
+        # one cell up/down relative to the f64 bbox edges — an excursion
+        # of up to ~1 f32 ulp at domain scale. Membership — and therefore
+        # metadata — stays exact.
+        scale = max(1.0, float(np.abs(np.asarray(self.domain)).max()))
+        tol = max(1e-6, 2.0 * float(np.finfo(np.float32).eps) * scale)
+        if not self._np:
+            self._check_invariants_device(ids, attr, tol)
+            return
+        assert len(np.unique(np.sort(self.perm))) == self.ds.n, \
+            "perm is a permutation"
+        for t in ids:
+            o, c = self.offset[t], self.count[t]
+            if c == 0:
+                continue
+            x0, y0, x1, y1 = self.bbox[t]
+            xs, ys = self.x_s[o:o + c], self.y_s[o:o + c]
+            assert (xs >= x0 - tol).all() and (xs <= x1 + tol).all()
+            assert (ys >= y0 - tol).all() and (ys <= y1 + tol).all()
+        if attr is not None and attr in self.meta_sum:
+            col = as_host(self.ds.read_all_unaccounted(attr))
+            for t in ids:
+                o, c = self.offset[t], self.count[t]
+                seg = col[self.perm[o:o + c]]
+                if c:
+                    # exact: values are f32 end-to-end, min/max reductions
+                    # do not round, and child bounds are clamped into the
+                    # parent's sound interval at split time
+                    assert seg.min() >= self.meta_min[attr][t]
+                    assert seg.max() <= self.meta_max[attr][t]
+                if self.meta_valid[attr][t] and c:
+                    np.testing.assert_allclose(
+                        seg.sum(dtype=np.float64), self.meta_sum[attr][t],
+                        rtol=1e-6, atol=1e-4)
+
+    def _check_invariants_device(self, ids, attr, tol):
+        """The same invariants with one segmented reduction per check:
+        the active tiles, in offset order, must tile the permutation."""
+        n = self.ds.n
+        dev = self.perm.device
+        assert torch.equal(torch.sort(self.perm).values,
+                           torch.arange(n, device=dev)), \
+            "perm is a permutation"
+        ids = ids[np.argsort(self.offset[ids], kind="stable")]
+        cnt = self.count[ids]
+        bounds = np.concatenate([[0], np.cumsum(cnt)]).astype(np.int64)
+        assert np.array_equal(self.offset[ids], bounds[:-1]), \
+            "active segments tile the permutation"
+        nz = cnt > 0
+        bb = self.bbox[ids]
+        for plane, lo, hi in ((self.x_s, bb[:, 0], bb[:, 2]),
+                              (self.y_s, bb[:, 1], bb[:, 3])):
+            st = _segment_stats(plane, bounds)
+            assert (st[nz, 2] >= lo[nz] - tol).all()
+            assert (st[nz, 3] <= hi[nz] + tol).all()
+        if attr is not None and attr in self.meta_sum:
+            col = self.ds.read_all_unaccounted(attr)
+            st = _segment_stats(col[self.perm], bounds)
+            assert (st[nz, 2] >= self.meta_min[attr][ids[nz]]).all()
+            assert (st[nz, 3] <= self.meta_max[attr][ids[nz]]).all()
+            v = nz & self.meta_valid[attr][ids]
+            np.testing.assert_allclose(st[v, 1], self.meta_sum[attr][ids[v]],
+                                       rtol=1e-6, atol=1e-4)
+
+    @property
+    def n_active(self) -> int:
+        return int(self.active[:self.n_tiles].sum())

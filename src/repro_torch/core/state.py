@@ -1,0 +1,67 @@
+"""Carrying a cracked index across from the reference package.
+
+:func:`index_from_numpy` builds a port :class:`~repro_torch.core.index.
+TileIndex` from plain numpy arrays taken off a reference ``TileIndex``
+(the counterpart of carrying a model's weights across), so both packages
+can continue from the same cracked index. :func:`index_to_numpy` takes
+the same arrays off either package's index (reference or port).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ..data.rawfile import RawDataset
+from .index import IndexConfig, TileIndex
+
+TABLE = ("bbox", "offset", "count", "active", "level", "parent")
+OBJECTS = ("perm", "x_s", "y_s")
+META = ("meta_sum", "meta_min", "meta_max", "meta_valid")
+
+
+def index_to_numpy(index) -> Dict[str, object]:
+    """The state :func:`index_from_numpy` reads: the tile table,
+    ``n_tiles``, the perm-order object arrays, per-attribute metadata and
+    ``global_minmax`` — all numpy (device tensors are copied to the
+    host)."""
+    out = {k: np.array(getattr(index, k)) for k in TABLE}
+    out["n_tiles"] = int(index.n_tiles)
+    for k in OBJECTS:
+        a = getattr(index, k)
+        out[k] = a.cpu().numpy() if isinstance(a, torch.Tensor) \
+            else np.array(a)
+    for k in META:
+        out[k] = {a: np.array(v) for a, v in getattr(index, k).items()}
+    out["global_minmax"] = dict(index.global_minmax)
+    return out
+
+
+def index_from_numpy(dataset: RawDataset, config: Optional[IndexConfig],
+                     arrays: Dict[str, object]) -> TileIndex:
+    """A port ``TileIndex`` over ``dataset`` holding ``arrays`` (see
+    :func:`index_to_numpy`), without an init pass: no I/O is accounted.
+    The object arrays go to the dataset's device under "torch"/"cuda"."""
+    ti = TileIndex.__new__(TileIndex)
+    ti._setup(dataset, config)
+    ti.domain = dataset.domain()
+    cap = ti.cfg.capacity
+    for k in TABLE:
+        a = np.asarray(arrays[k])
+        if len(a) != cap:
+            raise ValueError(f"{k} has {len(a)} rows, capacity is {cap}")
+        getattr(ti, k)[...] = a
+    ti.n_tiles = int(arrays["n_tiles"])
+    for k in OBJECTS:
+        a = np.array(arrays[k])
+        if len(a) != dataset.n:
+            raise ValueError(f"{k} has {len(a)} entries, the dataset "
+                             f"{dataset.n}")
+        setattr(ti, k, a if ti._np else
+                torch.from_numpy(a).to(dataset.device))
+    for k in META:
+        setattr(ti, k, {a: np.array(v) for a, v in arrays[k].items()})
+    ti.global_minmax = {a: (float(lo), float(hi))
+                        for a, (lo, hi) in arrays["global_minmax"].items()}
+    return ti

@@ -1,0 +1,172 @@
+// Shared pieces of the keyed (count, sum, min, max) reductions.
+//
+// Every kernel of this family is a keyed reduction: each object gets a
+// key = segment * k + cell, folds into a block-private table in shared
+// memory, and each block flushes its table to a global workspace with
+// atomics. A one-block epilogue turns the workspace into the f64
+// (count, sum, min, max) rows the host control plane reads.
+//
+// Channels: counts are integers (exact at any size), sums float64
+// (native atomicAdd(double)), extrema float32 under the sign-flipped
+// unsigned ordering, so atomicMin/atomicMax on the encoding order the
+// floats. An empty cell decodes to (0, 0, +inf, -inf).
+#pragma once
+#include <cuda_runtime.h>
+#include <math.h>
+
+#define AGG_MAX_SEGMENTS 64
+#define AGG_MAX_CELLS 2048
+#define AGG_THREADS 256
+#define AGG_ITEMS 16  // objects per thread per block chunk
+#define AGG_CHUNK (AGG_THREADS * AGG_ITEMS)
+
+#define ENC_POS_INF 0xff800000u
+#define ENC_NEG_INF 0x007fffffu
+
+struct Bounds {
+  long long b[AGG_MAX_SEGMENTS + 1];
+};
+
+// global workspace cell (24 bytes; the wrapper hands an int64 (cells, 3)
+// tensor)
+struct Cell {
+  unsigned long long cnt;
+  double sum;
+  unsigned int mn;
+  unsigned int mx;
+};
+
+__device__ __forceinline__ unsigned int f2o(float f) {
+  unsigned int u = __float_as_uint(f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float o2f(unsigned int o) {
+  unsigned int u = (o & 0x80000000u) ? (o & 0x7fffffffu) : ~o;
+  return __uint_as_float(u);
+}
+
+// last s in [0, S) with b[s] <= i, for b[0] <= i < b[S] (empty segments
+// share a boundary and are skipped)
+__device__ __forceinline__ int segment_of(const long long* b, int S,
+                                          long long i) {
+  int lo = 0, hi = S;
+  while (hi - lo > 1) {
+    int mid = (lo + hi) >> 1;
+    if (b[mid] <= i) lo = mid; else hi = mid;
+  }
+  return lo;
+}
+
+// block-private table in dynamic shared memory
+struct Table {
+  double* sum;
+  unsigned int* cnt;
+  unsigned int* mn;
+  unsigned int* mx;
+};
+
+__device__ __forceinline__ Table table_at(char* smem, int cells) {
+  Table t;
+  t.sum = reinterpret_cast<double*>(smem);
+  t.cnt = reinterpret_cast<unsigned int*>(t.sum + cells);
+  t.mn = t.cnt + cells;
+  t.mx = t.mn + cells;
+  return t;
+}
+
+__host__ __device__ __forceinline__ size_t table_bytes(int cells) {
+  return (size_t)cells * (sizeof(double) + 3 * sizeof(unsigned int));
+}
+
+__device__ __forceinline__ void table_init(Table t, int cells) {
+  for (int c = threadIdx.x; c < cells; c += blockDim.x) {
+    t.sum[c] = 0.0;
+    t.cnt[c] = 0u;
+    t.mn[c] = ENC_POS_INF;
+    t.mx[c] = ENC_NEG_INF;
+  }
+}
+
+// one thread's run of consecutive same-key objects, kept in registers:
+// objects of one chunk mostly share a key, so most folds touch no
+// shared memory at all
+struct Run {
+  int key;
+  unsigned int cnt;
+  double sum;
+  float mn, mx;
+};
+
+__device__ __forceinline__ void run_reset(Run& r, int key) {
+  r.key = key;
+  r.cnt = 0u;
+  r.sum = 0.0;
+  r.mn = INFINITY;
+  r.mx = -INFINITY;
+}
+
+__device__ __forceinline__ void run_flush(Run& r, Table t) {
+  if (r.cnt) {
+    atomicAdd(&t.cnt[r.key], r.cnt);
+    atomicAdd(&t.sum[r.key], r.sum);
+    atomicMin(&t.mn[r.key], f2o(r.mn));
+    atomicMax(&t.mx[r.key], f2o(r.mx));
+  }
+}
+
+__device__ __forceinline__ void run_add(Run& r, int key, float v, Table t) {
+  if (key != r.key) {
+    run_flush(r, t);
+    run_reset(r, key);
+  }
+  r.cnt += 1u;
+  r.sum += (double)v;
+  r.mn = fminf(r.mn, v);
+  r.mx = fmaxf(r.mx, v);
+}
+
+__device__ __forceinline__ void table_flush(Table t, int cells, Cell* ws) {
+  for (int c = threadIdx.x; c < cells; c += blockDim.x) {
+    if (t.cnt[c]) {
+      atomicAdd(&ws[c].cnt, (unsigned long long)t.cnt[c]);
+      atomicAdd(&ws[c].sum, t.sum[c]);
+      atomicMin(&ws[c].mn, t.mn[c]);
+      atomicMax(&ws[c].mx, t.mx[c]);
+    }
+  }
+}
+
+__global__ void workspace_init(Cell* ws, int cells) {
+  int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c < cells) {
+    ws[c].cnt = 0ull;
+    ws[c].sum = 0.0;
+    ws[c].mn = ENC_POS_INF;
+    ws[c].mx = ENC_NEG_INF;
+  }
+}
+
+// (cells, 4) float64 rows: count, sum, min, max
+__global__ void workspace_finalize(const Cell* ws, double* out, int cells) {
+  int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c < cells) {
+    out[4 * c + 0] = (double)ws[c].cnt;
+    out[4 * c + 1] = ws[c].sum;
+    out[4 * c + 2] = (double)o2f(ws[c].mn);
+    out[4 * c + 3] = (double)o2f(ws[c].mx);
+  }
+}
+
+// numpy's clip(floor(q).astype(int64), 0, g - 1): an out-of-range
+// float -> int64 cast yields INT64_MIN there, which the clip sends to 0
+__device__ __forceinline__ int clip_cell(double q, int g) {
+  double f = floor(q);
+  if (!(f >= -9.2233720368547758e18 && f < 9.2233720368547758e18)) return 0;
+  long long c = (long long)f;
+  return c < 0 ? 0 : (c > g - 1 ? g - 1 : (int)c);
+}
+
+extern "C" const char* agg_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

@@ -1,0 +1,133 @@
+"""Public kernel ops, with the reference's names and signatures
+(``repro/kernels/ops.py``).
+
+Backends, chosen per call (``backend=``, default ``"cuda"``):
+
+- ``"np"`` — the float64 host mirrors of :mod:`repro_torch.kernels.ref`,
+  bit for bit the reference's ``"np"`` backend. Host data only: a CUDA
+  tensor raises. Returns numpy.
+- ``"torch"`` — the plain PyTorch versions, on whatever device the
+  tensors are on. Returns a float64 tensor there.
+- ``"cuda"`` — the hand-written Hopper kernels. CUDA tensors only: a CPU
+  tensor raises (there is no quiet fallback). Returns a float64 tensor
+  on the device.
+
+Every backend returns ``(count, sum, min, max)`` rows: counts exact,
+sums float64 (``"np"``'s ``bin_agg`` keeps the reference's float32
+rows), extrema exact.
+
+Precision rules the port keeps, and where the reference states them:
+
+- **Window compare (float32).** ``window_mask_np``
+  (``repro/kernels/ops.py:574-577``) and ``segment_window_agg_np``
+  (``repro/kernels/ref.py:355-361``) compare float32 coordinates with a
+  window of Python floats, which numpy 2 keeps weak: the compare is
+  float32. (A window of ``np.float64`` would compare in float64: at edge
+  0.7 the point ``0.7f`` falls inside under one rule and outside under
+  the other.) The torch paths and the kernel round the window to
+  float32 first (:func:`~repro_torch.kernels.segment_agg.window_f32`),
+  which gives the float32 rule whatever precision the compare runs in;
+  the reference's device path does the same (``ops.py:236``). Windows
+  stay Python floats or float32, never float64 tensors.
+- **Split ownership (float64).** Split binning subtracts a float64 bbox
+  from float32 coordinates in float64 (``repro/core/index.py:820-826``,
+  ``repro/kernels/ops.py:68-75``, and ``geometry.bin_cell_ids`` under
+  ``_split`` at ``repro/core/index.py:494-497``). The CUDA split kernels
+  take each segment's ``(x0, y0, cw, ch)`` as doubles computed as the
+  host computes them and bin ``((double)x − x0) / cw`` in double — the
+  Pallas split kernels re-bin in float32 instead, which can disagree
+  with the host on a boundary object.
+- **Init ownership (float32).** The init pass bins
+  ``bin_cell_ids(dataset.x, dataset.y, domain, gx, gy)`` with ``domain``
+  a tuple of Python floats (``repro/core/index.py:181-184``,
+  ``repro/data/rawfile.py:83-84``): numpy 2 keeps them weak, so that
+  binning is float32 arithmetic. No kernel runs it; the index reproduces
+  it on tensors (:func:`repro_torch.core.geometry.bin_cell_ids_f32`).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..data.rawfile import as_host
+from . import ref
+from .bin_agg import bin_agg_cuda, bin_agg_torch
+from .ref import window_mask_np
+from .segment_agg import (segment_bin_agg_cuda, segment_bin_agg_torch,
+                          segment_window_agg_cuda, segment_window_agg_torch,
+                          window_f32)
+
+BACKENDS = ("np", "torch", "cuda")
+
+
+def default_backend() -> str:
+    return "cuda"
+
+
+def _backend(backend, *tensors) -> str:
+    backend = backend or default_backend()
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
+    if backend == "np":
+        return backend
+    for t in tensors:
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"the {backend!r} backend takes tensors")
+        if backend == "cuda" and t.device.type != "cuda":
+            raise TypeError("the 'cuda' backend takes CUDA tensors; a "
+                            f"tensor on {t.device} was given")
+    return backend
+
+
+def window_mask(xs, ys, window):
+    """Closed-window mask of tensors under the float32 compare rule."""
+    x0, y0, x1, y1 = window_f32(window)
+    return (xs >= x0) & (xs <= x1) & (ys >= y0) & (ys <= y1)
+
+
+def segment_window_agg(xs, ys, vals, boundaries, window, *, backend=None):
+    """Per-segment (count, sum, min, max) inside the closed ``window``;
+    ``boundaries`` (int, (S+1,)) delimit the concatenated segments. An
+    all-covering window (±inf edges) yields full-segment aggregates.
+    Returns ``(S, 4)``."""
+    backend = _backend(backend, xs, ys, vals)
+    if backend == "np":
+        return ref.segment_window_agg_np(
+            as_host(xs), as_host(ys), as_host(vals),
+            np.asarray(boundaries, np.int64), window)
+    if backend == "torch":
+        return segment_window_agg_torch(xs, ys, vals, boundaries, window)
+    return segment_window_agg_cuda(xs, ys, vals, boundaries, window)
+
+
+def segment_bin_agg(xs, ys, vals, boundaries, bboxes, *, gx, gy,
+                    backend=None):
+    """Per-segment, per-cell (count, sum, min, max): segment s split by
+    its own ``bboxes[s]`` into ``gx × gy`` cells. Returns
+    ``(S, gx*gy, 4)``; cell id = cy*gx + cx."""
+    backend = _backend(backend, xs, ys, vals)
+    if backend == "np":
+        return ref.segment_bin_agg_np(
+            as_host(xs), as_host(ys), as_host(vals),
+            np.asarray(boundaries, np.int64), bboxes, gx, gy)
+    if backend == "torch":
+        return segment_bin_agg_torch(xs, ys, vals, boundaries, bboxes,
+                                     gx, gy)
+    return segment_bin_agg_cuda(xs, ys, vals, boundaries, bboxes, gx, gy)
+
+
+def bin_agg(xs, ys, vals, bbox, *, gx, gy, backend=None):
+    """Per-cell (count, sum, min, max) over a gx×gy split of one bbox.
+    Returns ``(gx*gy, 4)``."""
+    backend = _backend(backend, xs, ys, vals)
+    if backend == "np":
+        xs = as_host(xs)
+        return ref.bin_agg_np(xs, as_host(ys), as_host(vals), bbox, gx, gy,
+                              len(xs))
+    if backend == "torch":
+        return bin_agg_torch(xs, ys, vals, bbox, gx, gy)
+    return bin_agg_cuda(xs, ys, vals, bbox, gx, gy)
+
+
+__all__ = ["segment_window_agg", "segment_bin_agg", "bin_agg",
+           "window_mask", "window_mask_np", "default_backend", "BACKENDS"]

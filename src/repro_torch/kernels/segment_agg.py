@@ -1,0 +1,239 @@
+"""Packed multi-segment aggregation: plain PyTorch versions and the
+CUDA kernels' wrappers (``csrc/segment_window_agg.cu``,
+``csrc/segment_bin_agg.cu``).
+
+A batched refinement round gathers the object segments of its tiles into
+ONE concatenated stream (``boundaries`` ``(S+1,)`` delimit segment s as
+``[boundaries[s], boundaries[s+1])``) and needs, in one pass,
+
+- ``segment_window_agg``: per-segment ``(count, sum, min, max)`` inside
+  one closed window — every tile's exact in-window contribution (a ±inf
+  window gives whole-segment enrichment statistics);
+- ``segment_bin_agg``: per-(segment, cell) aggregates over each
+  segment's own even ``gx × gy`` split of its bbox — the child metadata
+  of every tile split in the round.
+
+Every function returns float64 rows ``(count, sum, min, max)`` on the
+input's device: integer-valued counts, float64 sums, float32 extrema
+widened exactly. The ``*_torch`` functions are the plain versions (any
+device; the CPU tests run them); the ``*_cuda`` functions launch the
+hand-written kernels and take CUDA tensors only.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from . import build
+
+# Control-plane constants of the reference (``repro/kernels/
+# segment_agg.py:58``, ``repro/kernels/gridplan.py:37``). They size the
+# driver's refinement rounds and validate ``IndexConfig``; the CUDA
+# kernels have no unroll limit, but changing these would change
+# ``read_calls`` and the index evolution against the reference.
+MAX_SEGMENTS = 64
+MAX_UNROLL = 512
+# the kernels' block-private table (csrc/agg_common.cuh AGG_MAX_CELLS)
+MAX_TABLE_CELLS = 2048
+
+EVERYWHERE = (-np.inf, -np.inf, np.inf, np.inf)
+_INT64_EDGE = 9.2233720368547758e18
+
+
+# --------------------------------------------------------------------- #
+# shared plumbing (plain versions and wrappers alike)
+# --------------------------------------------------------------------- #
+
+def window_f32(window):
+    """The window's edges rounded to float32, as Python floats. A
+    float32 coordinate compares against these the same way in float32
+    or float64 — the reference's rule for Python-float windows
+    (``repro/kernels/ops.py:574-577`` under numpy 2's weak scalars)."""
+    return tuple(float(np.float32(w)) for w in window)
+
+
+def host_bounds(boundaries) -> np.ndarray:
+    """Segment boundaries as a host int64 vector, validated."""
+    b = np.ascontiguousarray(boundaries, np.int64)
+    if b.ndim != 1 or len(b) < 2 or (np.diff(b) < 0).any():
+        raise ValueError("boundaries must be a non-decreasing (S+1,) "
+                         "vector with S >= 1")
+    return b
+
+
+def bin_params(bboxes, gx: int, gy: int) -> np.ndarray:
+    """Per-segment ``(x0, y0, cw, ch)`` float64 rows of the even split —
+    ``cw = max((x1 - x0) / gx, 1e-30)``, the host rule of
+    ``repro/core/index.py:820-821``."""
+    bb = np.asarray(bboxes, np.float64).reshape(-1, 4)
+    cw = np.maximum((bb[:, 2] - bb[:, 0]) / gx, 1e-30)
+    ch = np.maximum((bb[:, 3] - bb[:, 1]) / gy, 1e-30)
+    return np.ascontiguousarray(np.stack([bb[:, 0], bb[:, 1], cw, ch], 1))
+
+
+def clip_cell(q: torch.Tensor, g: int) -> torch.Tensor:
+    """numpy's ``clip(floor(q).astype(int64), 0, g - 1)``, including its
+    out-of-range cast (INT64_MIN, clipped to 0)."""
+    f = torch.floor(q)
+    f = torch.where((f >= -_INT64_EDGE) & (f < _INT64_EDGE), f,
+                    torch.zeros_like(f))
+    return f.clamp(0, g - 1).to(torch.int64)
+
+
+def segment_ids(b: np.ndarray, device) -> torch.Tensor:
+    """Per-object segment id of the stream ``[b[0], b[-1])``."""
+    counts = torch.from_numpy(np.diff(b)).to(device)
+    return torch.repeat_interleave(
+        torch.arange(len(b) - 1, device=device), counts,
+        output_size=int(b[-1] - b[0]))
+
+
+def cell_keys(xs, ys, sid, params: np.ndarray, gx: int,
+              gy: int) -> torch.Tensor:
+    """Ownership key ``sid·k + cy·gx + cx`` under the float64 split rule:
+    ``((double)x − x0) / cw`` per object, IEEE subtract and divide of
+    gathered per-object operands (never a scalar divisor, which PyTorch
+    may turn into a multiply by the reciprocal)."""
+    p = torch.from_numpy(params).to(xs.device)[sid]
+    cx = clip_cell((xs.double() - p[:, 0]) / p[:, 2], gx)
+    cy = clip_cell((ys.double() - p[:, 1]) / p[:, 3], gy)
+    return sid * (gx * gy) + cy * gx + cx
+
+
+def agg4(key: torch.Tensor, vals: torch.Tensor,
+         n_cells: int) -> torch.Tensor:
+    """Plain keyed reduction: float64 ``(n_cells, 4)``."""
+    dev = vals.device
+    cnt = torch.bincount(key, minlength=n_cells).to(torch.float64)
+    s = torch.zeros(n_cells, dtype=torch.float64, device=dev).index_add_(
+        0, key, vals.to(torch.float64))
+    mn = torch.full((n_cells,), np.inf, dtype=torch.float32,
+                    device=dev).scatter_reduce_(0, key, vals, "amin")
+    mx = torch.full((n_cells,), -np.inf, dtype=torch.float32,
+                    device=dev).scatter_reduce_(0, key, vals, "amax")
+    return torch.stack([cnt, s, mn.to(torch.float64),
+                        mx.to(torch.float64)], 1)
+
+
+# --------------------------------------------------------------------- #
+# plain PyTorch versions
+# --------------------------------------------------------------------- #
+
+def segment_window_agg_torch(xs, ys, vals, boundaries, window):
+    """Plain version of :func:`segment_window_agg_cuda`: float64
+    ``(S, 4)`` on the input's device."""
+    b = host_bounds(boundaries)
+    lo, hi = int(b[0]), int(b[-1])
+    xs, ys, vals = xs[lo:hi], ys[lo:hi], vals[lo:hi]
+    sid = segment_ids(b, vals.device)
+    if tuple(window) == EVERYWHERE:
+        return agg4(sid, vals, len(b) - 1)
+    x0, y0, x1, y1 = window_f32(window)
+    m = (xs >= x0) & (xs <= x1) & (ys >= y0) & (ys <= y1)
+    return agg4(sid[m], vals[m], len(b) - 1)
+
+
+def segment_bin_agg_torch(xs, ys, vals, boundaries, bboxes, gx: int,
+                          gy: int):
+    """Plain version of :func:`segment_bin_agg_cuda`: float64
+    ``(S, gx*gy, 4)`` on the input's device."""
+    b = host_bounds(boundaries)
+    lo, hi = int(b[0]), int(b[-1])
+    sid = segment_ids(b, vals.device)
+    key = cell_keys(xs[lo:hi], ys[lo:hi], sid, bin_params(bboxes, gx, gy),
+                    gx, gy)
+    n_seg = len(b) - 1
+    return agg4(key, vals[lo:hi], n_seg * gx * gy).reshape(
+        n_seg, gx * gy, 4)
+
+
+# --------------------------------------------------------------------- #
+# CUDA kernel wrappers
+# --------------------------------------------------------------------- #
+
+_P = ctypes.c_void_p
+_SWA_ARGS = [_P, _P, _P, _P, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+             ctypes.c_float, ctypes.c_float, _P, _P, _P]
+_SBA_ARGS = [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             _P, _P, _P]
+
+
+def check_planes(b: np.ndarray, *planes: torch.Tensor) -> torch.device:
+    """The kernels take contiguous 1-D float32 CUDA planes covering the
+    segments; anything else raises before a pointer is passed."""
+    dev = planes[0].device
+    for p in planes:
+        if not isinstance(p, torch.Tensor) or p.device.type != "cuda":
+            raise TypeError("the CUDA kernels take CUDA tensors; use the "
+                            "'torch' backend for CPU tensors")
+        if p.dtype != torch.float32 or p.dim() != 1 \
+                or not p.is_contiguous() or p.device != dev:
+            raise TypeError("kernel planes must be contiguous 1-D float32 "
+                            "tensors on one device")
+        if p.numel() < b[-1]:
+            raise ValueError("a plane is shorter than the segments")
+    if b[0] < 0:
+        raise ValueError("negative segment boundary")
+    return dev
+
+
+def segment_window_agg_cuda(xs, ys, vals, boundaries, window):
+    """Launch ``segment_window_agg`` (TPU original:
+    ``repro/kernels/segment_agg.py`` ``segment_window_agg_pallas``).
+    Returns float64 ``(S, 4)`` on the device; launches on the current
+    stream and does not synchronise."""
+    b = host_bounds(boundaries)
+    n_seg = len(b) - 1
+    if n_seg > MAX_SEGMENTS:
+        raise ValueError(f"{n_seg} segments > MAX_SEGMENTS={MAX_SEGMENTS}")
+    dev = check_planes(b, xs, ys, vals)
+    fn = build.load("segment_window_agg", "segment_window_agg_launch",
+                    _SWA_ARGS)
+    ws = torch.empty((n_seg, 3), dtype=torch.int64, device=dev)
+    out = torch.empty((n_seg, 4), dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        rc = fn(xs.data_ptr(), ys.data_ptr(), vals.data_ptr(),
+                b.ctypes.data, n_seg, *window_f32(window), ws.data_ptr(),
+                out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    build.check("segment_window_agg", rc)
+    build.LAUNCHES["segment_window_agg"] += 1
+    return out
+
+
+def launch_segment_bin_agg(xs, ys, vals, b: np.ndarray, params: np.ndarray,
+                           gx: int, gy: int) -> torch.Tensor:
+    """One launch of the ``csrc/segment_bin_agg.cu`` kernel (shared by
+    ``segment_bin_agg`` and its S = 1 case ``bin_agg``; the callers
+    count their own launches)."""
+    n_seg = len(b) - 1
+    k = gx * gy
+    if n_seg > MAX_SEGMENTS or n_seg * k > MAX_TABLE_CELLS:
+        raise ValueError(f"{n_seg} segments x {k} cells exceeds the "
+                         f"kernel's table ({MAX_SEGMENTS} segments, "
+                         f"{MAX_TABLE_CELLS} cells)")
+    dev = check_planes(b, xs, ys, vals)
+    params = np.ascontiguousarray(params, np.float64)
+    fn = build.load("segment_bin_agg", "segment_bin_agg_launch", _SBA_ARGS)
+    ws = torch.empty((n_seg * k, 3), dtype=torch.int64, device=dev)
+    out = torch.empty((n_seg, k, 4), dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        rc = fn(xs.data_ptr(), ys.data_ptr(), vals.data_ptr(),
+                b.ctypes.data, params.ctypes.data, n_seg, gx, gy,
+                ws.data_ptr(), out.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+    build.check("segment_bin_agg", rc)
+    return out
+
+
+def segment_bin_agg_cuda(xs, ys, vals, boundaries, bboxes, gx: int,
+                         gy: int):
+    """Launch ``segment_bin_agg`` (TPU original:
+    ``repro/kernels/segment_agg.py`` ``segment_bin_agg_pallas``).
+    Returns float64 ``(S, gx*gy, 4)`` on the device."""
+    b = host_bounds(boundaries)
+    out = launch_segment_bin_agg(xs, ys, vals, b,
+                                 bin_params(bboxes, gx, gy), gx, gy)
+    build.LAUNCHES["segment_bin_agg"] += 1
+    return out

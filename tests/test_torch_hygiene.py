@@ -1,0 +1,92 @@
+"""Rules the port keeps apart from any behaviour test.
+
+- No module of ``src/repro_torch`` and not ``chip_smoke.py`` imports
+  ``jax`` or the reference package ``repro``.
+- The entry points run on the card unless asked for the CPU: without
+  CUDA they raise instead of running on the CPU.
+- Importing the kernel modules needs neither ``nvcc`` nor a GPU, and
+  ``chip_smoke.py`` exits non-zero, printing no result, without a card
+  or without the repository beside it.
+"""
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import AQPEngine, IndexConfig
+from repro_torch.data import RawDataset, make_synthetic_dataset
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_and_no_reference(path):
+    for mod in imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+
+
+def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_synthetic_dataset(n=1000)
+    with pytest.raises(RuntimeError):
+        RawDataset(np.zeros(3), np.zeros(3), {"a0": np.zeros(3)})
+    ds = make_synthetic_dataset(n=1000, device="cpu")
+    with pytest.raises(TypeError):
+        AQPEngine(ds)                       # default backend is "cuda"
+    with pytest.raises(TypeError):
+        AQPEngine(make_synthetic_dataset(n=1000, device=None),
+                  IndexConfig(backend="torch"))
+    assert AQPEngine(ds, IndexConfig(backend="torch")).index.n_tiles == 256
+
+
+def test_unported_entry_points_name_their_roadmap_item():
+    eng = AQPEngine(make_synthetic_dataset(n=1000, device="cpu"),
+                    IndexConfig(backend="np"))
+    for call, item in ((eng.heatmap, "item 5"), (eng.prefetch, "item 8"),
+                       (eng.serve, "item 7")):
+        with pytest.raises(NotImplementedError, match=item):
+            call()
+
+
+def test_kernel_modules_import_without_nvcc_or_gpu(tmp_path):
+    env = dict(os.environ, PATH=str(tmp_path), CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(ROOT / "src"))
+    code = ("import repro_torch.kernels.ops, repro_torch.core, "
+            "repro_torch.kernels.build as b; "
+            "assert not b._LIBS and sum(b.LAUNCHES.values()) == 0")
+    subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                   timeout=120)
+
+
+@pytest.mark.parametrize("alone", [False, True], ids=["repo", "alone"])
+def test_chip_smoke_fails_without_card_or_repo(tmp_path, alone):
+    script = ROOT / "chip_smoke.py"
+    if alone:
+        shutil.copy(script, tmp_path / "chip_smoke.py")
+        script = tmp_path / "chip_smoke.py"
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env.pop("PYTHONPATH", None)
+    p = subprocess.run([sys.executable, str(script)], env=env,
+                       capture_output=True, text=True, timeout=120,
+                       cwd=tmp_path)
+    assert p.returncode != 0
+    assert '"ok"' not in p.stdout

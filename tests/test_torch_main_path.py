@@ -1,0 +1,181 @@
+"""The port's main path — ``AQPEngine.query`` on one ``TileIndex`` —
+against the reference package, on the seeds and sizes of
+``tests/test_batched_refinement.py`` and ``tests/test_core_aqp.py``
+(n = 60 000, grid0 (8, 8), ``min_split_count=64``).
+
+- Port ``"np"`` ≡ reference, bit for bit: every ``QueryResult`` field
+  but the wall time, the ``IOStats`` and ``AdaptStats`` deltas of each
+  query, and the index fingerprint (``tests/test_serving.py:77``).
+- Port ``"torch"`` on CPU tensors runs the device code path with the
+  plain kernels. Its sums are float64 in another order, so answers agree
+  with the reference to ``VALUE_RTOL``; counts, reads, splits and the
+  permutation are equal, every answer contains the oracle, and the
+  invariants hold.
+- Batched ≡ sequential inside the port, on both backends.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+from repro.core import AQPEngine as RefEngine, IndexConfig as RefConfig
+from repro.data import make_synthetic_dataset as ref_dataset
+from repro.data.synthetic import exploration_path as ref_path
+from repro_torch.core import AQPEngine, IndexConfig, index_to_numpy
+from repro_torch.data import exploration_path, make_synthetic_dataset
+
+AGGS = ["count", "sum", "mean", "min", "max"]
+PHIS = [0.0, 0.01, 0.05]
+# float64 sums in another order: relative agreement of answers and
+# interval ends (their magnitudes are far above the summation error)
+VALUE_RTOL = 1e-9
+
+
+def ref_engine(seed, n=60_000):
+    ds = ref_dataset(n=n, seed=seed)
+    return RefEngine(ds, RefConfig(grid0=(8, 8), min_split_count=64,
+                                   init_metadata_attrs=("a0",)))
+
+
+def port_engine(seed, backend, n=60_000):
+    ds = make_synthetic_dataset(n=n, seed=seed, device="cpu")
+    return AQPEngine(ds, IndexConfig(grid0=(8, 8), min_split_count=64,
+                                     init_metadata_attrs=("a0",),
+                                     backend=backend))
+
+
+def fields(r):
+    d = dataclasses.asdict(r)
+    d.pop("eval_time_s")
+    return d
+
+
+def fingerprint(index):
+    a = index_to_numpy(index)
+    n = a["n_tiles"]
+    return (n, int(a["active"].sum()), a["count"][:n], a["perm"],
+            {k: (a["meta_sum"][k][:n], a["meta_min"][k][:n],
+                 a["meta_max"][k][:n], a["meta_valid"][k][:n])
+             for k in a["meta_sum"]})
+
+
+def assert_fingerprints_equal(fa, fb):
+    assert fa[:2] == fb[:2]
+    np.testing.assert_array_equal(fa[2], fb[2])
+    np.testing.assert_array_equal(fa[3], fb[3])
+    assert fa[4].keys() == fb[4].keys()
+    for k in fa[4]:
+        for x, y in zip(fa[4][k], fb[4][k]):
+            np.testing.assert_array_equal(x, y)
+
+
+def run_both(e_ref, e_port, windows, agg, phi, sequential):
+    """Yield (window, reference result, port result, reference I/O +
+    adapt deltas, port deltas) per window."""
+    for w in windows:
+        before = [(e.io_stats.snapshot(), e.adapt_stats.snapshot())
+                  for e in (e_ref, e_port)]
+        ra = e_ref.query(w, agg, "a0", phi=phi, sequential=sequential)
+        rb = e_port.query(w, agg, "a0", phi=phi, sequential=sequential)
+        deltas = [(dataclasses.asdict(e.io_stats.delta(io)),
+                   dataclasses.asdict(e.adapt_stats.delta(ad)))
+                  for e, (io, ad) in zip((e_ref, e_port), before)]
+        yield w, ra, rb, deltas[0], deltas[1]
+
+
+def test_windows_match_reference():
+    e_ref = ref_engine(5)
+    ds = make_synthetic_dataset(n=60_000, seed=5, device="cpu")
+    np.testing.assert_array_equal(ds.x.numpy(), e_ref.dataset.x)
+    np.testing.assert_array_equal(ds.read_all_unaccounted("a3").numpy(),
+                                  e_ref.dataset.read_all_unaccounted("a3"))
+    assert ds.domain() == e_ref.dataset.domain()
+    assert (exploration_path(ds, n_queries=6, target_objects=4000)
+            == ref_path(e_ref.dataset, n_queries=6, target_objects=4000))
+
+
+@pytest.mark.parametrize("sequential", [False, True],
+                         ids=["batched", "sequential"])
+@pytest.mark.parametrize("phi", PHIS)
+@pytest.mark.parametrize("agg", AGGS)
+def test_port_np_equals_reference(agg, phi, sequential):
+    e_ref, e_port = ref_engine(5), port_engine(5, "np")
+    wins = ref_path(e_ref.dataset, n_queries=4, target_objects=4000)
+    for _, ra, rb, da, db in run_both(e_ref, e_port, wins, agg, phi,
+                                      sequential):
+        assert fields(ra) == fields(rb)
+        assert da == db
+    assert_fingerprints_equal(fingerprint(e_ref.index),
+                              fingerprint(e_port.index))
+
+
+@pytest.mark.parametrize("sequential", [False, True],
+                         ids=["batched", "sequential"])
+@pytest.mark.parametrize("phi", PHIS)
+@pytest.mark.parametrize("agg", AGGS)
+def test_port_torch_matches_reference(agg, phi, sequential):
+    e_ref, e_port = ref_engine(5), port_engine(5, "torch")
+    wins = ref_path(e_ref.dataset, n_queries=4, target_objects=4000)
+    for w, ra, rb, da, db in run_both(e_ref, e_port, wins, agg, phi,
+                                      sequential):
+        truth = e_port.oracle(w, agg, "a0")
+        assert truth == pytest.approx(e_ref.oracle(w, agg, "a0"),
+                                      rel=VALUE_RTOL)
+        tol = VALUE_RTOL * max(1.0, abs(truth))
+        assert rb.lo - tol <= truth <= rb.hi + tol
+        assert rb.exact or rb.bound <= phi + 1e-12
+        for f in ("value", "lo", "hi"):
+            assert getattr(rb, f) == pytest.approx(getattr(ra, f),
+                                                   rel=VALUE_RTOL,
+                                                   abs=VALUE_RTOL)
+        for f in ("exact", "tiles_full", "tiles_partial", "tiles_processed",
+                  "objects_read", "read_calls", "batch_rounds",
+                  "speculative_rows"):
+            assert getattr(rb, f) == getattr(ra, f), f
+        assert da == db
+    ia, ib = index_to_numpy(e_ref.index), index_to_numpy(e_port.index)
+    assert ia["n_tiles"] == ib["n_tiles"]
+    np.testing.assert_array_equal(ia["perm"], ib["perm"])
+    np.testing.assert_array_equal(ia["count"], ib["count"])
+    np.testing.assert_array_equal(ia["meta_min"]["a0"], ib["meta_min"]["a0"])
+    np.testing.assert_array_equal(ia["meta_max"]["a0"], ib["meta_max"]["a0"])
+    np.testing.assert_allclose(ib["meta_sum"]["a0"], ia["meta_sum"]["a0"],
+                               rtol=VALUE_RTOL, atol=VALUE_RTOL)
+    e_port.index.check_invariants("a0")
+
+
+@pytest.mark.parametrize("backend", ["np", "torch"])
+@pytest.mark.parametrize("agg", AGGS)
+def test_port_batched_equals_sequential(agg, backend):
+    e_seq, e_bat = port_engine(5, backend), port_engine(5, backend)
+    wins = exploration_path(e_seq.dataset, n_queries=4, target_objects=4000)
+    for phi in (0.0, 0.05):
+        for w in wins:
+            rs = e_seq.query(w, agg, "a0", phi=phi, sequential=True)
+            rb = e_bat.query(w, agg, "a0", phi=phi)
+            for f in ("exact", "tiles_full", "tiles_partial",
+                      "tiles_processed"):
+                assert getattr(rb, f) == getattr(rs, f), f
+            for f in ("value", "lo", "hi", "bound"):
+                assert getattr(rb, f) == pytest.approx(
+                    getattr(rs, f), rel=1e-12, abs=1e-9)
+    fs, fb = fingerprint(e_seq.index), fingerprint(e_bat.index)
+    assert fs[:2] == fb[:2]
+    np.testing.assert_array_equal(fs[2], fb[2])
+    np.testing.assert_array_equal(fs[3], fb[3])
+    for x, y in zip(fs[4]["a0"], fb[4]["a0"]):
+        np.testing.assert_allclose(x, y, rtol=1e-12)
+    e_bat.index.check_invariants("a0")
+
+
+@pytest.mark.parametrize("backend", ["np", "torch"])
+@pytest.mark.parametrize("agg", AGGS)
+def test_port_exact_equals_oracle(agg, backend):
+    """``tests/test_core_aqp.py`` P1 on the port: φ=0 is exact."""
+    eng = port_engine(11, backend)
+    for w in exploration_path(eng.dataset, n_queries=5,
+                              target_objects=5000):
+        r = eng.query(w, agg, "a0", phi=0.0)
+        assert r.exact
+        np.testing.assert_allclose(r.value, eng.oracle(w, agg, "a0"),
+                                   rtol=1e-12, atol=1e-9)
