@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port's main path on one NVIDIA H100 and check it.
 
     python3 chip_smoke.py [--seed 0] [--rows 100000000] [--queries 50]
+                          [--heatmaps 50]
 
 Phases (each prints its own lines; any failure exits non-zero):
 
@@ -23,6 +24,24 @@ Phases (each prints its own lines; any failure exits non-zero):
    first 10 windows on the sequential path and must end with the same
    index; invariants checked at the end. Launch counts are reset just
    before this phase and read just after it: every kernel must have run.
+
+4. The heatmap path at the same scale, on the same dataset (phase 3's
+   engine freed first): a fresh ``AQPEngine`` (default ``IndexConfig``:
+   bin-aligned splits, session bin-grid memory) answers
+   ``heatmap(w, "mean", "a0", bins=(8, 8))`` over the same 50 windows at
+   phi = 0.05 and then phi = 0, every bin checked against an on-device
+   float64 oracle; 10 windows under an ``AccuracyPolicy`` with an
+   absolute floor must meet every bin's budget; a repeated viewport must
+   come down to zero objects read; a second engine replays 10 windows on
+   the sequential path and must end with the same index. The three
+   heatmap kernels must all have launched in this phase.
+
+Phase 2 also holds the heatmap kernels (``segment_bin_agg_edges``,
+``segment_window_bin_agg``, ``segment_window_bin_select``) against their
+plain versions — the select op's suffix widths bit for bit — on edge
+cases, a table too large for shared memory, a host sample against the
+numpy mirrors, and at the heatmap path's shapes (8 segments of ~3.9e5
+objects, 8x8 bins, 4x4 split cells).
 
 The line before the last is a JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -330,24 +349,239 @@ def phase_kernels(torch, timed, seed):
 
 
 # --------------------------------------------------------------------- #
+# phase 2, the heatmap kernels
+# --------------------------------------------------------------------- #
+
+def on_lines(torch, xs, ys, lines, lo, hi, rng, k):
+    """Move ``k`` objects onto float64 ``lines`` (their float32 rounding
+    and both float32 neighbours), spread over ``[lo, hi)`` on the other
+    axis; returns new device planes."""
+    hx, hy = xs.cpu().numpy().copy(), ys.cpu().numpy().copy()
+    idx = rng.choice(len(hx), size=min(k, len(hx)), replace=False)
+    line = np.asarray(lines, np.float64)[rng.integers(0, len(lines), len(idx))]
+    l32 = line.astype(np.float32)
+    step = np.arange(len(idx)) % 3 - 1
+    hx[idx] = np.where(step < 0, np.nextafter(l32, np.float32(-np.inf)),
+                       np.where(step > 0, np.nextafter(l32, np.float32(
+                           np.inf)), l32))
+    hy[idx] = rng.uniform(lo, hi, len(idx)).astype(np.float32)
+    return (torch.from_numpy(hx).to("cuda"), torch.from_numpy(hy).to("cuda"))
+
+
+def split_edges(bboxes, g):
+    """Per-segment even split edges of ``g`` cells per axis (float64)."""
+    t = np.linspace(0.0, 1.0, g + 1)
+    xe = bboxes[:, :1] + (bboxes[:, 2:3] - bboxes[:, :1]) * t
+    ye = bboxes[:, 1:2] + (bboxes[:, 3:4] - bboxes[:, 1:2]) * t
+    return xe, ye
+
+
+def phase_heatmap_kernels(torch, timed, seed):
+    from repro_torch.kernels import fused_select as fs
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import segment_agg as sa
+
+    log("== phase 2b: heatmap kernels against their plain versions")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 1)
+    rng = np.random.default_rng(seed + 1)
+    rows = {}
+
+    def check_edges(tag, xs, ys, vals, b, xe, ye):
+        got = sa.segment_bin_agg_edges_cuda(xs, ys, vals, b, xe, ye)
+        want = sa.segment_bin_agg_edges_torch(xs, ys, vals, b, xe, ye)
+        absv = sa.segment_bin_agg_edges_torch(xs, ys, vals.abs(), b, xe, ye)
+        torch.cuda.synchronize()
+        return compare(f"segment_bin_agg_edges[{tag}]", got.cpu(),
+                       want.cpu(), absv[..., 1].cpu())
+
+    def check_wbin(tag, xs, ys, vals, b, w, bins):
+        got = sa.segment_window_bin_agg_cuda(xs, ys, vals, b, w, *bins)
+        want = sa.segment_window_bin_agg_torch(xs, ys, vals, b, w, *bins)
+        absv = sa.segment_window_bin_agg_torch(xs, ys, vals.abs(), b, w,
+                                               *bins)
+        torch.cuda.synchronize()
+        return compare(f"segment_window_bin_agg[{tag}]", got.cpu(),
+                       want.cpu(), absv[..., 1].cpu())
+
+    def check_select(tag, xs, ys, vals, b, w, bins):
+        n_seg = len(b) - 1
+        vmin = rng.uniform(-120.0, 0.0, n_seg)
+        vmax = vmin + rng.uniform(0.0, 240.0, n_seg)
+        got, got_w = fs.segment_window_bin_select_cuda(xs, ys, vals, b, w,
+                                                       *bins, vmin, vmax)
+        want, want_w = fs.segment_window_bin_select_torch(
+            xs, ys, vals, b, w, *bins, vmin, vmax)
+        absv, _ = fs.segment_window_bin_select_torch(
+            xs, ys, vals.abs(), b, w, *bins, vmin, vmax)
+        torch.cuda.synchronize()
+        if not torch.equal(got_w, want_w):
+            raise Failed(f"segment_window_bin_select[{tag}]: suffix_w "
+                         "differs from the plain version")
+        if not (got_w[-1] == 0).all():
+            raise Failed(f"segment_window_bin_select[{tag}]: last suffix "
+                         "row is not 0")
+        return compare(f"segment_window_bin_select[{tag}]", got.cpu(),
+                       want.cpu(), absv[..., 1].cpu())
+
+    def check_all(tag, xs, ys, vals, b, bb, w, bins, g=4):
+        xe, ye = split_edges(bb, g)
+        check_edges(tag, xs, ys, vals, b, xe, ye)
+        check_wbin(tag, xs, ys, vals, b, w, bins)
+        check_select(tag, xs, ys, vals, b, w, bins)
+
+    # --- edge cases: S = 1 / 8 / 32, empty segments, objects on split
+    # edges, on bin lines and on window edges (and their float32
+    # neighbours), a zero-area window, negative values, >2048 cells
+    xs, ys, vals, b, bb = segments(torch, gen, 8, 3000)
+    cx, cy = 0.5 * (bb[:, 0] + bb[:, 2]).mean(), 0.5 * (bb[:, 1] +
+                                                        bb[:, 3]).mean()
+    w = (float(cx - 200.3), float(cy - 180.7), float(cx + 190.1),
+         float(cy + 210.9))
+    bins = (8, 8)
+    cw = (w[2] - w[0]) / bins[0]
+    xs, ys = on_lines(torch, xs, ys, w[0] + cw * np.arange(bins[0] + 1),
+                      w[1], w[3], rng, 4000)
+    check_all("bin_lines", xs, ys, vals, b, bb, w, bins)
+    xe, ye = split_edges(bb, 4)
+    ex, ey = on_lines(torch, xs, ys, xe[:, 1:-1].ravel(), bb[:, 1].min(),
+                      bb[:, 3].max(), rng, 4000)
+    check_edges("split_edges", ex, ey, vals, b, xe, ye)
+    b_empty = np.array([0, 0, 3000, 3000, 9000, 12000, 12000, 24000, 24000])
+    check_all("empty_segments", xs, ys, vals, b_empty, bb, w, bins)
+    point = (float(np.float32(cx)), float(np.float32(cy)))
+    px, py = xs.clone(), ys.clone()
+    px[::7] = point[0]
+    py[::7] = point[1]
+    zero = (point[0], point[1], point[0], point[1])
+    check_wbin("zero_area", px, py, vals, b, zero, bins)
+    check_select("zero_area", px, py, vals, b, zero, bins)
+    check_all("negative", xs, ys, -vals.abs() - 1.0, b, bb, w, bins)
+    check_all("S=1", xs, ys, vals, b[[0, -1]], bb[:1], w, bins)
+    xs, ys, vals, b, bb = segments(torch, gen, 32, 2000)
+    w32 = (200.0, 200.0, 700.0, 700.0)
+    check_all("S=32", xs, ys, vals, b, bb, w32, bins)
+    # 32 segments x 16x16 bins = 8192 cells: past the shared table
+    check_wbin("S=32,16x16", xs, ys, vals, b, w32, (16, 16))
+    check_select("S=32,16x16", xs, ys, vals, b, w32, (16, 16))
+    log("heatmap edge cases: equal (suffix_w bit for bit)")
+
+    # --- the heatmap path's shapes: 8 segments of ~3.9e5 objects, 8x8
+    # bins, 4x4 split cells
+    seg_rows = 390_625
+    xs, ys, vals, b, bb = segments(torch, gen, 8, seg_rows)
+    L = int(b[-1])
+    cx, cy = 0.5 * (bb[:, 0] + bb[:, 2]).mean(), 0.5 * (bb[:, 1] +
+                                                        bb[:, 3]).mean()
+    window = (float(cx - 150), float(cy - 150), float(cx + 150),
+              float(cy + 150))
+    xe, ye = split_edges(bb, 4)
+    n_seg = len(b) - 1
+    vmin = np.full(n_seg, -150.0)
+    vmax = np.full(n_seg, 160.0)
+    err_e = check_edges("main", xs, ys, vals, b, xe, ye)
+    err_w = check_wbin("main", xs, ys, vals, b, window, bins)
+    err_s = check_select("main", xs, ys, vals, b, window, bins)
+
+    # a host sample against the float64 numpy mirrors
+    m = 50_000
+    hb = np.array([0, m, 2 * m], np.int64)
+    sx = torch.cat([xs[:m], xs[b[1]:b[1] + m]])
+    sy = torch.cat([ys[:m], ys[b[1]:b[1] + m]])
+    sv = torch.cat([vals[:m], vals[b[1]:b[1] + m]])
+    hx, hy, hv = (t.cpu().numpy() for t in (sx, sy, sv))
+    habs = np.abs(hv)
+    compare("segment_bin_agg_edges[np mirror]",
+            sa.segment_bin_agg_edges_cuda(sx, sy, sv, hb, xe[:2],
+                                          ye[:2]).cpu(),
+            ref.segment_bin_agg_edges_np(hx, hy, hv, hb, xe[:2], ye[:2]),
+            ref.segment_bin_agg_edges_np(hx, hy, habs, hb, xe[:2],
+                                         ye[:2])[..., 1])
+    compare("segment_window_bin_agg[np mirror]",
+            sa.segment_window_bin_agg_cuda(sx, sy, sv, hb, window,
+                                           *bins).cpu(),
+            ref.segment_window_bin_agg_np(hx, hy, hv, hb, window, *bins),
+            ref.segment_window_bin_agg_np(hx, hy, habs, hb, window,
+                                          *bins)[..., 1])
+    got, got_w = fs.segment_window_bin_select_cuda(sx, sy, sv, hb, window,
+                                                   *bins, vmin[:2],
+                                                   vmax[:2])
+    want, want_w = fs.segment_window_bin_select_np(hx, hy, hv, hb, window,
+                                                   *bins, vmin[:2],
+                                                   vmax[:2])
+    compare("segment_window_bin_select[np mirror]", got.cpu(), want,
+            ref.segment_window_bin_agg_np(hx, hy, habs, hb, window,
+                                          *bins)[..., 1])
+    if not np.array_equal(got_w.cpu().numpy(), want_w):
+        raise Failed("segment_window_bin_select: suffix_w differs from the "
+                     "numpy mirror")
+    log("heatmap host sample against the numpy mirrors: equal")
+
+    # --- times at the heatmap path's shapes
+    n_in = int(sa.window_bin_ids(xs, ys, window, *bins)[0].sum())
+    nb = bins[0] * bins[1]
+    out_b = 32 * n_seg * nb
+    specs = {
+        "segment_bin_agg_edges": (
+            lambda: sa.segment_bin_agg_edges_cuda(xs, ys, vals, b, xe, ye),
+            lambda: sa.segment_bin_agg_edges_torch(xs, ys, vals, b, xe, ye),
+            # x, y, v read; 3 + 3 float64 edge compares and the float64
+            # sum per object, float32 min/max
+            bound_ms(12 * L + 32 * n_seg * 16, 2 * L, 7 * L),
+            err_e, "src/repro_torch/kernels/csrc/segment_bin_agg_edges.cu",
+            "src/repro/kernels/segment_agg.py:448"),
+        "segment_window_bin_agg": (
+            lambda: sa.segment_window_bin_agg_cuda(xs, ys, vals, b, window,
+                                                   *bins),
+            lambda: sa.segment_window_bin_agg_torch(xs, ys, vals, b,
+                                                    window, *bins),
+            # x, y read; v for in-window objects; 4 compares per object,
+            # 2 subtracts + 2 divides + min/max per in-window object
+            bound_ms(8 * L + 4 * n_in + out_b, 4 * L + 6 * n_in, n_in),
+            err_w, "src/repro_torch/kernels/csrc/segment_window_bin_agg.cu",
+            "src/repro/kernels/segment_agg.py:295"),
+        "segment_window_bin_select": (
+            lambda: fs.segment_window_bin_select_cuda(
+                xs, ys, vals, b, window, *bins, vmin, vmax),
+            lambda: fs.segment_window_bin_select_torch(
+                xs, ys, vals, b, window, *bins, vmin, vmax),
+            bound_ms(8 * L + 4 * n_in + out_b + 8 * (n_seg + 1) * nb,
+                     4 * L + 6 * n_in, n_in + 2 * n_seg * nb),
+            err_s, "src/repro_torch/kernels/csrc/segment_window_bin_agg.cu",
+            "src/repro/kernels/fused_select.py:364"),
+    }
+    for name, (kern, plain, (bms, by), err, src, rep) in specs.items():
+        ms, pms = timed(kern), timed(plain)
+        rows[name] = {"name": name, "route": "cuda", "source": src,
+                      "replaces": rep, "launches": 0, "max_abs_err": err,
+                      "ms": ms, "plain_ms": pms, "bound_ms": bms,
+                      "bound_by": by, "library_ms": None}
+        log(f"{name}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+            f"{bms:.4f} ms ({by}), max_abs_err {err:.3e}")
+    return rows
+
+
+# --------------------------------------------------------------------- #
 # phase 3
 # --------------------------------------------------------------------- #
 
-def phase_main_path(torch, build, seed, n_rows, n_queries):
-    from repro_torch.core import AQPEngine, IndexConfig
-    from repro_torch.core import geometry
-    from repro_torch.data import exploration_path, make_synthetic_dataset
+def make_dataset(torch, seed, n_rows):
+    from repro_torch.data import make_synthetic_dataset
 
-    log(f"== phase 3: main path, {n_rows} rows")
     t0 = time.perf_counter()
     ds = make_synthetic_dataset(n=n_rows, n_columns=10, seed=seed,
                                 device="cuda")
     torch.cuda.synchronize()
     log(f"dataset: {n_rows} rows x (x, y, a0..a9) on the card in "
         f"{time.perf_counter() - t0:.3f} s")
-    windows = exploration_path(ds, n_queries=n_queries,
-                               target_objects=100_000, seed=11)
+    return ds
 
+
+def phase_main_path(torch, build, ds, windows):
+    from repro_torch.core import AQPEngine, IndexConfig
+    from repro_torch.core import geometry
+
+    log(f"== phase 3: main path, {ds.n} rows, {len(windows)} windows")
     build.reset_launches()
     t0 = time.perf_counter()
     eng = AQPEngine(ds, IndexConfig(init_metadata_attrs=("a0",)))
@@ -364,7 +598,7 @@ def phase_main_path(torch, build, seed, n_rows, n_queries):
     del cell
     log("init tile counts equal the host float32 rule")
 
-    n_check = min(10, n_queries)
+    n_check = min(10, len(windows))
     snap = None
     for phi in (0.05, 0.0):
         for q, w in enumerate(windows):
@@ -384,7 +618,7 @@ def phase_main_path(torch, build, seed, n_rows, n_queries):
                 raise Failed(f"query {q} at phi={phi}: {r} vs {truth}")
             if phi > 0 and q == n_check - 1:
                 snap = (ix.n_tiles, ix.count[:ix.n_tiles].copy(),
-                        ix.perm.cpu().numpy())
+                        ix.perm.cpu().numpy().copy())
 
     seq = AQPEngine(ds, IndexConfig(init_metadata_attrs=("a0",)))
     for w in windows[:n_check]:
@@ -412,11 +646,140 @@ def phase_main_path(torch, build, seed, n_rows, n_queries):
     return launches
 
 
+# --------------------------------------------------------------------- #
+# phase 4
+# --------------------------------------------------------------------- #
+
+HEATMAP_KERNELS = ("segment_bin_agg_edges", "segment_window_bin_agg",
+                   "segment_window_bin_select")
+
+
+def heatmap_ok(r, truth, phi):
+    """Every bin of ``r`` against the oracle: φ > 0 — the bin's interval
+    contains it (to 1e-9 relative) and the query bound meets φ; φ = 0 —
+    the answer is exact and every bin equals it within 1e-9."""
+    fin = np.isfinite(truth)
+    if not np.array_equal(np.isfinite(r.values), fin):
+        return False
+    t = truth[fin]
+    tol = 1e-9 * np.maximum(np.abs(t), 1.0)
+    if phi > 0:
+        return bool((r.lo[fin] - tol <= t).all() and (t <= r.hi[fin] + tol)
+                    .all() and (r.bound <= phi or r.exact))
+    return bool(r.exact and (np.abs(r.values[fin] - t)
+                             <= 1e-9 * np.abs(t)).all())
+
+
+def phase_heatmap_path(torch, build, ds, windows):
+    from repro_torch.core import AccuracyPolicy, AQPEngine, IndexConfig
+
+    log(f"== phase 4: heatmap path, {ds.n} rows, {len(windows)} windows, "
+        "bins 8x8")
+    bins = (8, 8)
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    eng = AQPEngine(ds, IndexConfig(init_metadata_attrs=("a0",)))
+    torch.cuda.synchronize()
+    log(f"engine init: {time.perf_counter() - t0:.3f} s")
+    ix = eng.index
+
+    n_check = min(10, len(windows))
+    snap = None
+    stats = {}
+    for phi in (0.05, 0.0):
+        times, reads, calls = [], [], []
+        for q, w in enumerate(windows):
+            r = eng.heatmap(w, "mean", "a0", bins=bins, phi=phi)
+            truth = eng.heatmap_oracle(w, "mean", "a0", bins=bins)
+            ok = heatmap_ok(r, truth, phi)
+            log(f"h phi={phi} {q:2d} t={r.eval_time_s:.6f}s "
+                f"read={r.objects_read} calls={r.read_calls} "
+                f"tiles={r.tiles_processed} bound={r.bound:.3e} "
+                f"occupied={int(np.isfinite(truth).sum())} ok={ok}")
+            if not ok:
+                raise Failed(f"heatmap {q} at phi={phi}: a bin misses "
+                             "the oracle")
+            times.append(r.eval_time_s)
+            reads.append(r.objects_read)
+            calls.append(r.read_calls)
+            if phi > 0 and q == n_check - 1:
+                snap = (ix.n_tiles, ix.count[:ix.n_tiles].copy(),
+                        ix.perm.cpu().numpy().copy())
+        stats[phi] = {
+            "eval_time_s_median": float(np.median(times)),
+            "eval_time_s_p90": float(np.percentile(times, 90)),
+            "eval_time_s_max": float(np.max(times)),
+            "eval_time_s_sum": float(np.sum(times)),
+            "objects_read_sum": int(np.sum(reads)),
+            "objects_read_median": float(np.median(reads)),
+            "read_calls_sum": int(np.sum(calls))}
+        log(f"heatmap phi={phi}: {json.dumps(stats[phi])}")
+
+    # per-bin budgets with an absolute floor
+    policy = AccuracyPolicy(eps_abs=0.5)
+    for q, w in enumerate(windows[:n_check]):
+        r = eng.heatmap(w, "mean", "a0", bins=bins, phi=0.05, policy=policy)
+        truth = eng.heatmap_oracle(w, "mean", "a0", bins=bins)
+        fin = np.isfinite(truth)
+        tol = 1e-9 * np.maximum(np.abs(truth[fin]), 1.0)
+        if not (r.bin_met.all() and (r.lo[fin] - tol <= truth[fin]).all()
+                and (truth[fin] <= r.hi[fin] + tol).all()):
+            raise Failed(f"policy heatmap {q}: a bin misses its budget or "
+                         "the oracle")
+    log(f"policy (eps_abs=0.5, phi=0.05) on {n_check} windows: every bin "
+        "met its budget and contains the oracle")
+
+    # session memory: the last viewport again, until a repeat reads
+    # nothing (registry hits and single-bin children answer it)
+    w = windows[-1]
+    rep_reads = []
+    for _ in range(16):
+        r = eng.heatmap(w, "mean", "a0", bins=bins, phi=0.0)
+        if not heatmap_ok(r, eng.heatmap_oracle(w, "mean", "a0", bins=bins),
+                          0.0):
+            raise Failed("repeated viewport: a bin misses the oracle")
+        rep_reads.append(r.objects_read)
+        if r.objects_read == 0:
+            break
+    log(f"repeated viewport, objects read per repeat: {rep_reads}")
+    if rep_reads[-1] != 0 or any(a < b for a, b in zip(rep_reads,
+                                                        rep_reads[1:])):
+        raise Failed("repeated viewport did not come down to zero reads")
+
+    seq = AQPEngine(ds, IndexConfig(init_metadata_attrs=("a0",)))
+    for w in windows[:n_check]:
+        seq.heatmap(w, "mean", "a0", bins=bins, phi=0.05, sequential=True)
+    si = seq.index
+    if not (si.n_tiles == snap[0] and np.array_equal(
+            si.count[:si.n_tiles], snap[1])
+            and np.array_equal(si.perm.cpu().numpy(), snap[2])):
+        raise Failed("sequential heatmap engine's index differs from "
+                     "batched")
+    log(f"sequential replay of {n_check} heatmaps: same index "
+        f"({si.n_tiles} tiles)")
+    launches = dict(build.LAUNCHES)
+    del seq, si
+
+    ix.check_invariants("a0")
+    log("invariants hold")
+    tot = eng.trace.totals()
+    log(f"totals: {json.dumps(tot)}")
+    log(f"device memory: allocated {torch.cuda.memory_allocated()} B, "
+        f"peak {torch.cuda.max_memory_allocated()} B")
+    log(f"launches on the heatmap path: {json.dumps(launches)}")
+    for k in HEATMAP_KERNELS:
+        if launches.get(k, 0) <= 0:
+            raise Failed(f"{k} was not launched on the heatmap path")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rows", type=int, default=100_000_000)
     ap.add_argument("--queries", type=int, default=50)
+    ap.add_argument("--heatmaps", type=int, default=50)
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args(argv)
 
@@ -433,10 +796,22 @@ def main(argv=None) -> int:
         return 2
     try:
         phase_card_and_build(torch, build)
-        rows = phase_kernels(torch, make_timer(torch, args.reps), args.seed)
+        timed = make_timer(torch, args.reps)
+        rows = phase_kernels(torch, timed, args.seed)
+        rows.update(phase_heatmap_kernels(torch, timed, args.seed))
         torch.cuda.empty_cache()
-        launches = phase_main_path(torch, build, args.seed, args.rows,
-                                   args.queries)
+        from repro_torch.data import exploration_path
+        log("== dataset for phases 3 and 4")
+        ds = make_dataset(torch, args.seed, args.rows)
+        windows = exploration_path(
+            ds, n_queries=max(args.queries, args.heatmaps),
+            target_objects=100_000, seed=11)
+        launches = phase_main_path(torch, build, ds,
+                                   windows[:args.queries])
+        torch.cuda.empty_cache()
+        launches.update({k: v for k, v in phase_heatmap_path(
+            torch, build, ds, windows[:args.heatmaps]).items()
+            if k in HEATMAP_KERNELS})
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,8 +1,10 @@
 from .engine import AQPEngine, EngineTrace
 from .index import IndexConfig, TileIndex, AdaptStats
-from .bounds import QueryResult, QueryAccumulator, PendingTile
+from .bounds import (AccuracyPolicy, GroupedAccumulator, HeatmapResult,
+                     PendingTile, QueryAccumulator, QueryResult)
 from .state import index_from_numpy, index_to_numpy
 
 __all__ = ["AQPEngine", "EngineTrace", "IndexConfig", "TileIndex",
            "AdaptStats", "QueryResult", "QueryAccumulator", "PendingTile",
+           "AccuracyPolicy", "GroupedAccumulator", "HeatmapResult",
            "index_from_numpy", "index_to_numpy"]

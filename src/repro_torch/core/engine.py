@@ -6,37 +6,47 @@
 >>> eng = AQPEngine(ds, IndexConfig(init_metadata_attrs=("a0",)))
 >>> r = eng.query((100, 100, 300, 300), "mean", "a0", phi=0.05)
 
+>>> h = eng.heatmap((100, 100, 300, 300), "mean", "a0", bins=(8, 8),
+...                 phi=0.05)
+
 The engine owns one adaptive tile index per dataset and evaluates window
-aggregate queries under a per-query accuracy constraint φ (φ=0 ⇒ exact),
-recording a per-query trace (time, objects read, tiles processed) and
-the session's viewport trajectory. Heatmaps, predictive prefetch and the
-concurrent server come with later slices of the port (``ROADMAP.md``
-queue A); their entry points raise until then.
+aggregate and heatmap (2-D group-by) queries under a per-query accuracy
+constraint φ (φ=0 ⇒ exact), recording a per-query trace (time, objects
+read, tiles processed) and the session's viewport trajectory. Both query
+types refine through one ``RefinementDriver``. Predictive prefetch, the
+learned-salience policy and the concurrent server come with later
+slices of the port (``ROADMAP.md`` queue A); their entry points raise
+until then.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 from ..data.rawfile import RawDataset
 from . import query as query_mod
-from .bounds import QueryResult
+from .bounds import AccuracyPolicy, HeatmapResult, QueryResult
 from .index import IndexConfig, TileIndex
 from .predict import TrajectoryStep
 
 
 @dataclasses.dataclass
 class EngineTrace:
-    """Per-query instrumentation plus the session's viewport trajectory
-    (one :class:`~repro_torch.core.predict.TrajectoryStep` per query)."""
+    """Per-query instrumentation (scalar and heatmap results alike) plus
+    the session's viewport trajectory (one
+    :class:`~repro_torch.core.predict.TrajectoryStep` per query) and its
+    prefetch reports (none until prefetch is ported)."""
 
-    results: List[QueryResult] = dataclasses.field(default_factory=list)
+    results: List[Union[QueryResult, HeatmapResult]] = dataclasses.field(
+        default_factory=list)
     trajectory: List[TrajectoryStep] = dataclasses.field(
         default_factory=list)
+    prefetches: List[dict] = dataclasses.field(default_factory=list)
 
     def totals(self):
-        """Session totals."""
-        return {
+        """Session totals, plus a per-query-type (scalar vs heatmap)
+        breakdown so mixed sessions can attribute I/O."""
+        out = {
             "queries": len(self.results),
             "total_time_s": sum(r.eval_time_s for r in self.results),
             "total_objects_read": sum(r.objects_read for r in self.results),
@@ -50,6 +60,20 @@ class EngineTrace:
             "total_pruned_chunks": sum(r.pruned_chunks
                                        for r in self.results),
         }
+        for kind, rs in (
+                ("scalar", [r for r in self.results
+                            if isinstance(r, QueryResult)]),
+                ("heatmap", [r for r in self.results
+                             if isinstance(r, HeatmapResult)])):
+            out[f"{kind}_queries"] = len(rs)
+            out[f"{kind}_objects_read"] = sum(r.objects_read for r in rs)
+            out[f"{kind}_read_calls"] = sum(r.read_calls for r in rs)
+            out[f"{kind}_time_s"] = sum(r.eval_time_s for r in rs)
+            out[f"{kind}_speculative_rows"] = sum(r.speculative_rows
+                                                  for r in rs)
+        out["prefetches"] = len(self.prefetches)
+        out["prefetch_rows"] = sum(p["rows_read"] for p in self.prefetches)
+        return out
 
 
 class AQPEngine:
@@ -88,10 +112,40 @@ class AQPEngine:
             tuple(float(v) for v in window), None, float(dwell_s)))
         return r
 
-    def heatmap(self, *args, **kwargs):
-        raise NotImplementedError(
-            "heatmap queries are not ported yet (ROADMAP.md queue A, "
-            "item 5)")
+    def heatmap(self, window: Tuple[float, float, float, float], agg: str,
+                attr: str, bins: Tuple[int, int] = (8, 8),
+                phi: float = 0.0, alpha: Optional[float] = None,
+                policy: Optional[AccuracyPolicy] = None,
+                batch_k: Optional[int] = None,
+                sequential: bool = False,
+                dwell_s: float = 1.0) -> HeatmapResult:
+        """Evaluate one φ-constrained heatmap (group-by) query.
+
+        bins: (bx, by) grid laid over the window; bin id = by_row*bx +
+          bx_col (``HeatmapResult.grid()`` reshapes to (by, bx)).
+        phi: per-bin relative accuracy constraint — refinement stops once
+          EVERY occupied bin's relative bound is ≤ φ (0 ⇒ exact).
+        policy: optional :class:`~repro_torch.core.bounds.AccuracyPolicy`
+          allocating the constraint per bin (φ_b from user weights ×
+          salience, plus an absolute-error floor ε_abs). A policy with
+          ``salience="learned"`` raises: its resolver, the viewport
+          predictor, is not ported yet.
+        batch_k / sequential / dwell_s: as in :meth:`query`.
+        """
+        if (policy is not None and isinstance(policy.salience, str)
+                and policy.salience == "learned"):
+            raise NotImplementedError(
+                "salience='learned' needs the viewport predictor, which is "
+                "not ported yet (ROADMAP.md queue A, item 8)")
+        r = query_mod.evaluate_heatmap(
+            self.index, window, agg, attr, bins=bins, phi=phi,
+            alpha=self.alpha if alpha is None else alpha, policy=policy,
+            batch_k=batch_k, sequential=sequential)
+        self.trace.results.append(r)
+        self.trace.trajectory.append(TrajectoryStep(
+            tuple(float(v) for v in window), (int(bins[0]), int(bins[1])),
+            float(dwell_s)))
+        return r
 
     def prefetch(self, *args, **kwargs):
         raise NotImplementedError(
@@ -105,6 +159,11 @@ class AQPEngine:
 
     def oracle(self, window, agg: str, attr: str) -> float:
         return query_mod.evaluate_oracle(self.index, window, agg, attr)
+
+    def heatmap_oracle(self, window, agg: str, attr: str,
+                       bins: Tuple[int, int] = (8, 8)):
+        return query_mod.evaluate_heatmap_oracle(self.index, window, agg,
+                                                 attr, bins)
 
     @property
     def io_stats(self):

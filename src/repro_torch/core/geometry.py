@@ -16,6 +16,10 @@ the two places the reference applies it, and object masks have their own:
   so ``(xs - x0) / cw`` is float32 arithmetic:
   ``f32(x) − f32(x0)``, rounded, divided by ``f32(cw)``.
   :func:`bin_cell_ids_f32` reproduces that on tensors.
+- **Edge ownership is float64.** A bin-aligned split owns objects by
+  ``ref.edge_cell_ids_np``: float32 coordinates against float64 edges,
+  compared in float64 (:func:`edge_cell_ids_segmented`;
+  :func:`segment_edge_cell_ids` on tensors).
 - **Split ownership is float64.** A split bins against
   ``self.bbox[t]``, a float64 row (``repro/core/index.py:494-497`` for
   ``_split``, ``:820-826`` for ``_split_batch``): numpy scalars are
@@ -41,6 +45,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..kernels import ref as ref_mod
+from ..kernels import segment_agg
 from ..kernels.segment_agg import bin_params, cell_keys, clip_cell
 
 DISJOINT, PARTIAL, FULL = 0, 1, 2
@@ -118,3 +124,106 @@ def bboxes_from_edges(x_edges: np.ndarray, y_edges: np.ndarray) -> np.ndarray:
             out[cy * gx + cx] = (x_edges[cx], y_edges[cy],
                                  x_edges[cx + 1], y_edges[cy + 1])
     return out
+
+
+def _snap_axis_edges(e0: float, e1: float, g: int, q0: float, q1: float,
+                     b: int) -> np.ndarray:
+    """Uniform g+1 split edges of [e0, e1] with each interior edge snapped
+    to the nearest bin-grid line of ([q0, q1], b) strictly inside the
+    extent; falls back to the uniform edges when no grid line crosses the
+    extent or snapping would collapse two children."""
+    edges = np.linspace(e0, e1, g + 1)
+    if b <= 1 or not (q1 > q0):
+        return edges
+    lines = q0 + (q1 - q0) / b * np.arange(1, b)
+    inside = lines[(lines > e0) & (lines < e1)]
+    if inside.size == 0:
+        return edges
+    snapped = edges.copy()
+    for i in range(1, g):
+        snapped[i] = inside[np.argmin(np.abs(inside - edges[i]))]
+    snapped.sort()
+    if np.unique(snapped).size < snapped.size:   # two edges hit one line
+        return edges
+    return snapped
+
+
+def _bin_matched_axis_edges(e0: float, e1: float, g0: int, cap: int,
+                            q0: float, q1: float, b: int) -> np.ndarray:
+    """Bin-count-MATCHED split edges of one axis: cover EVERY bin-grid
+    line of ([q0, q1], b) strictly inside (e0, e1) when their count fits
+    ``cap`` children, so a tile spanning s ≤ cap bins nests all its
+    children in single bins after ONE split (the snapped-g0 policy only
+    places g0−1 cuts and needs several splits for s ≥ 3). Fewer inside
+    lines than g0−1 cuts ⇒ extra cuts bisect the largest children (still
+    nested); more than cap−1 ⇒ best-effort fallback to cap children with
+    each cut snapped to its nearest line. Returns increasing edges of
+    variable length (≥ g0+1, ≤ cap+1)."""
+    if b <= 1 or not (q1 > q0):
+        return np.linspace(e0, e1, g0 + 1)
+    lines = q0 + (q1 - q0) / b * np.arange(1, b)
+    inside = lines[(lines > e0) & (lines < e1)]
+    m = int(inside.size)
+    if m == 0:
+        return np.linspace(e0, e1, g0 + 1)
+    if m + 1 > cap:
+        return _snap_axis_edges(e0, e1, max(g0, cap), q0, q1, b)
+    edges = np.concatenate([[e0], inside, [e1]])
+    while len(edges) - 1 < g0:
+        # pad to the base child count by bisecting the widest child —
+        # a cut interior to a bin keeps every child nested
+        gaps = np.diff(edges)
+        i = int(np.argmax(gaps))
+        edges = np.insert(edges, i + 1, 0.5 * (edges[i] + edges[i + 1]))
+    return edges
+
+
+def bin_matched_split_edges(bbox, window, bx: int, by: int,
+                            base=(2, 2), cap: int = 4):
+    """Per-axis bin-count-matched split lines for one tile (see
+    :func:`_bin_matched_axis_edges`); the host heatmap refinement's
+    split-grid sizing when ``IndexConfig.bin_aligned_splits`` is on.
+    Returns ``(x_edges, y_edges)`` float64 arrays whose lengths vary per
+    tile with the bin span (capped at ``cap+1``)."""
+    x0, y0, x1, y1 = (float(bbox[0]), float(bbox[1]), float(bbox[2]),
+                      float(bbox[3]))
+    qx0, qy0, qx1, qy1 = (float(window[0]), float(window[1]),
+                          float(window[2]), float(window[3]))
+    return (_bin_matched_axis_edges(x0, x1, base[0], cap, qx0, qx1, bx),
+            _bin_matched_axis_edges(y0, y1, base[1], cap, qy0, qy1, by))
+
+
+def edge_cell_ids_segmented(xs: np.ndarray, ys: np.ndarray,
+                            x_edges: np.ndarray, y_edges: np.ndarray,
+                            sid: np.ndarray) -> np.ndarray:
+    """Cell id (cy*gx + cx) under explicit per-segment split edges.
+
+    The ownership rule for snapped (bin-aligned) splits: child cx of
+    segment s owns ``[x_edges[s, cx], x_edges[s, cx+1])``, points past
+    the outer edges are clamped into the boundary cells — every object
+    lands in exactly one cell, like :func:`bin_cell_ids`. Delegates to
+    the ONE implementation (``kernels.ref.edge_cell_ids_np``) the
+    child-metadata mirror also uses, so segment reorganization and
+    metadata can never disagree on a boundary object.
+    """
+    return ref_mod.edge_cell_ids_np(np.asarray(xs), np.asarray(ys),
+                                    x_edges, y_edges, sid)
+
+
+def segment_edge_cell_ids(xs: torch.Tensor, ys: torch.Tensor,
+                          sid: torch.Tensor, x_edges: np.ndarray,
+                          y_edges: np.ndarray) -> torch.Tensor:
+    """:func:`edge_cell_ids_segmented` for float32 tensors on any
+    device: cell id (cy*gx + cx) of object i under segment ``sid[i]``'s
+    split edges, ``xs.double()`` compared with the float64 edges — the
+    rule the edges kernel and its plain version use too."""
+    return segment_agg.edge_cell_ids(xs, ys, sid, x_edges, y_edges)
+
+
+def edge_cell_ids(xs: np.ndarray, ys: np.ndarray, x_edges: np.ndarray,
+                  y_edges: np.ndarray) -> np.ndarray:
+    """Single-tile form of :func:`edge_cell_ids_segmented` (one edge
+    array, every object in segment 0)."""
+    return edge_cell_ids_segmented(
+        np.asarray(xs), np.asarray(ys), np.asarray(x_edges)[None],
+        np.asarray(y_edges)[None], np.zeros(len(xs), np.int64))

@@ -1,6 +1,6 @@
 """VALINOR-style hierarchical tile index, capacity-bounded and flat.
 
-Port of :mod:`repro.core.index` (the scalar part). The index organizes
+Port of :mod:`repro.core.index` (``TileIndex``). The index organizes
 objects into disjoint rectangular tiles over the two axis attributes and
 keeps, per tile and per non-axis attribute, the aggregate metadata
 ``(count, sum, min, max)`` the confidence intervals are built from. It
@@ -23,7 +23,8 @@ Where the state lives, by ``IndexConfig.backend``:
   :mod:`repro_torch.kernels.ops` ("torch": plain versions; "cuda": the
   CUDA kernels). The tile table, metadata and accumulators stay host
   numpy (capacity 65 536), as in the reference; each round moves only
-  ``(S, 4)``-sized results to the host.
+  ``(S, 4)``-sized results (``(S, bx*by, 4)`` and the suffix widths for
+  a heatmap round) to the host. So does the session bin-grid memory.
 
 Metadata soundness rule: ``min/max`` for a tile are ALWAYS present and
 sound (children's extremes are clamped into the parent's interval; the
@@ -31,24 +32,28 @@ root fallback is the global attribute min/max); ``sum`` is present only
 when ``meta_valid``.
 
 Refinement runs in two flavors with identical semantics: the sequential
-reference path (:meth:`TileIndex.process`) and the batched pipeline
-(:meth:`TileIndex.read_batch` / :meth:`TileIndex.apply_batch`). The
-heatmap methods, the session bin-grid memory and ``ChunkIndexSet`` come
-with later slices of the port.
+reference path (:meth:`TileIndex.process`,
+:meth:`TileIndex.process_heatmap`) and the batched pipeline
+(:meth:`TileIndex.read_batch` / :meth:`TileIndex.read_batch_heatmap`,
+then :meth:`TileIndex.apply_batch`). Heatmap splits cut along bin-aligned
+edges (``IndexConfig.bin_aligned_splits``). ``ChunkIndexSet`` comes with
+a later slice of the port.
 """
 from __future__ import annotations
 
 import dataclasses
+from collections import OrderedDict
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..data.rawfile import RawDataset, as_host
+from ..kernels import fused_select as fused_mod
 from ..kernels import ops
 from ..kernels import ref as ref_mod
 from ..kernels.segment_agg import (EVERYWHERE, MAX_UNROLL, segment_ids,
-                                   segment_window_agg_torch)
+                                   segment_window_agg_torch, window_bin_ids)
 from . import geometry
 from .geometry import FULL, PARTIAL
 
@@ -61,12 +66,32 @@ class IndexConfig:
     min_split_count: int = 256            # I/O-cost split factor (paper §2.2)
     max_level: int = 12
     batch_k: int = 8                      # tiles refined per batched round
+    # heatmap refinement snaps split lines to the query's bin grid so
+    # children nest inside single bins after ONE split (False ⇒ the even
+    # 2×2-style subdivision everywhere)
+    bin_aligned_splits: bool = True
+    # bin-count-MATCHED split grids: a tile spanning s bins per axis gets
+    # an s-child split (every inside bin line becomes a cut) up to this
+    # per-axis cap; past the cap the split falls back to cap snapped cuts
+    max_split_span: int = 4
     init_metadata_attrs: Sequence[str] = ()   # metadata computed at init pass
     backend: str = "cuda"                 # "np" | "torch" | "cuda"
+    # an exact per-(tile, bin) registry keyed on (window, bins, attr): a
+    # repeated heatmap folds previously-read tiles from the registry with
+    # zero raw-file I/O; a split invalidates the parent's entry by
+    # deactivating the tile. Never changes answers — only cost.
+    session_bin_memory: bool = True
+    # registries kept warm at once (LRU by last touch); 1 keeps a single
+    # slot
+    bin_memory_slots: int = 4
 
     def max_split_cells(self) -> int:
-        """Children per split — the scalar path's even ``split_grid``."""
+        """Upper bound on children per split — sizes the driver's heatmap
+        rounds against ``MAX_UNROLL`` as in the reference."""
         gx, gy = self.split_grid
+        if self.bin_aligned_splits:
+            gx = max(gx, self.max_split_span)
+            gy = max(gy, self.max_split_span)
         return gx * gy
 
     def __post_init__(self):
@@ -77,10 +102,19 @@ class IndexConfig:
         if self.backend not in ops.BACKENDS:
             raise ValueError(f"backend must be one of {ops.BACKENDS}, got "
                              f"{self.backend!r}")
+        if self.max_split_span < max(2, gx, gy):
+            # the per-axis child cap must cover the base grid, or the
+            # bin-matched edge builder could not honor its "<= cap+1
+            # edges" contract (its fallbacks place g0 children)
+            raise ValueError(
+                f"max_split_span={self.max_split_span} must be >= "
+                f"max(split_grid)={max(gx, gy)} (and >= 2)")
         if self.max_split_cells() > MAX_UNROLL:
             raise ValueError(
-                f"split grid {self.max_split_cells()} cells exceeds the "
-                f"round-sizing limit MAX_UNROLL={MAX_UNROLL}")
+                f"max split grid {self.max_split_cells()} cells "
+                f"(split_grid={self.split_grid}, max_split_span="
+                f"{self.max_split_span}) exceeds the round-sizing limit "
+                f"MAX_UNROLL={MAX_UNROLL}")
 
 
 @dataclasses.dataclass
@@ -206,6 +240,14 @@ class TileIndex:
         self.meta_valid: Dict[str, np.ndarray] = {}
         self.global_minmax: Dict[str, Tuple[float, float]] = {}
 
+        # session bin-grid memory (see IndexConfig.session_bin_memory):
+        # an LRU of per-viewport registries {tile_id: (cnt_b, sum_b,
+        # min_b, max_b)} (host numpy), keyed on (window, bins, attr);
+        # _hm_key is the most recently touched viewport
+        self._hm_key = None
+        self._hm_regs: "OrderedDict[tuple, Dict[int, tuple]]" = \
+            OrderedDict()
+
     # ------------------------------------------------------------------ #
     # attribute registration
     # ------------------------------------------------------------------ #
@@ -303,6 +345,34 @@ class TileIndex:
         b = torch.from_numpy(bounds).to(cs.device)
         return _host(cs[b[1:]] - cs[b[:-1]]).astype(np.int64)
 
+    def bin_counts_in_window_batch(self, tile_ids, window, bins):
+        """Vectorized ``count(t ∩ Q ∩ bin_b)`` for many tiles — zero file
+        I/O: the ``(T, bx*by)`` per-bin in-window counts the grouped
+        accumulator builds its pending intervals from. The binning is the
+        processed contributions' own (``ref.window_bin_ids_np`` on the
+        host, its tensor form ``segment_agg.window_bin_ids`` — bit for
+        bit the same — on the device), so pending and folded counts
+        agree exactly."""
+        bx, by = bins
+        nbins = bx * by
+        tile_ids = np.asarray(tile_ids, np.int64)
+        if tile_ids.size == 0:
+            return np.zeros((0, nbins), np.int64)
+        idx, bounds = self._gather_segments(tile_ids)
+        if self._np:
+            m, cid = ref_mod.window_bin_ids_np(self.x_s[idx], self.y_s[idx],
+                                               window, bx, by)
+            sid = np.repeat(np.arange(len(tile_ids)), np.diff(bounds))
+            key = sid[m] * nbins + cid[m]
+            return np.bincount(key, minlength=len(tile_ids) * nbins).reshape(
+                len(tile_ids), nbins).astype(np.int64)
+        m, cid = window_bin_ids(self.x_s[idx], self.y_s[idx], window, bx, by)
+        sid = segment_ids(bounds, cid.device)
+        key = (sid * nbins + cid)[m]
+        return _host(torch.bincount(
+            key, minlength=len(tile_ids) * nbins)).reshape(
+                len(tile_ids), nbins).astype(np.int64)
+
     # ------------------------------------------------------------------ #
     # processing (the accounted, expensive path)
     # ------------------------------------------------------------------ #
@@ -342,9 +412,12 @@ class TileIndex:
         self._enrich_and_split(tile_id, vals, attr, split)
         return contrib
 
-    def _enrich_and_split(self, tile_id: int, vals, attr: str, split: bool):
+    def _enrich_and_split(self, tile_id: int, vals, attr: str, split: bool,
+                          edges=None):
         """Shared processing epilogue: tile-level metadata enrichment
-        (now exact for this attr) + the split-or-enrich decision."""
+        (now exact for this attr) + the split-or-enrich decision.
+        ``edges`` optionally carries bin-aligned split lines
+        (``(x_edges, y_edges)``, see :meth:`_split`)."""
         if self._np:
             self.meta_sum[attr][tile_id] = float(vals.sum(dtype=np.float64))
             self.meta_min[attr][tile_id] = float(vals.min())
@@ -356,21 +429,125 @@ class TileIndex:
             self.meta_max[attr][tile_id] = float(st[3])
         self.meta_valid[attr][tile_id] = True
         if split:
-            self._split(tile_id, vals, attr)
+            self._split(tile_id, vals, attr, edges=edges)
         else:
             self.adapt_stats.tiles_enriched += 1
 
-    def can_split(self, tile_id: int) -> bool:
+    def heatmap_cache(self, window, bins, attr: str):
+        """The session bin-grid registry for ``(window, bins, attr)``,
+        or ``None`` when disabled. Registries live in a small LRU keyed
+        on the exact viewport (``IndexConfig.bin_memory_slots``). Entries
+        map an ACTIVE tile id to its exact per-bin in-window contribution
+        ``(cnt_b, sum_b, min_b, max_b)`` (host numpy); a split tile's
+        entry goes stale harmlessly — deactivated tiles are never
+        classification candidates again. The key holds the window as
+        Python floats: a tensor or float32 window would miss."""
+        if not self.cfg.session_bin_memory:
+            return None
+        key = (tuple(float(v) for v in window), tuple(bins), attr)
+        reg = self._hm_regs.get(key)
+        if reg is None:
+            reg = {}
+            self._hm_regs[key] = reg
+        else:
+            self._hm_regs.move_to_end(key)
+        while len(self._hm_regs) > max(1, int(self.cfg.bin_memory_slots)):
+            self._hm_regs.popitem(last=False)
+        self._hm_key = key
+        return reg
+
+    def _hm_record(self, cache, tile_id: int, contrib) -> None:
+        """Register a processed tile's per-bin contribution — only while
+        it stayed active (enriched, not split); children of a split are
+        fresh tiles with no entry."""
+        if cache is not None and self.active[tile_id]:
+            cache[int(tile_id)] = contrib
+
+    def process_heatmap(self, tile_id: int, window, attr: str, bins, *,
+                        split: bool = True):
+        """Sequential heatmap reference: one raw-file read + the tile's
+        exact per-bin in-window contribution, then enrich/split exactly
+        like :meth:`process`.
+
+        Returns ``(cnt_b, sum_b, min_b, max_b)`` — per-bin host arrays of
+        length ``bx*by`` (bin id = by_row*bx + bx_col) — or ``None``
+        when the dataset retired mid-query. Under "torch"/"cuda" the
+        contribution is one ``segment_window_bin_agg`` over the tile's
+        device segment (S = 1).
+        """
+        if self.ds.closed:
+            return None
+        bx, by = bins
+        nbins = bx * by
+        self.ensure_attr(attr)
+        o, c = int(self.offset[tile_id]), int(self.count[tile_id])
+        if c == 0:
+            return (np.zeros(nbins, np.int64), np.zeros(nbins),
+                    np.full(nbins, np.inf), np.full(nbins, -np.inf))
+        rows = self.perm[o:o + c]
+        vals = self.ds.read_values(attr, rows)        # ← accounted file I/O
+        xs, ys = self.x_s[o:o + c], self.y_s[o:o + c]
+
+        one = np.array([0, c], np.int64)
+        if self._np:
+            agg = ref_mod.segment_window_bin_agg_np(xs, ys, vals, one,
+                                                    window, bx, by)[0]
+        else:
+            agg = _host(ops.segment_window_bin_agg(
+                xs, ys, vals, one, window, bx=bx, by=by,
+                backend=self._backend))[0]
+
+        # bin-aligned split lines: snap this tile's split edges to the
+        # query's bin grid so children nest inside single bins (the
+        # batched path computes the identical edges in read_batch_heatmap)
+        edges = self._heatmap_split_edges(
+            np.array([tile_id], np.int64), window, bins)
+        self._enrich_and_split(tile_id, vals, attr, split,
+                               edges=None if edges is None else edges[0])
+        contrib = (agg[:, 0].astype(np.int64), agg[:, 1].copy(),
+                   agg[:, 2].copy(), agg[:, 3].copy())
+        self._hm_record(self.heatmap_cache(window, bins, attr),
+                        tile_id, contrib)
+        return contrib
+
+    def _heatmap_split_edges(self, tile_ids: np.ndarray, window, bins):
+        """Per-tile bin-aligned split edges for heatmap refinement, or
+        ``None`` under the uniform-split policy: a list of ``(x_edges,
+        y_edges)`` float64 pairs aligned with ``tile_ids``, whose lengths
+        vary per tile (bin-count-matched grids, capped by
+        ``IndexConfig.max_split_span``). The one place both the
+        sequential and batched paths derive their split lines from."""
+        if not self.cfg.bin_aligned_splits:
+            return None
+        bx, by = bins
+        return [geometry.bin_matched_split_edges(
+                    self.bbox[t], window, bx, by,
+                    base=self.cfg.split_grid, cap=self.cfg.max_split_span)
+                for t in tile_ids]
+
+    def can_split(self, tile_id: int, k: Optional[int] = None) -> bool:
+        """``k`` — children the intended split appends (defaults to the
+        even ``split_grid``; bin-count-matched splits pass their own)."""
         gx, gy = self.cfg.split_grid
-        k = gx * gy
+        k = gx * gy if k is None else int(k)
         return (self.count[tile_id] >= self.cfg.min_split_count
                 and self.level[tile_id] < self.cfg.max_level
                 and self.n_tiles + k <= self.cfg.capacity)
 
-    def _split(self, tile_id: int, vals, attr: str):
-        """Split + reorganize + per-child metadata (one bin_agg pass)."""
-        gx, gy = self.cfg.split_grid
-        if not self.can_split(tile_id):
+    def _split(self, tile_id: int, vals, attr: str, edges=None):
+        """Split + reorganize + per-child metadata (one binned pass).
+
+        ``edges=(x_edges, y_edges)`` cuts along explicit (bin-aligned)
+        split lines instead of the even gx×gy subdivision; ownership is
+        then ``geometry.edge_cell_ids``'s float64 rule, child metadata
+        comes from ``segment_bin_agg_edges``, and the split grid is the
+        edges' own.
+        """
+        if edges is None:
+            gx, gy = self.cfg.split_grid
+        else:
+            gx, gy = len(edges[0]) - 1, len(edges[1]) - 1
+        if not self.can_split(tile_id, gx * gy):
             self.adapt_stats.tiles_enriched += 1
             return
         o, c = int(self.offset[tile_id]), int(self.count[tile_id])
@@ -384,20 +561,31 @@ class TileIndex:
         bbox = self.bbox[tile_id]
 
         if self._np:
-            cell = geometry.bin_cell_ids(xs, ys, bbox, gx, gy)
+            cell = (geometry.bin_cell_ids(xs, ys, bbox, gx, gy)
+                    if edges is None else
+                    geometry.edge_cell_ids(xs, ys, edges[0], edges[1]))
             counts = np.bincount(cell, minlength=gx * gy)
         else:
             sid = torch.zeros(c, dtype=torch.int64, device=xs.device)
-            cell = geometry.segment_cell_ids(xs, ys, sid, bbox[None],
-                                             gx, gy)
+            cell = (geometry.segment_cell_ids(xs, ys, sid, bbox[None],
+                                              gx, gy)
+                    if edges is None else
+                    geometry.segment_edge_cell_ids(
+                        xs, ys, sid, edges[0][None], edges[1][None]))
             counts = _host(torch.bincount(cell, minlength=gx * gy))
-        boxes = geometry.subtile_bboxes(bbox, gx, gy)
+        boxes = (geometry.subtile_bboxes(bbox, gx, gy) if edges is None
+                 else geometry.bboxes_from_edges(edges[0], edges[1]))
         child_off = o + np.concatenate([[0], np.cumsum(counts)[:-1]])
 
         # child metadata for the processed attribute: one binned pass
-        # (data plane — the bin_agg kernel)
-        agg = _host(ops.bin_agg(xs, ys, vals, bbox, gx=gx, gy=gy,
-                                backend=self._backend))
+        # (data plane — the bin_agg or segment_bin_agg_edges kernel)
+        if edges is None:
+            agg = _host(ops.bin_agg(xs, ys, vals, bbox, gx=gx, gy=gy,
+                                    backend=self._backend))
+        else:
+            agg = _host(ops.segment_bin_agg_edges(
+                xs, ys, vals, np.array([0, c], np.int64), edges[0][None],
+                edges[1][None], backend=self._backend))[0]
         self.adapt_stats.kernel_calls += 1
 
         if self._np:
@@ -468,6 +656,21 @@ class TileIndex:
                    "attr": attr, "dead": True}
         return [None] * len(tile_ids), payload
 
+    def _read_batch_gather(self, tile_ids, attr: str):
+        """Shared phase-1 plumbing of a batched refinement round: ONE
+        gathered ``read_values`` over the tiles' concatenated segments,
+        plus the :meth:`apply_batch` payload describing them."""
+        self.ensure_attr(attr)
+        tile_ids = np.asarray(tile_ids, np.int64)
+        idx, bounds = self._gather_segments(tile_ids)
+        rows = self.perm[idx]
+        vals = self.ds.read_values(attr, rows)     # ← ONE accounted read
+        xs, ys = self.x_s[idx], self.y_s[idx]
+        self.adapt_stats.batch_rounds += 1
+        payload = {"tile_ids": tile_ids, "idx": idx, "bounds": bounds,
+                   "xs": xs, "ys": ys, "vals": vals, "attr": attr}
+        return tile_ids, idx, bounds, xs, ys, vals, payload
+
     def read_batch(self, tile_ids, window, attr: str):
         """Phase 1 of a batched refinement round: ONE gathered
         ``read_values`` over the tiles' concatenated segments and ONE
@@ -483,15 +686,8 @@ class TileIndex:
         """
         if self.ds.closed:
             return self._dead_batch(tile_ids, attr)
-        self.ensure_attr(attr)
-        tile_ids = np.asarray(tile_ids, np.int64)
-        idx, bounds = self._gather_segments(tile_ids)
-        rows = self.perm[idx]
-        vals = self.ds.read_values(attr, rows)     # ← ONE accounted read
-        xs, ys = self.x_s[idx], self.y_s[idx]
-        self.adapt_stats.batch_rounds += 1
-        payload = {"tile_ids": tile_ids, "idx": idx, "bounds": bounds,
-                   "xs": xs, "ys": ys, "vals": vals, "attr": attr}
+        tile_ids, idx, bounds, xs, ys, vals, payload = \
+            self._read_batch_gather(tile_ids, attr)
         # exact in-window contributions: one packed kernel over the batch
         contrib = _host(ops.segment_window_agg(
             xs, ys, vals, bounds, window, backend=self._backend))
@@ -503,6 +699,62 @@ class TileIndex:
             for s in range(len(tile_ids))]
         return contribs, payload
 
+    def read_batch_heatmap(self, tile_ids, window, attr: str, bins):
+        """Phase 1 of a batched HEATMAP refinement round.
+
+        Like :meth:`read_batch`, but the single packed pass is the fused
+        ``segment_window_bin_select``: every tile's exact per-bin
+        in-window contribution from one gathered read, plus the
+        selection-ready suffix widths of the tiles' sound value bounds
+        (``payload["suffix_w"]``, fold order). ``contribs`` is a list of
+        ``(cnt_b, sum_b, min_b, max_b)`` per-bin host arrays aligned with
+        ``tile_ids``; ``payload`` is what :meth:`apply_batch` consumes.
+
+        Under "np" the pass is the float64 host mirror, bit for bit the
+        sequential path's. Under "torch"/"cuda" the gathered segments
+        stay on the device and the pass is the plain version or the CUDA
+        kernel: its sums are float64 (in another order), its counts and
+        extrema bit for bit the mirror's — the kernel sums in float64,
+        unlike the Pallas kernels the reference keeps off this path —
+        and only the ``(S, bx*by, 4)`` table and ``suffix_w`` cross to
+        the host.
+        """
+        if self.ds.closed:
+            return self._dead_batch(tile_ids, attr)
+        bx, by = bins
+        tile_ids, idx, bounds, xs, ys, vals, payload = \
+            self._read_batch_gather(tile_ids, attr)
+        vmin_s = self.meta_min[attr][tile_ids]
+        vmax_s = self.meta_max[attr][tile_ids]
+        if self._np:
+            agg, suffix_w = fused_mod.segment_window_bin_select_np(
+                xs, ys, vals, bounds, window, bx, by, vmin_s, vmax_s)
+        else:
+            agg, suffix_w = ops.segment_window_bin_select(
+                xs, ys, vals, bounds, window, vmin_s, vmax_s, bx=bx, by=by,
+                backend=self._backend)
+            agg, suffix_w = _host(agg), _host(suffix_w)
+        payload["suffix_w"] = suffix_w
+        self.adapt_stats.kernel_calls += 1
+        # bin-aligned split lines for every tile of the round (the same
+        # edges process_heatmap computes) — apply_batch slices the folded
+        # prefix, keeping the index evolution identical to sequential
+        payload["split_edges"] = self._heatmap_split_edges(
+            tile_ids, window, bins)
+        contribs = [
+            (agg[s, :, 0].astype(np.int64), agg[s, :, 1].copy(),
+             agg[s, :, 2].copy(), agg[s, :, 3].copy())
+            for s in range(len(tile_ids))]
+        # session bin-grid memory: apply_batch registers the FOLDED
+        # prefix (speculatively-read tiles stay unregistered, exactly as
+        # under sequential processing); the payload carries the registry
+        # KEY, so an apply after the registry was evicted drops the
+        # registration instead of writing into another viewport's
+        cache = self.heatmap_cache(window, bins, attr)
+        payload["hm_key"] = self._hm_key if cache is not None else None
+        payload["hm_contribs"] = contribs
+        return contribs, payload
+
     def apply_batch(self, payload, n_used: int, split_flags):
         """Phase 2: enrich + split the round's first ``n_used`` tiles.
 
@@ -510,8 +762,11 @@ class TileIndex:
         left untouched, so the index evolves exactly as under sequential
         processing. ``split_flags[i]`` requests a split for tile i of the
         prefix (subject to the split rule, evaluated in order with
-        in-round capacity growth). All children of all split tiles are
-        appended in one SoA update.
+        in-round capacity growth). Maximal consecutive runs of tiles
+        sharing one split grid (the even grid, or a bin-aligned round's
+        per-tile edges) split in one packed pass each, children appended
+        in fold order; heatmap rounds then register the folded,
+        still-active tiles in the session bin-grid memory.
         """
         if n_used == 0 or payload.get("dead"):
             return
@@ -537,9 +792,14 @@ class TileIndex:
         self.meta_max[attr][tile_ids[nz]] = full[nz, 3]
         self.meta_valid[attr][tile_ids[nz]] = True
 
-        # split decisions in order, accounting in-round capacity growth
+        # split decisions in order, accounting in-round capacity growth;
+        # per-tile child counts vary under bin-count-matched split grids
+        # (the edges carry each tile's own grid)
         gx, gy = self.cfg.split_grid
-        k = gx * gy
+        edges_l = payload.get("split_edges")
+        ks = [gx * gy if edges_l is None else
+              (len(edges_l[i][0]) - 1) * (len(edges_l[i][1]) - 1)
+              for i in range(len(tile_ids))]
         nt = self.n_tiles
         will_split = np.zeros(len(tile_ids), bool)
         for i, t in enumerate(tile_ids):
@@ -547,34 +807,68 @@ class TileIndex:
                 continue
             if (self.count[t] >= self.cfg.min_split_count
                     and self.level[t] < self.cfg.max_level
-                    and nt + k <= self.cfg.capacity):
+                    and nt + ks[i] <= self.cfg.capacity):
                 will_split[i] = True
-                nt += k
+                nt += ks[i]
         self.adapt_stats.tiles_enriched += int(nz.sum() - will_split.sum())
 
-        # every split tile shares the even grid: one packed pass, children
-        # appended in fold order (the sequential path's tile ids)
-        run = np.flatnonzero(will_split)
-        if run.size == 0:
-            return
-        # boolean indexing copies, and xs/ys are gathered copies to begin
-        # with — _split_batch may reorganize x_s/y_s in place
-        if self._np:
-            keep = np.repeat(will_split, counts)
-        else:
-            dev = vals.device
-            keep = torch.repeat_interleave(
-                torch.from_numpy(will_split).to(dev),
-                torch.from_numpy(counts).to(dev), output_size=end)
-        self._split_batch(tile_ids[run], idx[keep], xs[keep], ys[keep],
-                          vals[keep], attr)
+        # pack maximal CONSECUTIVE runs of same-grid tiles into one
+        # _split_batch call each: per-tile grids stay batch-composition
+        # invariant AND children get the same ids as under sequential
+        # processing (run grouping preserves the fold order)
+        def grid(i):
+            return ks[i] if edges_l is None else (len(edges_l[i][0]),
+                                                  len(edges_l[i][1]))
 
-    def _split_batch(self, parents, idx, xs, ys, vals, attr: str):
+        pos = np.flatnonzero(will_split)
+        r = 0
+        while r < len(pos):
+            s = r + 1
+            while s < len(pos) and grid(pos[s]) == grid(pos[r]):
+                s += 1
+            run = pos[r:s]
+            mask = np.zeros(len(tile_ids), bool)
+            mask[run] = True
+            e = None if edges_l is None else (
+                np.stack([edges_l[i][0] for i in run]),
+                np.stack([edges_l[i][1] for i in run]))
+            # boolean indexing copies, and xs/ys are gathered copies to
+            # begin with — _split_batch may reorganize x_s/y_s in place
+            if self._np:
+                keep = np.repeat(mask, counts)
+            else:
+                dev = vals.device
+                keep = torch.repeat_interleave(
+                    torch.from_numpy(mask).to(dev),
+                    torch.from_numpy(counts).to(dev), output_size=end)
+            self._split_batch(tile_ids[run], idx[keep], xs[keep], ys[keep],
+                              vals[keep], attr, edges=e)
+            r = s
+
+        # heatmap rounds: register the folded, still-active tiles in the
+        # session bin-grid memory (mirrors process_heatmap), resolved by
+        # KEY — an evicted registry drops the registration
+        key = payload.get("hm_key")
+        reg = None if key is None else self._hm_regs.get(key)
+        if reg is not None:
+            contribs = payload["hm_contribs"]
+            for i, t in enumerate(tile_ids):
+                self._hm_record(reg, t, contribs[i])
+
+    def _split_batch(self, parents, idx, xs, ys, vals, attr: str,
+                     edges=None):
         """Vectorized multi-tile split: every parent's segment is binned
-        against its own bbox, reorganized in place, and ALL children are
-        appended in one SoA update. ``idx/xs/ys/vals`` cover the parents'
-        concatenated segments (pristine copies, concat order)."""
-        gx, gy = self.cfg.split_grid
+        against its own bbox — or its own bin-aligned split edges, when
+        ``edges=(x_edges (S, gx+1), y_edges (S, gy+1))`` is given —
+        reorganized in place, and ALL children are appended in one SoA
+        update. ``idx/xs/ys/vals`` cover the parents' concatenated
+        segments (pristine copies, concat order). The split grid is the
+        edges' own when given (one shared (gx, gy) per call), else the
+        even ``split_grid``."""
+        if edges is None:
+            gx, gy = self.cfg.split_grid
+        else:
+            gx, gy = edges[0].shape[1] - 1, edges[1].shape[1] - 1
         k = gx * gy
         s_n = len(parents)
         off = self.offset[parents]
@@ -585,17 +879,24 @@ class TileIndex:
         # per-element cell ids under each parent's own ownership rule
         if self._np:
             sid = np.repeat(np.arange(s_n), cnt)
-            cw = np.maximum((bboxes[:, 2] - bboxes[:, 0]) / gx, 1e-30)
-            ch = np.maximum((bboxes[:, 3] - bboxes[:, 1]) / gy, 1e-30)
-            cx = np.clip(np.floor((xs - bboxes[sid, 0]) / cw[sid]).astype(
-                np.int64), 0, gx - 1)
-            cy = np.clip(np.floor((ys - bboxes[sid, 1]) / ch[sid]).astype(
-                np.int64), 0, gy - 1)
-            key = sid * k + cy * gx + cx
+            if edges is None:
+                cw = np.maximum((bboxes[:, 2] - bboxes[:, 0]) / gx, 1e-30)
+                ch = np.maximum((bboxes[:, 3] - bboxes[:, 1]) / gy, 1e-30)
+                cx = np.clip(np.floor((xs - bboxes[sid, 0]) / cw[sid]).astype(
+                    np.int64), 0, gx - 1)
+                cy = np.clip(np.floor((ys - bboxes[sid, 1]) / ch[sid]).astype(
+                    np.int64), 0, gy - 1)
+                key = sid * k + cy * gx + cx
+            else:
+                key = sid * k + geometry.edge_cell_ids_segmented(
+                    xs, ys, edges[0], edges[1], sid)
             counts_sk = np.bincount(key, minlength=s_n * k).reshape(s_n, k)
         else:
             sid = segment_ids(bounds, xs.device)
-            key = geometry.segment_cell_ids(xs, ys, sid, bboxes, gx, gy)
+            key = (geometry.segment_cell_ids(xs, ys, sid, bboxes, gx, gy)
+                   if edges is None else
+                   sid * k + geometry.segment_edge_cell_ids(
+                       xs, ys, sid, edges[0], edges[1]))
             counts_sk = _host(torch.bincount(
                 key, minlength=s_n * k)).reshape(s_n, k)
         child_off = off[:, None] + np.concatenate(
@@ -603,9 +904,14 @@ class TileIndex:
              np.cumsum(counts_sk, axis=1)[:, :-1]], axis=1)
 
         # child metadata for the processed attribute: one packed kernel
-        agg = _host(ops.segment_bin_agg(
-            xs, ys, vals, bounds, bboxes, gx=gx, gy=gy,
-            backend=self._backend))
+        if edges is None:
+            agg = _host(ops.segment_bin_agg(
+                xs, ys, vals, bounds, bboxes, gx=gx, gy=gy,
+                backend=self._backend))
+        else:
+            agg = _host(ops.segment_bin_agg_edges(
+                xs, ys, vals, bounds, edges[0], edges[1],
+                backend=self._backend))
         self.adapt_stats.kernel_calls += 1
 
         # one global stable sort reorganizes every parent's segment
@@ -626,7 +932,10 @@ class TileIndex:
         t0 = self.n_tiles
         sl = slice(t0, t0 + s_n * k)
         self.bbox[sl] = np.concatenate(
-            [geometry.subtile_bboxes(b, gx, gy) for b in bboxes])
+            [geometry.subtile_bboxes(b, gx, gy) for b in bboxes]
+            if edges is None else
+            [geometry.bboxes_from_edges(edges[0][s], edges[1][s])
+             for s in range(s_n)])
         self.offset[sl] = child_off.reshape(-1)
         self.count[sl] = counts_sk.reshape(-1)
         self.active[sl] = True
@@ -713,13 +1022,15 @@ class TileIndex:
 
     def _check_invariants_device(self, ids, attr, tol):
         """The same invariants with one segmented reduction per check:
-        the active tiles, in offset order, must tile the permutation."""
+        the active tiles, in offset order, must tile the permutation (an
+        empty tile shares its offset with the next segment and sorts
+        before it)."""
         n = self.ds.n
         dev = self.perm.device
         assert torch.equal(torch.sort(self.perm).values,
                            torch.arange(n, device=dev)), \
             "perm is a permutation"
-        ids = ids[np.argsort(self.offset[ids], kind="stable")]
+        ids = ids[np.lexsort((self.count[ids] > 0, self.offset[ids]))]
         cnt = self.count[ids]
         bounds = np.concatenate([[0], np.cumsum(cnt)]).astype(np.int64)
         assert np.array_equal(self.offset[ids], bounds[:-1]), \

@@ -1,15 +1,17 @@
 """The refinement driver: one batched classify→score→fold engine.
 
-Port of :mod:`repro.core.refine` (the scalar path), copied without
-change. The driver is parameterized by
+Port of :mod:`repro.core.refine` (the host driver and both adapters),
+copied without change. The driver is parameterized by
 
 - an **accumulator** implementing the refinement protocol
-  (:class:`~repro_torch.core.bounds.QueryAccumulator`): ``agg``,
+  (:class:`~repro_torch.core.bounds.QueryAccumulator` /
+  :class:`~repro_torch.core.bounds.GroupedAccumulator`): ``agg``,
   ``pending``, ``fold_exact(tile_id, *contrib)``, ``query_bound()`` and
   ``min_folds_needed(remaining, phi)``;
-- an **index adapter** (:class:`ScalarQueryAdapter`) supplying the score
-  order, the per-tile reference read (``process_one``), the batched
-  gathered read (``read_batch``) and the split policy (``split_flags``).
+- an **index adapter** (:class:`ScalarQueryAdapter` /
+  :class:`HeatmapQueryAdapter`) supplying the score order, the per-tile
+  reference read (``process_one``), the batched gathered read
+  (``read_batch``) and the split policy (``split_flags``).
 
 Round sizing under φ > 0: for sum/mean the accumulator's certain
 ``min_folds_needed`` sizes rounds that read zero speculative rows; for
@@ -22,13 +24,13 @@ sequential per-tile reference path (``sequential=True``).
 The round cap uses the reference's ``MAX_SEGMENTS``/``MAX_UNROLL``
 (:mod:`repro_torch.kernels.segment_agg`): the CUDA kernels need no such
 cap, but the round sizes — and so ``read_calls`` and the index
-evolution — must stay the reference's. The heatmap adapter, the serving
-layer's epoch staging and the SPMD ``EpochDriver`` come with later
-slices of the port.
+evolution — must stay the reference's. The serving layer's epoch
+staging and the SPMD ``EpochDriver`` come with later slices of the
+port.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 from . import adapt
 from ..kernels.segment_agg import MAX_SEGMENTS, MAX_UNROLL
@@ -54,7 +56,8 @@ def round_residual(payload):
     composite round's widths live per run, and its last interim check
     is the one before the LAST run's last fold — so row ``[-2]`` of the
     last run's matrix is THE row
-    ``GroupedAccumulator.round_certain`` (heatmap slice) needs.
+    :meth:`~repro_torch.core.bounds.GroupedAccumulator.round_certain`
+    needs.
     """
     runs = payload.get("runs")
     if runs is not None:
@@ -101,6 +104,49 @@ class ScalarQueryAdapter:
         # matched grids are a heatmap-only policy
         gx, gy = self.index.cfg.split_grid
         return gx * gy
+
+
+class HeatmapQueryAdapter:
+    """Index adapter for heatmap (2-D group-by) queries.
+
+    Unlike the scalar policy, heatmap refinement splits EVERY processed
+    tile: a full tile spanning several bins must be re-read by every
+    future heatmap until its descendants nest inside single bins and
+    answer from metadata. Splits are bin-aligned when
+    ``IndexConfig.bin_aligned_splits`` is set: the index snaps each
+    tile's split lines to this query's bin grid so children nest after
+    ONE split (see ``TileIndex.process_heatmap`` /
+    ``read_batch_heatmap``).
+    """
+
+    def __init__(self, index, window, attr: str,
+                 bins: Tuple[int, int]):
+        self.index = index
+        self.window = window
+        self.attr = attr
+        self.bins = (int(bins[0]), int(bins[1]))
+
+    def score_order(self, acc, alpha: float) -> List[int]:
+        # under an AccuracyPolicy the accumulator supplies per-bin
+        # budget weights (1/τ_b) so the score ranks tiles by their worst
+        # budget-normalized CI width; None ⇒ the uniform-φ order
+        return adapt.score_tiles_grouped(acc.pending, acc.agg, alpha,
+                                         bin_weight=acc.score_bin_weight())
+
+    def process_one(self, tile_id: int):
+        ti, t = self.index.resolve(tile_id)
+        return ti.process_heatmap(t, self.window, self.attr,
+                                  self.bins, split=True)
+
+    def read_batch(self, tile_ids):
+        return self.index.read_batch_heatmap(tile_ids, self.window,
+                                             self.attr, self.bins)
+
+    def split_flags(self, tile_ids) -> List[bool]:
+        return [True] * len(tile_ids)
+
+    def max_split_cells(self) -> int:
+        return self.index.cfg.max_split_cells()
 
 
 class RefinementDriver:

@@ -4,10 +4,14 @@
 TileIndex` from plain numpy arrays taken off a reference ``TileIndex``
 (the counterpart of carrying a model's weights across), so both packages
 can continue from the same cracked index. :func:`index_to_numpy` takes
-the same arrays off either package's index (reference or port).
+the same arrays off either package's index (reference or port),
+including the session bin-grid memory: the LRU of heatmap registries, in
+order, each mapping a tile id to its per-bin ``(cnt_b, sum_b, min_b,
+max_b)``.
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Dict, Optional
 
 import numpy as np
@@ -23,9 +27,10 @@ META = ("meta_sum", "meta_min", "meta_max", "meta_valid")
 
 def index_to_numpy(index) -> Dict[str, object]:
     """The state :func:`index_from_numpy` reads: the tile table,
-    ``n_tiles``, the perm-order object arrays, per-attribute metadata and
-    ``global_minmax`` — all numpy (device tensors are copied to the
-    host)."""
+    ``n_tiles``, the perm-order object arrays, per-attribute metadata,
+    ``global_minmax`` and the heatmap registries (``hm_regs``: a list of
+    ``(key, {tile_id: (cnt_b, sum_b, min_b, max_b)})`` in LRU order) —
+    all numpy (device tensors are copied to the host)."""
     out = {k: np.array(getattr(index, k)) for k in TABLE}
     out["n_tiles"] = int(index.n_tiles)
     for k in OBJECTS:
@@ -35,6 +40,11 @@ def index_to_numpy(index) -> Dict[str, object]:
     for k in META:
         out[k] = {a: np.array(v) for a, v in getattr(index, k).items()}
     out["global_minmax"] = dict(index.global_minmax)
+    # least recently touched first; the last key is the current viewport
+    out["hm_regs"] = [
+        (key, {int(t): tuple(np.array(a) for a in rec)
+               for t, rec in reg.items()})
+        for key, reg in index._hm_regs.items()]
     return out
 
 
@@ -64,4 +74,9 @@ def index_from_numpy(dataset: RawDataset, config: Optional[IndexConfig],
         setattr(ti, k, {a: np.array(v) for a, v in arrays[k].items()})
     ti.global_minmax = {a: (float(lo), float(hi))
                         for a, (lo, hi) in arrays["global_minmax"].items()}
+    ti._hm_regs = OrderedDict(
+        (key, {int(t): tuple(np.array(a) for a in rec)
+               for t, rec in reg.items()})
+        for key, reg in arrays.get("hm_regs", ()))
+    ti._hm_key = next(reversed(ti._hm_regs), None)
     return ti

@@ -3,7 +3,9 @@
 // Every kernel of this family is a keyed reduction: each object gets a
 // key = segment * k + cell, folds into a block-private table in shared
 // memory, and each block flushes its table to a global workspace with
-// atomics. A one-block epilogue turns the workspace into the f64
+// atomics. A table of more than AGG_MAX_CELLS cells does not fit in
+// shared memory: its kernels fold every run straight into the global
+// workspace instead. An epilogue turns the workspace into the f64
 // (count, sum, min, max) rows the host control plane reads.
 //
 // Channels: counts are integers (exact at any size), sums float64
@@ -16,6 +18,7 @@
 
 #define AGG_MAX_SEGMENTS 64
 #define AGG_MAX_CELLS 2048
+#define AGG_SMEM 49152  // dynamic shared memory without an opt-in
 #define AGG_THREADS 256
 #define AGG_ITEMS 16  // objects per thread per block chunk
 #define AGG_CHUNK (AGG_THREADS * AGG_ITEMS)
@@ -106,18 +109,31 @@ __device__ __forceinline__ void run_reset(Run& r, int key) {
   r.mx = -INFINITY;
 }
 
-__device__ __forceinline__ void run_flush(Run& r, Table t) {
-  if (r.cnt) {
-    atomicAdd(&t.cnt[r.key], r.cnt);
-    atomicAdd(&t.sum[r.key], r.sum);
-    atomicMin(&t.mn[r.key], f2o(r.mn));
-    atomicMax(&t.mx[r.key], f2o(r.mx));
-  }
+// A run lands in a sink: the block-private shared table, or — when the
+// table is too large for shared memory — the global workspace directly.
+__device__ __forceinline__ void sink_add(Table t, const Run& r) {
+  atomicAdd(&t.cnt[r.key], r.cnt);
+  atomicAdd(&t.sum[r.key], r.sum);
+  atomicMin(&t.mn[r.key], f2o(r.mn));
+  atomicMax(&t.mx[r.key], f2o(r.mx));
 }
 
-__device__ __forceinline__ void run_add(Run& r, int key, float v, Table t) {
+__device__ __forceinline__ void sink_add(Cell* ws, const Run& r) {
+  atomicAdd(&ws[r.key].cnt, (unsigned long long)r.cnt);
+  atomicAdd(&ws[r.key].sum, r.sum);
+  atomicMin(&ws[r.key].mn, f2o(r.mn));
+  atomicMax(&ws[r.key].mx, f2o(r.mx));
+}
+
+template <class Sink>
+__device__ __forceinline__ void run_flush(Run& r, Sink sink) {
+  if (r.cnt) sink_add(sink, r);
+}
+
+template <class Sink>
+__device__ __forceinline__ void run_add(Run& r, int key, float v, Sink sink) {
   if (key != r.key) {
-    run_flush(r, t);
+    run_flush(r, sink);
     run_reset(r, key);
   }
   r.cnt += 1u;

@@ -1,0 +1,160 @@
+// segment_window_bin_agg / segment_window_bin_select: per-(segment,
+// window-bin) (count, sum, min, max) of the objects inside one closed
+// window, every segment binned by the same bx * by grid laid on the
+// window — the heatmap read. The select variant adds the selection
+// epilogue: suffix_w (S + 1, bx * by), the reversed cumulative sum over
+// segments of cnt * (vmax_s - vmin_s), last row exactly 0.
+//
+// Replaces the TPU kernels repro/kernels/segment_agg.py
+// segment_window_bin_agg_pallas (pallas_call at :295) and
+// repro/kernels/fused_select.py fused_table_pallas (pallas_call at :364,
+// called by segment_window_bin_select_pallas at :389), which unroll one
+// masked reduction per (segment, bin) because the TPU has no scatter.
+// Here both are one keyed reduction: key = segment * nb + bin, per-thread
+// register runs, a block-private table in shared memory and one atomic
+// flush per block; a table of more than AGG_MAX_CELLS cells (many bins
+// times many segments) folds straight into the global workspace.
+//
+// Bound on the H100: memory. Each object's x and y are read once, v only
+// for the objects inside the window; the output is S * nb * 4 doubles
+// (plus (S + 1) * nb for suffix_w). At the heatmap path's rounds (<= 8
+// segments of ~4e5 objects, 8 x 8 bins) that is ~26-37 MB, ~8-11 us at
+// 3.35 TB/s; at those sizes the launches and the host round trip
+// dominate.
+//
+// Precision — the binning contract of repro/kernels/ref.py
+// window_bin_params: the window (x0, y0, x1, y1) and the cell sizes
+// (cw, ch) arrive as float32, with cw, ch derived in float64 on the host
+// and only then rounded; the mask compares in float32 and the bin is
+// clip(floor((x - x0) / cw)) in IEEE float32 (__fsub_rn, __fdiv_rn:
+// never recomputed from the window in the kernel, never fast math). That
+// is bit for bit the host rule window_bin_ids_np. The suffix epilogue
+// multiplies and adds with __dmul_rn / __dadd_rn, which nvcc never
+// contracts into an FMA, in the order numpy's reversed cumsum takes:
+// suffix_w equals the host mirror's bit for bit.
+#include "agg_common.cuh"
+
+struct BinWindow {
+  float x0, y0, x1, y1, cw, ch;
+};
+
+struct SegWidths {
+  double dv[AGG_MAX_SEGMENTS];  // per segment: vmax - vmin (float64)
+};
+
+template <bool kShared>
+__global__ void segment_window_bin_agg_kernel(
+    const float* __restrict__ x, const float* __restrict__ y,
+    const float* __restrict__ v, Bounds bounds, int S, BinWindow w, int bx,
+    int by, Cell* __restrict__ ws) {
+  extern __shared__ __align__(16) char smem[];
+  const int nb = bx * by;
+  long long* b = reinterpret_cast<long long*>(smem);
+  Table t = table_at(smem + (S + 1) * sizeof(long long), S * nb);
+  for (int s = threadIdx.x; s <= S; s += blockDim.x) b[s] = bounds.b[s];
+  if (kShared) table_init(t, S * nb);
+  __syncthreads();
+
+  const long long end = bounds.b[S];
+  const long long i0 =
+      bounds.b[0] + (long long)blockIdx.x * AGG_CHUNK + threadIdx.x;
+  int s = i0 < end ? segment_of(b, S, i0) : 0;
+  Run r;
+  run_reset(r, s * nb);
+  for (int j = 0; j < AGG_ITEMS; ++j) {
+    const long long i = i0 + (long long)j * AGG_THREADS;
+    if (i >= end) break;
+    const float xi = x[i], yi = y[i];
+    if (xi >= w.x0 && xi <= w.x1 && yi >= w.y0 && yi <= w.y1) {
+      if (i >= b[s + 1]) s = segment_of(b, S, i);
+      const int cx = clip_cell(__fdiv_rn(__fsub_rn(xi, w.x0), w.cw), bx);
+      const int cy = clip_cell(__fdiv_rn(__fsub_rn(yi, w.y0), w.ch), by);
+      if (kShared) run_add(r, s * nb + cy * bx + cx, v[i], t);
+      else run_add(r, s * nb + cy * bx + cx, v[i], ws);
+    }
+  }
+  if (kShared) {
+    run_flush(r, t);
+    __syncthreads();
+    table_flush(t, S * nb, ws);
+  } else {
+    run_flush(r, ws);
+  }
+}
+
+// The (S, nb, 4) rows, and with them suffix_w: thread c < nb walks bin
+// c's column from the last segment up — acc = w[S-1], then
+// acc = acc + w[s] — as numpy's cumsum over the reversed rows does.
+__global__ void finalize_select(const Cell* ws, double* out, int S, int nb,
+                                SegWidths widths, double* suffix) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  const int cells = S * nb;
+  if (c < cells) {
+    out[4 * c + 0] = (double)ws[c].cnt;
+    out[4 * c + 1] = ws[c].sum;
+    out[4 * c + 2] = (double)o2f(ws[c].mn);
+    out[4 * c + 3] = (double)o2f(ws[c].mx);
+  }
+  if (c < nb) {
+    double acc =
+        __dmul_rn((double)ws[(S - 1) * nb + c].cnt, widths.dv[S - 1]);
+    suffix[(S - 1) * nb + c] = acc;
+    for (int s = S - 2; s >= 0; --s) {
+      acc = __dadd_rn(acc,
+                      __dmul_rn((double)ws[s * nb + c].cnt, widths.dv[s]));
+      suffix[s * nb + c] = acc;
+    }
+    suffix[S * nb + c] = 0.0;
+  }
+}
+
+// h_bounds: host int64 (S + 1,); window: float32 (x0, y0, x1, y1, cw,
+// ch) by the binning contract; ws: device workspace of S * bx * by
+// Cells; out: device float64 (S, bx * by, 4). With h_dv (host float64
+// (S,) widths vmax - vmin) non-null, also writes suffix: device float64
+// (S + 1, bx * by). Launches on `stream`, allocates nothing, returns the
+// first launch error (0 on success).
+extern "C" int segment_window_bin_agg_launch(
+    const float* x, const float* y, const float* v,
+    const long long* h_bounds, int S, float x0, float y0, float x1,
+    float y1, float cw, float ch, int bx, int by, const double* h_dv,
+    void* ws, double* out, double* suffix, void* stream) {
+  const int nb = bx * by;
+  const int cells = S * nb;
+  if (S < 1 || S > AGG_MAX_SEGMENTS || bx < 1 || by < 1 ||
+      (h_dv != nullptr) != (suffix != nullptr))
+    return (int)cudaErrorInvalidValue;
+  Bounds bounds;
+  for (int s = 0; s <= S; ++s) bounds.b[s] = h_bounds[s];
+  const BinWindow w = {x0, y0, x1, y1, cw, ch};
+  cudaStream_t st = (cudaStream_t)stream;
+  Cell* ws_cells = (Cell*)ws;
+  cudaError_t err;
+  workspace_init<<<(cells + 255) / 256, 256, 0, st>>>(ws_cells, cells);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const long long n = bounds.b[S] - bounds.b[0];
+  if (n > 0) {
+    const unsigned blocks = (unsigned)((n + AGG_CHUNK - 1) / AGG_CHUNK);
+    const size_t head = (S + 1) * sizeof(long long);
+    if (cells <= AGG_MAX_CELLS)
+      segment_window_bin_agg_kernel<true>
+          <<<blocks, AGG_THREADS, head + table_bytes(cells), st>>>(
+              x, y, v, bounds, S, w, bx, by, ws_cells);
+    else
+      segment_window_bin_agg_kernel<false>
+          <<<blocks, AGG_THREADS, head, st>>>(x, y, v, bounds, S, w, bx,
+                                              by, ws_cells);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  if (h_dv == nullptr) {
+    workspace_finalize<<<(cells + 255) / 256, 256, 0, st>>>(ws_cells, out,
+                                                             cells);
+  } else {
+    SegWidths widths;
+    for (int s = 0; s < S; ++s) widths.dv[s] = h_dv[s];
+    finalize_select<<<(cells + 255) / 256, 256, 0, st>>>(ws_cells, out, S,
+                                                          nb, widths,
+                                                          suffix);
+  }
+  return (int)cudaGetLastError();
+}

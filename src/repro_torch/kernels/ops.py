@@ -14,7 +14,8 @@ Backends, chosen per call (``backend=``, default ``"cuda"``):
 
 Every backend returns ``(count, sum, min, max)`` rows: counts exact,
 sums float64 (``"np"``'s ``bin_agg`` keeps the reference's float32
-rows), extrema exact.
+rows), extrema exact. ``segment_window_bin_select`` also returns the
+suffix widths, bit for bit equal on every backend.
 
 Precision rules the port keeps, and where the reference states them:
 
@@ -37,6 +38,19 @@ Precision rules the port keeps, and where the reference states them:
   host computes them and bin ``((double)x − x0) / cw`` in double — the
   Pallas split kernels re-bin in float32 instead, which can disagree
   with the host on a boundary object.
+- **Edge ownership (float64).** Bin-aligned splits own objects by
+  ``ref.edge_cell_ids_np``: the float32 coordinate against float64
+  edges, compared in float64. The Pallas edges kernel rounds the edges
+  to float32 (``repro/kernels/ops.py:320``) and can disagree with the
+  host reorganization on an object between ``f32(edge)`` and ``edge``;
+  the CUDA kernel keeps the edges float64.
+- **Window binning (float32, by contract).** Heatmap bins follow
+  ``ref.window_bin_ids_np``: float32 compares, and
+  ``clip(floor((x − x0) / cw))`` in float32 with ``cw`` derived in
+  float64 and then rounded (``ref.window_bin_params``). The torch paths
+  and the kernel take those params and never recompute ``cw`` from the
+  float32 window (the rescaled-float binning of the Pallas single-window
+  kernels, ``repro/kernels/segment_agg.py:256-260``).
 - **Init ownership (float32).** The init pass bins
   ``bin_cell_ids(dataset.x, dataset.y, domain, gx, gy)`` with ``domain``
   a tuple of Python floats (``repro/core/index.py:181-184``,
@@ -50,12 +64,14 @@ import numpy as np
 import torch
 
 from ..data.rawfile import as_host
-from . import ref
+from . import fused_select, ref
 from .bin_agg import bin_agg_cuda, bin_agg_torch
 from .ref import window_mask_np
-from .segment_agg import (segment_bin_agg_cuda, segment_bin_agg_torch,
+from .segment_agg import (segment_bin_agg_cuda, segment_bin_agg_edges_cuda,
+                          segment_bin_agg_edges_torch, segment_bin_agg_torch,
                           segment_window_agg_cuda, segment_window_agg_torch,
-                          window_f32)
+                          segment_window_bin_agg_cuda,
+                          segment_window_bin_agg_torch, window_f32)
 
 BACKENDS = ("np", "torch", "cuda")
 
@@ -129,5 +145,70 @@ def bin_agg(xs, ys, vals, bbox, *, gx, gy, backend=None):
     return bin_agg_cuda(xs, ys, vals, bbox, gx, gy)
 
 
+def segment_bin_agg_edges(xs, ys, vals, boundaries, x_edges, y_edges, *,
+                          backend=None):
+    """Per-segment, per-cell (count, sum, min, max) under per-segment
+    SPLIT EDGES: segment s is cut along its own ``x_edges[s]`` (gx+1,) /
+    ``y_edges[s]`` (gy+1,) — the bin-aligned split's child metadata.
+    Returns ``(S, gx*gy, 4)``; cell id = cy*gx + cx. Ownership is the
+    float64 rule of ``ref.edge_cell_ids_np`` on every backend."""
+    backend = _backend(backend, xs, ys, vals)
+    boundaries = np.asarray(boundaries, np.int64)
+    x_edges = np.asarray(x_edges, np.float64)
+    y_edges = np.asarray(y_edges, np.float64)
+    if backend == "np":
+        return ref.segment_bin_agg_edges_np(
+            as_host(xs), as_host(ys), as_host(vals), boundaries, x_edges,
+            y_edges)
+    if backend == "torch":
+        return segment_bin_agg_edges_torch(xs, ys, vals, boundaries,
+                                           x_edges, y_edges)
+    return segment_bin_agg_edges_cuda(xs, ys, vals, boundaries, x_edges,
+                                      y_edges)
+
+
+def segment_window_bin_agg(xs, ys, vals, boundaries, window, *, bx, by,
+                           backend=None):
+    """Per-segment, per-window-bin (count, sum, min, max) — the heatmap
+    primitive: every segment binned by the SAME ``bx × by`` grid over
+    the (finite, closed) window, in-window objects only. Returns
+    ``(S, bx*by, 4)``; bin id = by_row*bx + bx_col. Binning is the
+    contract of ``ref.window_bin_params`` on every backend."""
+    backend = _backend(backend, xs, ys, vals)
+    boundaries = np.asarray(boundaries, np.int64)
+    if backend == "np":
+        return ref.segment_window_bin_agg_np(
+            as_host(xs), as_host(ys), as_host(vals), boundaries, window,
+            bx, by)
+    if backend == "torch":
+        return segment_window_bin_agg_torch(xs, ys, vals, boundaries,
+                                            window, bx, by)
+    return segment_window_bin_agg_cuda(xs, ys, vals, boundaries, window,
+                                       bx, by)
+
+
+def segment_window_bin_select(xs, ys, vals, boundaries, window, vmin_s,
+                              vmax_s, *, bx, by, backend=None):
+    """Fused heatmap-selection primitive: the
+    :func:`segment_window_bin_agg` table PLUS the selection-ready suffix
+    widths ``suffix_w`` ``(S+1, bx*by)`` of the per-segment sound value
+    bounds ``vmin_s/vmax_s`` (fold order; row S exactly zero). Returns
+    ``(agg, suffix_w)``; ``suffix_w`` is bit for bit the "np" mirror's
+    on every backend."""
+    backend = _backend(backend, xs, ys, vals)
+    boundaries = np.asarray(boundaries, np.int64)
+    if backend == "np":
+        return fused_select.segment_window_bin_select_np(
+            as_host(xs), as_host(ys), as_host(vals), boundaries, window,
+            bx, by, vmin_s, vmax_s)
+    if backend == "torch":
+        return fused_select.segment_window_bin_select_torch(
+            xs, ys, vals, boundaries, window, bx, by, vmin_s, vmax_s)
+    return fused_select.segment_window_bin_select_cuda(
+        xs, ys, vals, boundaries, window, bx, by, vmin_s, vmax_s)
+
+
 __all__ = ["segment_window_agg", "segment_bin_agg", "bin_agg",
-           "window_mask", "window_mask_np", "default_backend", "BACKENDS"]
+           "segment_bin_agg_edges", "segment_window_bin_agg",
+           "segment_window_bin_select", "window_mask", "window_mask_np",
+           "default_backend", "BACKENDS"]

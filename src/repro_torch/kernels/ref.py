@@ -1,7 +1,8 @@
 """NumPy host mirrors of the kernels (the index's ``"np"`` control plane).
 
-Copied from the reference package (``repro/kernels/ref.py:345-400`` and
-``repro/kernels/ops.py:65-90, 574-577``) without change, so the port's
+Copied from the reference package (``repro/kernels/ref.py:345-400``,
+``:403-459`` and ``:512-581``, and ``repro/kernels/ops.py:65-90,
+574-577``) without change, so the port's
 ``"np"`` backend equals the reference bit for bit. Segments are
 CONTIGUOUS — described by a boundaries vector — and sums accumulate in
 float64 with numpy's pairwise algorithm over each segment slice.
@@ -94,6 +95,145 @@ def segment_bin_agg_np(xs, ys, vals, boundaries, bboxes, gx, gy):
     cy = np.clip(np.floor((ys - bboxes[sid, 1]) / ch[sid]).astype(np.int64),
                  0, gy - 1)
     key = sid * k + cy * gx + cx
+    order = np.argsort(key, kind="stable")
+    vs_sorted = vals[order]
+    cell_bounds = np.searchsorted(key[order], np.arange(n_seg * k + 1))
+    out = np.empty((n_seg * k, 4), np.float64)
+    for c in range(n_seg * k):
+        a, b = cell_bounds[c], cell_bounds[c + 1]
+        if b > a:
+            seg = vs_sorted[a:b]
+            out[c] = (b - a, seg.sum(dtype=np.float64), seg.min(), seg.max())
+        else:
+            out[c] = (0, 0.0, np.inf, -np.inf)
+    return out.reshape(n_seg, k, 4)
+
+
+def edge_cell_ids_np(xs, ys, x_edges, y_edges, sid):
+    """THE host ownership rule for explicit (bin-aligned) split edges.
+
+    Child cx of segment s owns ``[x_edges[s, cx], x_edges[s, cx+1])``
+    (``cx = Σ_i 1[x ≥ edge_i]`` over interior edges, f64 comparisons);
+    points past the outer edges clamp into the boundary cells, so every
+    object lands in exactly one cell. This single implementation serves
+    both the index's segment reorganization
+    (``core.geometry.edge_cell_ids_segmented`` delegates here) and the
+    child-metadata mirror below — they MUST agree bit-for-bit or
+    reorganized segments desynchronize from their metadata.
+    ``x_edges``/``y_edges`` are ``(S, gx+1)`` / ``(S, gy+1)``; ``sid``
+    maps each object to its segment row. Returns cell id = cy*gx + cx.
+    """
+    x_edges = np.asarray(x_edges, np.float64)
+    y_edges = np.asarray(y_edges, np.float64)
+    gx = x_edges.shape[1] - 1
+    gy = y_edges.shape[1] - 1
+    cx = (xs[:, None] >= x_edges[sid][:, 1:-1]).sum(axis=1) \
+        if gx > 1 else np.zeros(len(xs), np.int64)
+    cy = (ys[:, None] >= y_edges[sid][:, 1:-1]).sum(axis=1) \
+        if gy > 1 else np.zeros(len(ys), np.int64)
+    return cy * gx + cx
+
+
+def segment_bin_agg_edges_np(xs, ys, vals, boundaries, x_edges, y_edges):
+    """Per-contiguous-segment, per-cell aggregates under per-segment
+    split edges (f64 ``(S, K, 4)``) — host mirror of
+    :func:`segment_bin_agg_edges_ref` in the contiguous layout.
+
+    Cell ids come from :func:`edge_cell_ids_np` — the one host
+    ownership rule, shared with the index's segment reorganization —
+    and each cell's sum accumulates its own sorted slice in float64, so
+    a k-segment call is bit-for-bit the concatenation of k
+    single-segment calls (the sequential split path the batched
+    multi-tile split replaces).
+    """
+    xs, ys = np.asarray(xs), np.asarray(ys)
+    vals = np.asarray(vals, np.float32)
+    x_edges = np.asarray(x_edges, np.float64)
+    y_edges = np.asarray(y_edges, np.float64)
+    n_seg = len(boundaries) - 1
+    gx = x_edges.shape[1] - 1
+    gy = y_edges.shape[1] - 1
+    k = gx * gy
+    sid = np.repeat(np.arange(n_seg), np.diff(boundaries))
+    key = sid * k + edge_cell_ids_np(xs, ys, x_edges, y_edges, sid)
+    order = np.argsort(key, kind="stable")
+    vs_sorted = vals[order]
+    cell_bounds = np.searchsorted(key[order], np.arange(n_seg * k + 1))
+    out = np.empty((n_seg * k, 4), np.float64)
+    for c in range(n_seg * k):
+        a, b = cell_bounds[c], cell_bounds[c + 1]
+        if b > a:
+            seg = vs_sorted[a:b]
+            out[c] = (b - a, seg.sum(dtype=np.float64), seg.min(), seg.max())
+        else:
+            out[c] = (0, 0.0, np.inf, -np.inf)
+    return out.reshape(n_seg, k, 4)
+
+
+def window_bin_ids_np(xs, ys, window, bx, by):
+    """Host binning rule of a heatmap window: ``(in_window_mask, bin_id)``.
+
+    The ONE formula both the pending-tile per-bin counts (axis index, no
+    file I/O) and the processed per-bin contributions
+    (:func:`segment_window_bin_agg_np`) are derived from — they must
+    agree bit-for-bit or the grouped accumulator's count cross-check
+    fails. Bin id = by_row * bx + bx_col; objects on the closed max edge
+    are clipped into the last bin (every selected object lands in
+    exactly one bin).
+    """
+    x0, y0, x1, y1 = (float(window[0]), float(window[1]),
+                      float(window[2]), float(window[3]))
+    m = (xs >= x0) & (xs <= x1) & (ys >= y0) & (ys <= y1)
+    cw = max((x1 - x0) / bx, 1e-30)
+    ch = max((y1 - y0) / by, 1e-30)
+    cx = np.clip(np.floor((xs - x0) / cw).astype(np.int64), 0, bx - 1)
+    cy = np.clip(np.floor((ys - y0) / ch).astype(np.int64), 0, by - 1)
+    return m, cy * bx + cx
+
+
+def window_bin_params(windows, bx, by):
+    """Per-window axis-index binning parameters for the DEVICE kernels:
+    float32 ``(S, 6)`` rows ``(x0, y0, x1, y1, cw, ch)``.
+
+    THE binning contract. :func:`window_bin_ids_np` runs on float32
+    coordinates, so NumPy-2 weak promotion demotes its python-float
+    window scalars to f32 at every op — the mask compares and the
+    ``floor((x - x0) / cw)`` arithmetic are all f32 — but the cell
+    sizes ``cw/ch`` are derived in f64 FIRST and only then rounded.  A
+    kernel that recomputes ``(x1 - x0) / bx`` from f32 window coords
+    (the rescaled-float binning of the single-window kernels) rounds
+    differently and can land edge objects in the neighbouring bin.
+    Device kernels must instead take these host-precomputed params and
+    bin with ``clip(floor((x - x0) / cw), 0, bx-1)``: IEEE f32
+    subtract/divide/floor round identically under numpy and XLA, so the
+    device mask and bin ids are BIT-IDENTICAL to the host rule.
+    """
+    windows = np.asarray(windows, np.float64).reshape(-1, 4)
+    out = np.empty((len(windows), 6), np.float32)
+    out[:, :4] = windows
+    out[:, 4] = np.maximum((windows[:, 2] - windows[:, 0]) / bx, 1e-30)
+    out[:, 5] = np.maximum((windows[:, 3] - windows[:, 1]) / by, 1e-30)
+    return out
+
+
+def segment_window_bin_agg_np(xs, ys, vals, boundaries, window, bx, by):
+    """Per-contiguous-segment, per-window-bin aggregates (f64 ``(S,K,4)``).
+
+    Host mirror of :func:`segment_window_bin_agg_ref` in the contiguous
+    layout. Each (segment, bin) cell's sum accumulates the cell's own
+    sorted slice in float64 — per-cell arithmetic is independent of the
+    batch composition, so a k-segment call is bit-for-bit the
+    concatenation of k single-segment calls (the sequential heatmap
+    reference path).
+    """
+    xs, ys = np.asarray(xs), np.asarray(ys)
+    vals = np.asarray(vals, np.float32)
+    n_seg = len(boundaries) - 1
+    k = bx * by
+    m, cid = window_bin_ids_np(xs, ys, window, bx, by)
+    sid = np.repeat(np.arange(n_seg), np.diff(boundaries))
+    # out-of-window objects go to a sentinel key past every real cell
+    key = np.where(m, sid * k + cid, n_seg * k)
     order = np.argsort(key, kind="stable")
     vs_sorted = vals[order]
     cell_bounds = np.searchsorted(key[order], np.arange(n_seg * k + 1))

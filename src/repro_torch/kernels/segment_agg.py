@@ -1,6 +1,5 @@
 """Packed multi-segment aggregation: plain PyTorch versions and the
-CUDA kernels' wrappers (``csrc/segment_window_agg.cu``,
-``csrc/segment_bin_agg.cu``).
+CUDA kernels' wrappers.
 
 A batched refinement round gathers the object segments of its tiles into
 ONE concatenated stream (``boundaries`` ``(S+1,)`` delimit segment s as
@@ -11,7 +10,15 @@ ONE concatenated stream (``boundaries`` ``(S+1,)`` delimit segment s as
   window gives whole-segment enrichment statistics);
 - ``segment_bin_agg``: per-(segment, cell) aggregates over each
   segment's own even ``gx × gy`` split of its bbox — the child metadata
-  of every tile split in the round.
+  of every tile split in the round;
+- ``segment_bin_agg_edges``: the same along explicit per-segment split
+  edges — the child metadata of a bin-aligned heatmap split
+  (``csrc/segment_bin_agg_edges.cu``);
+- ``segment_window_bin_agg``: per-(segment, window-bin) aggregates of
+  the objects inside one window, binned by one ``bx × by`` grid laid on
+  it — a heatmap tile's exact per-bin contribution
+  (``csrc/segment_window_bin_agg.cu``, shared with the fused select op
+  of :mod:`repro_torch.kernels.fused_select`).
 
 Every function returns float64 rows ``(count, sum, min, max)`` on the
 input's device: integer-valued counts, float64 sums, float32 extrema
@@ -27,6 +34,7 @@ import numpy as np
 import torch
 
 from . import build
+from .ref import window_bin_params
 
 # Control-plane constants of the reference (``repro/kernels/
 # segment_agg.py:58``, ``repro/kernels/gridplan.py:37``). They size the
@@ -82,6 +90,18 @@ def clip_cell(q: torch.Tensor, g: int) -> torch.Tensor:
     return f.clamp(0, g - 1).to(torch.int64)
 
 
+def check_edges(b: np.ndarray, x_edges, y_edges):
+    """``(S, gx, gy)`` of per-segment split edges ``(S, gx+1)`` /
+    ``(S, gy+1)``; anything else raises."""
+    xe, ye = np.asarray(x_edges), np.asarray(y_edges)
+    n_seg = len(b) - 1
+    if xe.ndim != 2 or ye.ndim != 2 or len(xe) != n_seg \
+            or len(ye) != n_seg or xe.shape[1] < 2 or ye.shape[1] < 2:
+        raise ValueError("split edges must be (S, gx+1) and (S, gy+1) "
+                         "with gx, gy >= 1")
+    return n_seg, xe.shape[1] - 1, ye.shape[1] - 1
+
+
 def segment_ids(b: np.ndarray, device) -> torch.Tensor:
     """Per-object segment id of the stream ``[b[0], b[-1])``."""
     counts = torch.from_numpy(np.diff(b)).to(device)
@@ -100,6 +120,44 @@ def cell_keys(xs, ys, sid, params: np.ndarray, gx: int,
     cx = clip_cell((xs.double() - p[:, 0]) / p[:, 2], gx)
     cy = clip_cell((ys.double() - p[:, 1]) / p[:, 3], gy)
     return sid * (gx * gy) + cy * gx + cx
+
+
+def edge_cell_ids(xs, ys, sid, x_edges, y_edges) -> torch.Tensor:
+    """Cell id ``cy·gx + cx`` under explicit per-segment split edges,
+    the host rule of ``ref.edge_cell_ids_np``: ``cx = Σ_i 1[x ≥ e_i]``
+    over segment ``sid``'s interior float64 edges, the float32
+    coordinate widened to float64 (never the edges narrowed)."""
+    dev = xs.device
+
+    def cells(p, edges):
+        e = torch.from_numpy(np.ascontiguousarray(
+            np.asarray(edges, np.float64)[:, 1:-1])).to(dev)
+        pd = p.double()
+        c = torch.zeros(len(p), dtype=torch.int64, device=dev)
+        for i in range(e.shape[1]):
+            c += pd >= e[sid, i]
+        return c
+
+    gx = np.asarray(x_edges).shape[1] - 1
+    return cells(ys, y_edges) * gx + cells(xs, x_edges)
+
+
+def window_bin_ids(xs, ys, window, bx: int, by: int):
+    """``(in_window_mask, bin_id)`` of float32 tensors — the host rule
+    ``ref.window_bin_ids_np`` through the binning contract
+    ``ref.window_bin_params``: float32 window and cell sizes (the cell
+    sizes derived in float64 first), float32 compares, and
+    ``clip(floor((x − x0) / cw))`` as IEEE float32 subtract and divide of
+    expanded tensor operands (never a scalar divisor, which PyTorch may
+    turn into a multiply by the reciprocal)."""
+    x0, y0, x1, y1, cw, ch = (
+        torch.tensor(float(v), dtype=torch.float32,
+                     device=xs.device).expand_as(xs)
+        for v in window_bin_params(window, bx, by)[0])
+    m = (xs >= x0) & (xs <= x1) & (ys >= y0) & (ys <= y1)
+    cx = clip_cell((xs - x0) / cw, bx)
+    cy = clip_cell((ys - y0) / ch, by)
+    return m, cy * bx + cx
 
 
 def agg4(key: torch.Tensor, vals: torch.Tensor,
@@ -149,6 +207,33 @@ def segment_bin_agg_torch(xs, ys, vals, boundaries, bboxes, gx: int,
         n_seg, gx * gy, 4)
 
 
+def segment_bin_agg_edges_torch(xs, ys, vals, boundaries, x_edges,
+                                y_edges):
+    """Plain version of :func:`segment_bin_agg_edges_cuda`: float64
+    ``(S, gx*gy, 4)`` on the input's device."""
+    b = host_bounds(boundaries)
+    lo, hi = int(b[0]), int(b[-1])
+    sid = segment_ids(b, vals.device)
+    n_seg, gx, gy = check_edges(b, x_edges, y_edges)
+    k = gx * gy
+    key = sid * k + edge_cell_ids(xs[lo:hi], ys[lo:hi], sid, x_edges,
+                                  y_edges)
+    return agg4(key, vals[lo:hi], n_seg * k).reshape(n_seg, k, 4)
+
+
+def segment_window_bin_agg_torch(xs, ys, vals, boundaries, window,
+                                 bx: int, by: int):
+    """Plain version of :func:`segment_window_bin_agg_cuda`: float64
+    ``(S, bx*by, 4)`` on the input's device."""
+    b = host_bounds(boundaries)
+    lo, hi = int(b[0]), int(b[-1])
+    sid = segment_ids(b, vals.device)
+    n_seg, nb = len(b) - 1, bx * by
+    m, cid = window_bin_ids(xs[lo:hi], ys[lo:hi], window, bx, by)
+    return agg4((sid * nb + cid)[m], vals[lo:hi][m],
+                n_seg * nb).reshape(n_seg, nb, 4)
+
+
 # --------------------------------------------------------------------- #
 # CUDA kernel wrappers
 # --------------------------------------------------------------------- #
@@ -158,6 +243,8 @@ _SWA_ARGS = [_P, _P, _P, _P, ctypes.c_int, ctypes.c_float, ctypes.c_float,
              ctypes.c_float, ctypes.c_float, _P, _P, _P]
 _SBA_ARGS = [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              _P, _P, _P]
+_SWB_ARGS = [_P, _P, _P, _P, ctypes.c_int] + [ctypes.c_float] * 6 + [
+    ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P]
 
 
 def check_planes(b: np.ndarray, *planes: torch.Tensor) -> torch.device:
@@ -236,4 +323,82 @@ def segment_bin_agg_cuda(xs, ys, vals, boundaries, bboxes, gx: int,
     out = launch_segment_bin_agg(xs, ys, vals, b,
                                  bin_params(bboxes, gx, gy), gx, gy)
     build.LAUNCHES["segment_bin_agg"] += 1
+    return out
+
+
+def segment_bin_agg_edges_cuda(xs, ys, vals, boundaries, x_edges,
+                               y_edges):
+    """Launch ``segment_bin_agg_edges`` (TPU original:
+    ``repro/kernels/segment_agg.py`` ``segment_bin_agg_edges_pallas``).
+    The edges stay float64. Returns float64 ``(S, gx*gy, 4)`` on the
+    device."""
+    b = host_bounds(boundaries)
+    n_seg, gx, gy = check_edges(b, x_edges, y_edges)
+    if n_seg > MAX_SEGMENTS or 8 * (n_seg + 1 + n_seg * (gx + gy - 2)) \
+            > 32768:
+        raise ValueError(f"{n_seg} segments of {gx}x{gy} cells exceed the "
+                         f"kernel's shared edge table")
+    dev = check_planes(b, xs, ys, vals)
+    k = gx * gy
+    edges = torch.from_numpy(np.concatenate([
+        np.asarray(x_edges, np.float64)[:, 1:-1].ravel(),
+        np.asarray(y_edges, np.float64)[:, 1:-1].ravel()])).to(dev)
+    fn = build.load("segment_bin_agg_edges", "segment_bin_agg_edges_launch",
+                    _SBA_ARGS)
+    ws = torch.empty((n_seg * k, 3), dtype=torch.int64, device=dev)
+    out = torch.empty((n_seg, k, 4), dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        rc = fn(xs.data_ptr(), ys.data_ptr(), vals.data_ptr(),
+                b.ctypes.data, edges.data_ptr(), n_seg, gx, gy,
+                ws.data_ptr(), out.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+    build.check("segment_bin_agg_edges", rc)
+    build.LAUNCHES["segment_bin_agg_edges"] += 1
+    return out
+
+
+def launch_segment_window_bin(xs, ys, vals, b: np.ndarray, window, bx: int,
+                              by: int, dv=None):
+    """One launch of the ``csrc/segment_window_bin_agg.cu`` kernel
+    (shared by ``segment_window_bin_agg`` and, with the per-segment
+    float64 widths ``dv``, ``segment_window_bin_select``; the callers
+    count their own launches). Returns ``(agg (S, bx*by, 4), suffix_w
+    (S+1, bx*by) or None)``."""
+    n_seg = len(b) - 1
+    nb = bx * by
+    if n_seg > MAX_SEGMENTS or bx < 1 or by < 1:
+        raise ValueError(f"{n_seg} segments > MAX_SEGMENTS={MAX_SEGMENTS} "
+                         f"or an empty bin grid {bx}x{by}")
+    dev = check_planes(b, xs, ys, vals)
+    params = [float(v) for v in window_bin_params(window, bx, by)[0]]
+    fn = build.load("segment_window_bin_agg",
+                    "segment_window_bin_agg_launch", _SWB_ARGS)
+    ws = torch.empty((n_seg * nb, 3), dtype=torch.int64, device=dev)
+    out = torch.empty((n_seg, nb, 4), dtype=torch.float64, device=dev)
+    suffix = None
+    if dv is not None:
+        dv = np.ascontiguousarray(dv, np.float64)
+        if dv.shape != (n_seg,):
+            raise ValueError(f"widths of shape {dv.shape}, want "
+                             f"({n_seg},)")
+        suffix = torch.empty((n_seg + 1, nb), dtype=torch.float64,
+                             device=dev)
+    with torch.cuda.device(dev):
+        rc = fn(xs.data_ptr(), ys.data_ptr(), vals.data_ptr(),
+                b.ctypes.data, n_seg, *params, bx, by,
+                None if dv is None else dv.ctypes.data, ws.data_ptr(),
+                out.data_ptr(), None if suffix is None else suffix.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+    build.check("segment_window_bin_agg", rc)
+    return out, suffix
+
+
+def segment_window_bin_agg_cuda(xs, ys, vals, boundaries, window, bx: int,
+                                by: int):
+    """Launch ``segment_window_bin_agg`` (TPU original:
+    ``repro/kernels/segment_agg.py`` ``segment_window_bin_agg_pallas``).
+    Returns float64 ``(S, bx*by, 4)`` on the device."""
+    out, _ = launch_segment_window_bin(xs, ys, vals, host_bounds(boundaries),
+                                       window, bx, by)
+    build.LAUNCHES["segment_window_bin_agg"] += 1
     return out

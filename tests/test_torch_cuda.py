@@ -6,8 +6,9 @@ Run on a machine with an NVIDIA Hopper GPU and ``nvcc``:
 
 The kernels build at first use. Each kernel is held against its plain
 PyTorch version on the same CUDA tensors (counts and extrema equal,
-float64 sums within 1e-12 · Σ|v|), and the main path on the ``"cuda"``
-backend against the same path on ``"torch"``.
+float64 sums within 1e-12 · Σ|v|, the select op's suffix widths equal
+bit for bit), and the main path and the heatmap path on the ``"cuda"``
+backend against the same paths on ``"torch"``.
 """
 import numpy as np
 import pytest
@@ -52,12 +53,28 @@ def _assert_equal_rows(got, want, absv):
     assert (np.abs(g[:, 1] - w[:, 1]) <= 1e-12 * a).all()
 
 
-@pytest.mark.parametrize("op", ["segment_window_agg", "segment_bin_agg",
-                                "bin_agg"])
+def _edges(bb, g, seed):
+    """Per-segment split edges of ``g`` cells inside each bbox."""
+    rng = np.random.default_rng(seed)
+    inner = np.sort(rng.uniform(bb[:, :1], bb[:, 2:3], (len(bb), g - 1)), 1)
+    xe = np.concatenate([bb[:, :1], inner, bb[:, 2:3]], 1)
+    inner = np.sort(rng.uniform(bb[:, 1:2], bb[:, 3:4], (len(bb), g - 1)), 1)
+    ye = np.concatenate([bb[:, 1:2], inner, bb[:, 3:4]], 1)
+    return xe, ye
+
+
+@pytest.mark.parametrize("op", [
+    "segment_window_agg", "segment_bin_agg", "bin_agg",
+    "segment_bin_agg_edges", "segment_window_bin_agg",
+    "segment_window_bin_select", "segment_window_bin_select_16x16"])
 def test_kernel_matches_plain_version(card, op):
-    xs, ys, vals, b, bb = _case(1)
+    n_seg = 32 if op.endswith("16x16") else 8
+    xs, ys, vals, b, bb = _case(1, n_seg=n_seg)
     xs, ys, vals = (torch.from_numpy(a).to(card) for a in (xs, ys, vals))
     w = (100.0, 100.0, 400.0, 400.0)
+    xe, ye = _edges(bb, 4, 2)
+    vmin = np.full(n_seg, -200.0)
+    vmax = np.linspace(50.0, 300.0, n_seg)
     calls = {
         "segment_window_agg": lambda v, be: ops.segment_window_agg(
             xs, ys, v, b, w, backend=be),
@@ -65,13 +82,54 @@ def test_kernel_matches_plain_version(card, op):
             xs, ys, v, b, bb, gx=4, gy=4, backend=be),
         "bin_agg": lambda v, be: ops.bin_agg(
             xs[:b[1]], ys[:b[1]], v[:b[1]], bb[0], gx=2, gy=2, backend=be),
+        "segment_bin_agg_edges": lambda v, be: ops.segment_bin_agg_edges(
+            xs, ys, v, b, xe, ye, backend=be),
+        "segment_window_bin_agg": lambda v, be: ops.segment_window_bin_agg(
+            xs, ys, v, b, w, bx=8, by=8, backend=be),
+        "segment_window_bin_select":
+            lambda v, be: ops.segment_window_bin_select(
+                xs, ys, v, b, w, vmin, vmax, bx=8, by=8, backend=be),
+        # 32 segments x 256 bins: a table too large for shared memory
+        "segment_window_bin_select_16x16":
+            lambda v, be: ops.segment_window_bin_select(
+                xs, ys, v, b, w, vmin, vmax, bx=16, by=16, backend=be),
     }
-    before = build.LAUNCHES[op]
+    counter = op.replace("_16x16", "")
+    before = build.LAUNCHES[counter]
     got = calls[op](vals, "cuda")
     torch.cuda.synchronize()
-    assert build.LAUNCHES[op] == before + 1
-    _assert_equal_rows(got, calls[op](vals, "torch"),
-                       calls[op](vals.abs(), "torch")[..., 1])
+    assert build.LAUNCHES[counter] == before + 1
+    want = calls[op](vals, "torch")
+    absv = calls[op](vals.abs(), "torch")
+    if isinstance(got, tuple):
+        assert torch.equal(got[1], want[1])       # suffix_w, bit for bit
+        got, want, absv = got[0], want[0], absv[0]
+    _assert_equal_rows(got, want, absv[..., 1])
+
+
+def test_heatmap_cuda_matches_torch(card):
+    engines = {}
+    for backend in ("torch", "cuda"):
+        ds = make_synthetic_dataset(n=200_000, seed=3, device=card)
+        engines[backend] = AQPEngine(ds, IndexConfig(
+            init_metadata_attrs=("a0",), backend=backend))
+    wins = exploration_path(engines["cuda"].dataset, n_queries=6,
+                            target_objects=10_000)
+    before = dict(build.LAUNCHES)
+    for phi, seq in ((0.05, False), (0.0, False), (0.05, True)):
+        for w in wins:
+            rt = engines["torch"].heatmap(w, "mean", "a0", bins=(8, 8),
+                                          phi=phi, sequential=seq)
+            rc = engines["cuda"].heatmap(w, "mean", "a0", bins=(8, 8),
+                                         phi=phi, sequential=seq)
+            np.testing.assert_allclose(rc.values, rt.values, rtol=1e-12)
+            assert (rc.objects_read, rc.tiles_processed) == \
+                (rt.objects_read, rt.tiles_processed)
+    for k in ("segment_bin_agg_edges", "segment_window_bin_agg",
+              "segment_window_bin_select"):
+        assert build.LAUNCHES[k] > before.get(k, 0), k
+    assert torch.equal(engines["cuda"].index.perm, engines["torch"].index.perm)
+    engines["cuda"].index.check_invariants("a0")
 
 
 def test_main_path_cuda_matches_torch(card):

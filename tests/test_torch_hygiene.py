@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import AQPEngine, IndexConfig
+from repro_torch.core import AccuracyPolicy, AQPEngine, IndexConfig
 from repro_torch.data import RawDataset, make_synthetic_dataset
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -61,8 +61,11 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
 def test_unported_entry_points_name_their_roadmap_item():
     eng = AQPEngine(make_synthetic_dataset(n=1000, device="cpu"),
                     IndexConfig(backend="np"))
-    for call, item in ((eng.heatmap, "item 5"), (eng.prefetch, "item 8"),
-                       (eng.serve, "item 7")):
+    learned = AccuracyPolicy(salience="learned")
+    for call, item in (
+            (lambda: eng.heatmap((0, 0, 1, 1), "sum", "a0", phi=0.05,
+                                 policy=learned), "item 8"),
+            (eng.prefetch, "item 8"), (eng.serve, "item 7")):
         with pytest.raises(NotImplementedError, match=item):
             call()
 

@@ -229,3 +229,227 @@ def test_backend_placement_rules():
     with pytest.raises(ValueError):
         pops.segment_window_agg(xs, xs, xs, b, WINDOWS["window"],
                                 backend="jnp")
+
+
+# --------------------------------------------------------------------- #
+# the heatmap slice's ops: segment_bin_agg_edges, segment_window_bin_agg,
+# segment_window_bin_select
+# --------------------------------------------------------------------- #
+
+def split_edges(bb, g, rng, on_edges=0, xs=None, b=None):
+    """Per-segment split edges: each bbox's ends plus ``g[0] - 1`` /
+    ``g[1] - 1`` sorted interior cuts. With ``on_edges``, that many
+    objects per segment move onto an interior x edge, its float32
+    rounding or a float32 neighbour."""
+    def axis(lo, hi, n):
+        cuts = np.sort(rng.uniform(lo[:, None], hi[:, None],
+                                   (len(lo), n - 1)), 1)
+        return np.concatenate([lo[:, None], cuts, hi[:, None]], 1)
+    xe, ye = axis(bb[:, 0], bb[:, 2], g[0]), axis(bb[:, 1], bb[:, 3], g[1])
+    if on_edges and g[0] > 1:
+        for s in range(len(bb)):
+            k = min(on_edges, int(b[s + 1] - b[s]))
+            e = xe[s, rng.integers(1, g[0], k)].astype(np.float32)
+            step = rng.integers(-1, 2, k)
+            xs[b[s]:b[s] + k] = np.where(
+                step < 0, np.nextafter(e, np.float32(-np.inf)),
+                np.where(step > 0, np.nextafter(e, np.float32(np.inf)), e))
+    return xe, ye
+
+
+def bin_line_objects(xs, ys, window, bins, rng, k=200):
+    """Put ``k`` objects on the window's bin lines (the float32 rounding
+    of each float64 line and both float32 neighbours), inside the
+    window on the other axis."""
+    xs, ys = xs.copy(), ys.copy()
+    x0, y0, x1, y1 = window
+    idx = rng.choice(len(xs), size=min(k, len(xs)), replace=False)
+    for j, i in enumerate(idx):
+        bx = bins[0]
+        line = np.float32(x0 + (x1 - x0) / bx * rng.integers(0, bx + 1))
+        d = j % 3 - 1
+        xs[i] = line if d == 0 else np.nextafter(
+            line, np.float32(np.inf) * d)
+        ys[i] = np.float32(rng.uniform(y0, y1))
+    return xs, ys
+
+
+BIN_WINDOWS = {
+    "window": (150.0, 120.0, 520.0, 610.7),
+    "edges_0.7": (100.7, 0.7, 600.7, 900.7),
+    "zero_area": (300.5, 300.5, 300.5, 300.5),
+}
+
+
+def heatmap_inputs(case, wname, bins, seed=17):
+    window = BIN_WINDOWS[wname]
+    xs, ys, vals, b, _ = make_segments(seed, **SEG_CASES[case])
+    rng = np.random.default_rng(seed)
+    if wname == "zero_area":
+        # objects on the degenerate window's one point
+        idx = rng.choice(len(xs), size=min(50, len(xs)), replace=False)
+        xs[idx] = np.float32(window[0])
+        ys[idx] = np.float32(window[1])
+    else:
+        xs, ys = bin_line_objects(xs, ys, window, bins, rng)
+        xs, ys = window_edge_objects(xs, ys, window, rng)
+    return xs, ys, vals, b, window
+
+
+@pytest.mark.parametrize("bins", [(8, 8), (3, 5)])
+@pytest.mark.parametrize("wname", list(BIN_WINDOWS))
+@pytest.mark.parametrize("case", ["S1", "S8", "S64", "S8_empty",
+                                  "S8_negative"])
+def test_segment_window_bin_agg(case, wname, bins):
+    bx, by = bins
+    xs, ys, vals, b, window = heatmap_inputs(case, wname, bins)
+    want = rops.segment_window_bin_agg(xs, ys, vals, b, window, bx=bx,
+                                       by=by, backend="np")
+    got_np = pops.segment_window_bin_agg(t(xs), t(ys), t(vals), b, window,
+                                         bx=bx, by=by, backend="np")
+    np.testing.assert_array_equal(got_np, want)
+    absv = rops.segment_window_bin_agg(xs, ys, np.abs(vals), b, window,
+                                       bx=bx, by=by, backend="np")[..., 1]
+    got = pops.segment_window_bin_agg(t(xs), t(ys), t(vals), b, window,
+                                      bx=bx, by=by, backend="torch")
+    assert got.dtype == torch.float64 and got.shape == want.shape
+    assert_matches(got, want, absv)
+    if wname == "zero_area":
+        assert want[..., 0].sum() > 0          # the point case ran
+
+
+@pytest.mark.parametrize("bins", [(8, 8), (16, 16), (1, 1)])
+@pytest.mark.parametrize("case", ["S1", "S8", "S64", "S8_empty"])
+def test_segment_window_bin_select(case, bins):
+    """The fused select op: the table as above, and ``suffix_w`` equal
+    to the reference mirror's bit for bit on every port backend (it
+    feeds ``round_certain``)."""
+    bx, by = bins
+    xs, ys, vals, b, window = heatmap_inputs(case, "window", bins)
+    n_seg = len(b) - 1
+    rng = np.random.default_rng(5)
+    vmin = rng.uniform(-100, 0, n_seg)
+    vmax = vmin + rng.uniform(0, 200, n_seg)
+    want, want_w = rops.segment_window_bin_select(
+        xs, ys, vals, b, window, vmin, vmax, bx=bx, by=by, backend="np")
+    got_np, got_np_w = pops.segment_window_bin_select(
+        t(xs), t(ys), t(vals), b, window, vmin, vmax, bx=bx, by=by,
+        backend="np")
+    np.testing.assert_array_equal(got_np, want)
+    np.testing.assert_array_equal(got_np_w, want_w)
+    got, got_w = pops.segment_window_bin_select(
+        t(xs), t(ys), t(vals), b, window, vmin, vmax, bx=bx, by=by,
+        backend="torch")
+    assert got_w.shape == (n_seg + 1, bx * by)
+    np.testing.assert_array_equal(got_w.numpy(), want_w)
+    assert (got_w[-1] == 0).all()
+    absv = rops.segment_window_bin_agg(xs, ys, np.abs(vals), b, window,
+                                       bx=bx, by=by, backend="np")[..., 1]
+    assert_matches(got, want, absv)
+
+
+@pytest.mark.parametrize("grid", [(2, 2), (4, 3), (1, 4)])
+@pytest.mark.parametrize("case", list(SEG_CASES))
+def test_segment_bin_agg_edges(case, grid):
+    xs, ys, vals, b, bb = make_segments(29, **SEG_CASES[case])
+    xe, ye = split_edges(bb, grid, np.random.default_rng(3), on_edges=60,
+                         xs=xs, b=b)
+    want = rops.segment_bin_agg_edges(xs, ys, vals, b, xe, ye, backend="np")
+    got_np = pops.segment_bin_agg_edges(t(xs), t(ys), t(vals), b, xe, ye,
+                                        backend="np")
+    np.testing.assert_array_equal(got_np, want)
+    absv = rops.segment_bin_agg_edges(xs, ys, np.abs(vals), b, xe, ye,
+                                      backend="np")[..., 1]
+    got = pops.segment_bin_agg_edges(t(xs), t(ys), t(vals), b, xe, ye,
+                                     backend="torch")
+    assert got.shape == want.shape
+    assert_matches(got, want, absv)
+
+
+def lattice_segments(seed, lens=(0, 37, 500, 128, 3)):
+    """Objects on half-integer coordinates and split edges on integers:
+    every coordinate and edge is exact in float32, and no object lies on
+    a bin line of ``LATTICE_WINDOW`` (cell size 128) or on a split edge —
+    inputs where the Pallas kernels' float32 binning cannot differ from
+    the host's."""
+    rng = np.random.default_rng(seed)
+    b = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    n_seg, n = len(lens), int(b[-1])
+    xs = (rng.integers(0, 1000, n) + 0.5).astype(np.float32)
+    ys = (rng.integers(0, 1000, n) + 0.5).astype(np.float32)
+    vals = rng.normal(5.0, 30.0, n).astype(np.float32)
+    cuts = np.sort(rng.choice(np.arange(1, 1000), (n_seg, 4)), 1)
+    xe = np.concatenate([np.zeros((n_seg, 1)), cuts[:, :2],
+                         np.full((n_seg, 1), 1000.0)], 1)
+    ye = np.concatenate([np.zeros((n_seg, 1)), cuts[:, 2:3],
+                         np.full((n_seg, 1), 1000.0)], 1)
+    return xs, ys, vals, b, xe, ye
+
+
+LATTICE_WINDOW = (128.0, 64.0, 640.0, 576.0)
+
+
+@pytest.mark.parametrize("op", ["segment_bin_agg_edges",
+                                "segment_window_bin_agg",
+                                "segment_window_bin_select"])
+def test_heatmap_kernels_match_pallas(op):
+    """The port's plain versions against the reference's Pallas kernels
+    (interpret mode) away from bin and split lines: counts and extrema
+    equal; the Pallas sums are float32, so sums agree to float32
+    rounding of Σ|v|."""
+    xs, ys, vals, b, xe, ye = lattice_segments(7)
+    w = LATTICE_WINDOW
+    vmin = np.full(len(b) - 1, -150.0)
+    vmax = np.full(len(b) - 1, 160.0)
+    calls = {
+        "segment_bin_agg_edges": lambda m, x, y, v, be: m.segment_bin_agg_edges(
+            x, y, v, b, xe, ye, backend=be),
+        "segment_window_bin_agg":
+            lambda m, x, y, v, be: m.segment_window_bin_agg(
+                x, y, v, b, w, bx=4, by=4, backend=be),
+        "segment_window_bin_select":
+            lambda m, x, y, v, be: m.segment_window_bin_select(
+                x, y, v, b, w, vmin, vmax, bx=4, by=4, backend=be)[0],
+    }
+    call = calls[op]
+    pallas = np.asarray(call(rops, xs, ys, vals, "pallas"),
+                        np.float64).reshape(-1, 4)
+    got = call(pops, t(xs), t(ys), t(vals), "torch").numpy().reshape(-1, 4)
+    absv = np.asarray(call(rops, xs, ys, np.abs(vals), "np")).reshape(
+        -1, 4)[:, 1]
+    np.testing.assert_array_equal(got[:, 0], pallas[:, 0])
+    occ = got[:, 0] > 0
+    assert (got[occ, 2] == pallas[occ, 2]).all()
+    assert (got[occ, 3] == pallas[occ, 3]).all()
+    assert (np.abs(got[:, 1] - pallas[:, 1]) <= 1e-5 * absv + 1e-3).all()
+
+
+def test_split_edges_stay_float64():
+    """An object between ``f32(edge)`` and ``edge``: the reference's host
+    reorganization (``edge_cell_ids_np``) compares in float64, its
+    Pallas edges kernel against the edge rounded to float32. With the
+    edge just above its float32 rounding f, the object at f lies left of
+    the edge on the host and right of it in the Pallas kernel. The port
+    follows the host rule on every backend — the Pallas kernel's child
+    counts would disagree with the reorganized segments."""
+    f = np.float32(37.3)
+    e = float(f) + float(np.spacing(f)) / 4      # f32(e) == f < e
+    assert np.float32(e) == f and float(f) < e
+    xe = np.array([[0.0, e, 100.0]])
+    ye = np.array([[0.0, 100.0]])
+    xs = np.array([np.nextafter(f, np.float32(-np.inf)), f,
+                   np.nextafter(f, np.float32(np.inf)), 5.0, 95.0],
+                  np.float32)
+    ys = np.full(len(xs), 50.0, np.float32)
+    vals = np.arange(len(xs), dtype=np.float32)
+    b = np.array([0, len(xs)], np.int64)
+    want = rops.segment_bin_agg_edges(xs, ys, vals, b, xe, ye, backend="np")
+    assert want[0, :, 0].tolist() == [3.0, 2.0]   # f sits left of e
+    for backend in ("np", "torch"):
+        got = np.asarray(pops.segment_bin_agg_edges(
+            t(xs), t(ys), t(vals), b, xe, ye, backend=backend))
+        np.testing.assert_array_equal(got[..., 0], want[..., 0])
+        assert (got[..., 2:] == want[..., 2:]).all()
+    pallas = np.asarray(rops.segment_bin_agg_edges(xs, ys, vals, b, xe, ye,
+                                                   backend="pallas"))
+    assert pallas[0, :, 0].tolist() == [2.0, 3.0]  # f rounded onto e

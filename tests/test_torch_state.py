@@ -83,3 +83,67 @@ def test_carried_state_is_validated():
     ds = make_synthetic_dataset(n=60_000, seed=5, device="cpu")
     with pytest.raises(ValueError):
         index_from_numpy(ds, IndexConfig(backend="np", **KW), arrays)
+
+
+def heatmap_carried(backend):
+    """A reference index cracked by three heatmaps (bin-aligned children,
+    warm bin-grid registries), carried into the port."""
+    e_ref = RefEngine(ref_dataset(n=40_000, seed=23), RefConfig(**KW))
+    wins = ref_path(e_ref.dataset, n_queries=5, target_objects=6000)
+    for w in wins[:3]:
+        e_ref.heatmap(w, "sum", "a0", bins=(4, 4), phi=0.0)
+    ds = make_synthetic_dataset(n=40_000, seed=23, device="cpu")
+    cfg = IndexConfig(backend=backend, **KW)
+    e_port = AQPEngine(ds, cfg)
+    e_port.index = index_from_numpy(ds, cfg, index_to_numpy(e_ref.index))
+    # the next two heatmaps: the last cracked viewport again (its
+    # enriched tiles answered from the carried registry) and a new one
+    return e_ref, e_port, [wins[2], wins[3]]
+
+
+@pytest.mark.parametrize("backend", ["np", "torch"])
+def test_carried_heatmap_index_continues(backend):
+    e_ref, e_port, wins = heatmap_carried(backend)
+    carried_arrays = index_to_numpy(e_ref.index)
+    regs = index_to_numpy(e_port.index)["hm_regs"]
+    assert [k for k, _ in regs] == [
+        k for k, _ in index_to_numpy(e_ref.index)["hm_regs"]]
+    assert e_port.index._hm_key == e_ref.index._hm_key
+    reads = []
+    for w in wins:
+        steps = []
+        for e in (e_ref, e_port):
+            io, ad = e.io_stats.snapshot(), e.adapt_stats.snapshot()
+            r = e.heatmap(w, "sum", "a0", bins=(4, 4), phi=0.0)
+            steps.append((r, dataclasses.asdict(e.io_stats.delta(io)),
+                          dataclasses.asdict(e.adapt_stats.delta(ad))))
+        (ra, ia, aa), (rb, ib, ab) = steps
+        assert (ia, aa) == (ib, ab)
+        da, db = dataclasses.asdict(ra), dataclasses.asdict(rb)
+        for k in da:
+            if k == "eval_time_s":
+                continue
+            if backend == "torch" and k in ("values", "lo", "hi"):
+                np.testing.assert_allclose(db[k], da[k], rtol=1e-9)
+            elif isinstance(da[k], np.ndarray):
+                np.testing.assert_array_equal(da[k], db[k])
+            else:
+                assert da[k] == db[k], k
+        reads.append(rb.objects_read)
+    # the carried registries answered: the same index carried without
+    # them reads more on the repeat
+    cfg = IndexConfig(backend=backend, **KW)
+    ds = make_synthetic_dataset(n=40_000, seed=23, device="cpu")
+    cold = AQPEngine(ds, cfg)
+    cold.index = index_from_numpy(ds, cfg, dict(carried_arrays, hm_regs=[]))
+    assert cold.heatmap(wins[0], "sum", "a0", bins=(4, 4),
+                        phi=0.0).objects_read > reads[0]
+    a, b = index_to_numpy(e_ref.index), index_to_numpy(e_port.index)
+    for k in ("n_tiles", "perm", "count", "bbox", "active", "parent"):
+        np.testing.assert_array_equal(a[k], b[k])
+    for k in ("meta_min", "meta_max", "meta_valid"):
+        np.testing.assert_array_equal(a[k]["a0"], b[k]["a0"])
+    if backend == "np":
+        np.testing.assert_array_equal(a["meta_sum"]["a0"],
+                                      b["meta_sum"]["a0"])
+    e_port.index.check_invariants("a0")
