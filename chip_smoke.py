@@ -2,7 +2,6 @@
 """Drive the PyTorch/CUDA port's main path on one NVIDIA H100 and check it.
 
     python3 chip_smoke.py [--seed 0] [--rows 100000000] [--queries 50]
-                          [--heatmaps 50]
 
 Phases (each prints its own lines; any failure exits non-zero):
 
@@ -28,7 +27,7 @@ Phases (each prints its own lines; any failure exits non-zero):
 4. The heatmap path at the same scale, on the same dataset (phase 3's
    engine freed first): a fresh ``AQPEngine`` (default ``IndexConfig``:
    bin-aligned splits, session bin-grid memory) answers
-   ``heatmap(w, "mean", "a0", bins=(8, 8))`` over the same 50 windows at
+   ``heatmap(w, "mean", "a0", bins=(8, 8))`` over the same windows at
    phi = 0.05 and then phi = 0, every bin checked against an on-device
    float64 oracle; 10 windows under an ``AccuracyPolicy`` with an
    absolute floor must meet every bin's budget; a repeated viewport must
@@ -40,8 +39,11 @@ Phase 2 also holds the heatmap kernels (``segment_bin_agg_edges``,
 ``segment_window_bin_agg``, ``segment_window_bin_select``) against their
 plain versions — the select op's suffix widths bit for bit — on edge
 cases, a table too large for shared memory, a host sample against the
-numpy mirrors, and at the heatmap path's shapes (8 segments of ~3.9e5
-objects, 8x8 bins, 4x4 split cells).
+numpy mirrors, and at the heatmap path's shapes: 8 segments of ~3.9e5
+objects, 8x8 bins, 4x4 split cells for the batched ops, and one tile of
+~3.9e5 objects (1e8 / 256, the initial grid's mean tile) for
+``segment_window_bin_agg``, which the path launches only from
+``process_heatmap`` with S = 1.
 
 The line before the last is a JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -480,8 +482,16 @@ def phase_heatmap_kernels(torch, timed, seed):
     vmin = np.full(n_seg, -150.0)
     vmax = np.full(n_seg, 160.0)
     err_e = check_edges("main", xs, ys, vals, b, xe, ye)
-    err_w = check_wbin("main", xs, ys, vals, b, window, bins)
+    check_wbin("main", xs, ys, vals, b, window, bins)
     err_s = check_select("main", xs, ys, vals, b, window, bins)
+    # process_heatmap's launch: S = 1, one tile of seg_rows objects that
+    # the window crosses
+    xs1, ys1, vals1 = xs[:seg_rows], ys[:seg_rows], vals[:seg_rows]
+    b1 = np.array([0, seg_rows], np.int64)
+    x0, y0, x1, y1 = bb[0]
+    window1 = (float(x0 + 0.2 * (x1 - x0)), float(y0 + 0.2 * (y1 - y0)),
+               float(x0 + 0.7 * (x1 - x0)), float(y0 + 0.7 * (y1 - y0)))
+    err_w = check_wbin("tile", xs1, ys1, vals1, b1, window1, bins)
 
     # a host sample against the float64 numpy mirrors
     m = 50_000
@@ -519,6 +529,7 @@ def phase_heatmap_kernels(torch, timed, seed):
 
     # --- times at the heatmap path's shapes
     n_in = int(sa.window_bin_ids(xs, ys, window, *bins)[0].sum())
+    n_in1 = int(sa.window_bin_ids(xs1, ys1, window1, *bins)[0].sum())
     nb = bins[0] * bins[1]
     out_b = 32 * n_seg * nb
     specs = {
@@ -531,13 +542,14 @@ def phase_heatmap_kernels(torch, timed, seed):
             err_e, "src/repro_torch/kernels/csrc/segment_bin_agg_edges.cu",
             "src/repro/kernels/segment_agg.py:448"),
         "segment_window_bin_agg": (
-            lambda: sa.segment_window_bin_agg_cuda(xs, ys, vals, b, window,
-                                                   *bins),
-            lambda: sa.segment_window_bin_agg_torch(xs, ys, vals, b,
-                                                    window, *bins),
+            lambda: sa.segment_window_bin_agg_cuda(xs1, ys1, vals1, b1,
+                                                   window1, *bins),
+            lambda: sa.segment_window_bin_agg_torch(xs1, ys1, vals1, b1,
+                                                    window1, *bins),
             # x, y read; v for in-window objects; 4 compares per object,
             # 2 subtracts + 2 divides + min/max per in-window object
-            bound_ms(8 * L + 4 * n_in + out_b, 4 * L + 6 * n_in, n_in),
+            bound_ms(8 * seg_rows + 4 * n_in1 + 32 * nb,
+                     4 * seg_rows + 6 * n_in1, n_in1),
             err_w, "src/repro_torch/kernels/csrc/segment_window_bin_agg.cu",
             "src/repro/kernels/segment_agg.py:295"),
         "segment_window_bin_select": (
@@ -779,7 +791,6 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rows", type=int, default=100_000_000)
     ap.add_argument("--queries", type=int, default=50)
-    ap.add_argument("--heatmaps", type=int, default=50)
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args(argv)
 
@@ -803,15 +814,12 @@ def main(argv=None) -> int:
         from repro_torch.data import exploration_path
         log("== dataset for phases 3 and 4")
         ds = make_dataset(torch, args.seed, args.rows)
-        windows = exploration_path(
-            ds, n_queries=max(args.queries, args.heatmaps),
-            target_objects=100_000, seed=11)
-        launches = phase_main_path(torch, build, ds,
-                                   windows[:args.queries])
+        windows = exploration_path(ds, n_queries=args.queries,
+                                   target_objects=100_000, seed=11)
+        launches = phase_main_path(torch, build, ds, windows)
         torch.cuda.empty_cache()
         launches.update({k: v for k, v in phase_heatmap_path(
-            torch, build, ds, windows[:args.heatmaps]).items()
-            if k in HEATMAP_KERNELS})
+            torch, build, ds, windows).items() if k in HEATMAP_KERNELS})
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

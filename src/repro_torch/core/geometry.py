@@ -19,7 +19,7 @@ the two places the reference applies it, and object masks have their own:
 - **Edge ownership is float64.** A bin-aligned split owns objects by
   ``ref.edge_cell_ids_np``: float32 coordinates against float64 edges,
   compared in float64 (:func:`edge_cell_ids_segmented`;
-  :func:`segment_edge_cell_ids` on tensors).
+  ``kernels.segment_agg.edge_cell_ids`` on tensors).
 - **Split ownership is float64.** A split bins against
   ``self.bbox[t]``, a float64 row (``repro/core/index.py:494-497`` for
   ``_split``, ``:820-826`` for ``_split_batch``): numpy scalars are
@@ -46,7 +46,6 @@ import numpy as np
 import torch
 
 from ..kernels import ref as ref_mod
-from ..kernels import segment_agg
 from ..kernels.segment_agg import bin_params, cell_keys, clip_cell
 
 DISJOINT, PARTIAL, FULL = 0, 1, 2
@@ -208,16 +207,6 @@ def edge_cell_ids_segmented(xs: np.ndarray, ys: np.ndarray,
     """
     return ref_mod.edge_cell_ids_np(np.asarray(xs), np.asarray(ys),
                                     x_edges, y_edges, sid)
-
-
-def segment_edge_cell_ids(xs: torch.Tensor, ys: torch.Tensor,
-                          sid: torch.Tensor, x_edges: np.ndarray,
-                          y_edges: np.ndarray) -> torch.Tensor:
-    """:func:`edge_cell_ids_segmented` for float32 tensors on any
-    device: cell id (cy*gx + cx) of object i under segment ``sid[i]``'s
-    split edges, ``xs.double()`` compared with the float64 edges — the
-    rule the edges kernel and its plain version use too."""
-    return segment_agg.edge_cell_ids(xs, ys, sid, x_edges, y_edges)
 
 
 def edge_cell_ids(xs: np.ndarray, ys: np.ndarray, x_edges: np.ndarray,

@@ -52,8 +52,9 @@ from ..data.rawfile import RawDataset, as_host
 from ..kernels import fused_select as fused_mod
 from ..kernels import ops
 from ..kernels import ref as ref_mod
-from ..kernels.segment_agg import (EVERYWHERE, MAX_UNROLL, segment_ids,
-                                   segment_window_agg_torch, window_bin_ids)
+from ..kernels.segment_agg import (EVERYWHERE, MAX_UNROLL, edge_cell_ids,
+                                   segment_ids, segment_window_agg_torch,
+                                   window_bin_ids)
 from . import geometry
 from .geometry import FULL, PARTIAL
 
@@ -570,8 +571,8 @@ class TileIndex:
             cell = (geometry.segment_cell_ids(xs, ys, sid, bbox[None],
                                               gx, gy)
                     if edges is None else
-                    geometry.segment_edge_cell_ids(
-                        xs, ys, sid, edges[0][None], edges[1][None]))
+                    edge_cell_ids(xs, ys, sid, edges[0][None],
+                                  edges[1][None]))
             counts = _host(torch.bincount(cell, minlength=gx * gy))
         boxes = (geometry.subtile_bboxes(bbox, gx, gy) if edges is None
                  else geometry.bboxes_from_edges(edges[0], edges[1]))
@@ -895,8 +896,8 @@ class TileIndex:
             sid = segment_ids(bounds, xs.device)
             key = (geometry.segment_cell_ids(xs, ys, sid, bboxes, gx, gy)
                    if edges is None else
-                   sid * k + geometry.segment_edge_cell_ids(
-                       xs, ys, sid, edges[0], edges[1]))
+                   sid * k + edge_cell_ids(xs, ys, sid, edges[0],
+                                           edges[1]))
             counts_sk = _host(torch.bincount(
                 key, minlength=s_n * k)).reshape(s_n, k)
         child_off = off[:, None] + np.concatenate(

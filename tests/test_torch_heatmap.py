@@ -265,3 +265,34 @@ def test_learned_salience_names_its_roadmap_item():
     with pytest.raises(NotImplementedError, match="item 8"):
         e_port.heatmap(w, "sum", "a0", bins=BINS, phi=0.05,
                        policy=AccuracyPolicy(salience="learned"))
+
+
+@pytest.mark.parametrize("backend", ["np", "torch"])
+def test_repeat_after_policy_session_matches_reference(backend):
+    """The chip smoke's heatmap session at a small size, splitting on: an
+    exploration path at φ = 0.05 and φ = 0, policy heatmaps on other
+    viewports (enough to push the last viewport's registry out of the
+    4-slot LRU), then the last viewport repeated. The first repeat reads
+    again — evicted registry, and children of later splits have no entry
+    — and each repeat reads only the children the one before split, down
+    to zero; the reference gives the same sequence."""
+    e_ref, e_port = engines(9, backend, n=100_000, min_split_count=128)
+    wins = ref_path(e_ref.dataset, n_queries=8, target_objects=5000, seed=11)
+    seqs = []
+    for e, policy in ((e_ref, RefPolicy), (e_port, AccuracyPolicy)):
+        for phi in (0.05, 0.0):
+            for w in wins:
+                e.heatmap(w, "mean", "a0", bins=(8, 8), phi=phi)
+        for w in wins[:6]:
+            e.heatmap(w, "mean", "a0", bins=(8, 8), phi=0.05,
+                      policy=policy(eps_abs=0.5))
+        reads = []
+        for _ in range(16):
+            reads.append(e.heatmap(wins[-1], "mean", "a0", bins=(8, 8),
+                                   phi=0.0).objects_read)
+            if reads[-1] == 0:
+                break
+        seqs.append(reads)
+    assert seqs[0] == seqs[1]
+    assert seqs[1][0] > 0 and seqs[1][-1] == 0
+    assert all(a >= b for a, b in zip(seqs[1], seqs[1][1:]))
