@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port's main path on one NVIDIA H100 and check it.
 
     python3 chip_smoke.py [--seed 0] [--rows 100000000] [--queries 50]
+                          [--ticks 10]
 
 Phases (each prints its own lines; any failure exits non-zero):
 
@@ -35,6 +36,18 @@ Phases (each prints its own lines; any failure exits non-zero):
    the sequential path and must end with the same index. The three
    heatmap kernels must all have launched in this phase.
 
+5. The serving tick at the same scale, on the same dataset (phase 4's
+   engine freed first): B7's workload (``benchmarks/
+   serving_concurrency.py``) — ``IndexConfig(grid0=(8, 8),
+   min_split_count=512)``, 16 sessions x ``--ticks`` ticks around 8
+   zipf-weighted hot spots, every 4th submission a 4x4 ``mean(a0)``
+   heatmap, the rest ``mean(a0)`` queries, all at phi = 0.05 — served by
+   ``AQPEngine.serve()`` in micro-batched ticks. Every answer must meet
+   phi and every 5th contain its oracle; both multi-window kernels must
+   have launched. Then 4 sessions x 3 ticks on fresh engines, batched
+   against sequential, with and without a crack budget: the same index,
+   publication and answers.
+
 Phase 2 also holds the heatmap kernels (``segment_bin_agg_edges``,
 ``segment_window_bin_agg``, ``segment_window_bin_select``) against their
 plain versions — the select op's suffix widths bit for bit — on edge
@@ -43,7 +56,12 @@ numpy mirrors, and at the heatmap path's shapes: 8 segments of ~3.9e5
 objects, 8x8 bins, 4x4 split cells for the batched ops, and one tile of
 ~3.9e5 objects (1e8 / 256, the initial grid's mean tile) for
 ``segment_window_bin_agg``, which the path launches only from
-``process_heatmap`` with S = 1.
+``process_heatmap`` with S = 1. Phase 2c holds the serving tick's
+kernels (``segment_window_agg_multi``, ``segment_window_bin_agg_multi``,
+``segment_window_bin_select_multi``: one window per segment, suffix
+widths per query span) against their plain versions on edge cases and a
+host sample; after phase 5 it checks and times them at the median
+shapes of phase 5's passes.
 
 The line before the last is a JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -574,6 +592,253 @@ def phase_heatmap_kernels(torch, timed, seed):
 
 
 # --------------------------------------------------------------------- #
+# phase 2c, the serving kernels
+# --------------------------------------------------------------------- #
+
+SERVING_KERNELS = ("segment_window_agg_multi",
+                   "segment_window_bin_select_multi")
+
+
+def multi_case(torch, rng, n_seg, rows, bins, empty=(), zero_area=True):
+    """Segments in their own bboxes, segment s under its OWN window (edges
+    that are not float32 values, crossing the bbox), objects on each
+    window's bin lines and edges and on their float32 neighbours; the
+    last segment's window has zero area, with objects on its point.
+    Returns cuda planes, boundaries and the windows (Python floats)."""
+    counts = np.full(n_seg, rows, np.int64)
+    counts[list(empty)] = 0
+    b = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    n = int(b[-1])
+    xs = np.empty(n, np.float32)
+    ys = np.empty(n, np.float32)
+    wins = []
+    for s in range(n_seg):
+        x0, y0 = rng.uniform(0, 700, 2)
+        w, h = rng.uniform(50, 300, 2)
+        sl = slice(int(b[s]), int(b[s + 1]))
+        c = sl.stop - sl.start
+        xs[sl] = rng.uniform(x0, x0 + w, c)
+        ys[sl] = rng.uniform(y0, y0 + h, c)
+        win = tuple(float(np.round(v, 1) + 0.03) for v in (
+            x0 + 0.2 * w, y0 + 0.1 * h, x0 + 0.8 * w, y0 + 0.7 * h))
+        k = min(c, 3 * (bins[0] + 5))
+        if k:
+            # bin lines (float64 line, its float32 rounding, neighbours)
+            # and the window's edges on x, inside the window on y
+            cw = (win[2] - win[0]) / bins[0]
+            lines = np.float32(win[0] + cw * np.arange(bins[0] + 1))
+            pick = lines[rng.integers(0, len(lines), k)]
+            d = np.arange(k) % 3 - 1
+            xs[sl][:k] = np.where(d < 0, np.nextafter(pick, np.float32(
+                -np.inf)), np.where(d > 0, np.nextafter(
+                    pick, np.float32(np.inf)), pick))
+            ys[sl][:k] = rng.uniform(win[1], win[3], k).astype(np.float32)
+        wins.append(win)
+    if zero_area and counts[-1]:
+        a = int(b[-2])
+        px, py = xs[a], ys[a]
+        xs[a:a + 20], ys[a:a + 20] = px, py
+        wins[-1] = (float(px), float(py), float(px), float(py))
+    vals = rng.normal(5.0, 30.0, n).astype(np.float32)
+    dev = [torch.from_numpy(v).to("cuda") for v in (xs, ys, vals)]
+    return dev[0], dev[1], dev[2], b, wins
+
+
+def even_spans(n_seg, n_spans):
+    """Query spans cutting ``n_seg`` segments into ``n_spans`` runs."""
+    return np.unique(np.linspace(0, n_seg, n_spans + 1).round()).astype(
+        np.int64)
+
+
+def phase_serving_kernels(torch, seed):
+    from repro_torch.kernels import fused_select as fs
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import segment_agg as sa
+
+    log("== phase 2c: serving kernels against their plain versions")
+    rng = np.random.default_rng(seed + 2)
+    checks = make_multi_checks(torch)
+    n_checks = 0
+    for tag, n_seg, rows, empty, spans in (
+            ("S=1", 1, 3000, (), [0, 1]),
+            ("S=16", 16, 3000, (), [0, 1, 5, 6, 16]),
+            ("S=16,empty", 16, 3000, (0, 5, 15), [0, 1, 5, 6, 16]),
+            ("S=64", 64, 500, (), [0, 8, 9, 30, 31, 64])):
+        for bins in ((4, 4), (16, 16)):
+            xs, ys, vals, b, wins = multi_case(torch, rng, n_seg, rows, bins,
+                                               empty)
+            t = f"{tag},{bins[0]}x{bins[1]}"
+            checks["segment_window_agg_multi"](t, xs, ys, vals, b, wins)
+            checks["segment_window_bin_agg_multi"](t, xs, ys, vals, b, wins,
+                                                   bins)
+            checks["segment_window_bin_select_multi"](
+                t, xs, ys, vals, b, wins, bins, np.array(spans), rng)
+            n_checks += 3
+    log(f"serving edge cases ({n_checks} checks): equal (suffix_w bit for "
+        "bit per span)")
+
+    # a host sample against the float64 numpy mirrors, each segment's
+    # window as the ticket gives it (Python floats: float32 compares)
+    xs, ys, vals, b, wins = multi_case(torch, rng, 4, 20_000, (4, 4))
+    hx, hy, hv = (t.cpu().numpy() for t in (xs, ys, vals))
+    habs = np.abs(hv)
+    compare("segment_window_agg_multi[np mirror]",
+            sa.segment_window_agg_multi_cuda(xs, ys, vals, b, wins).cpu(),
+            ref.segment_window_agg_multi_np(hx, hy, hv, b, wins),
+            ref.segment_window_agg_multi_np(hx, hy, habs, b, wins)[:, 1])
+    want_abs = ref.segment_window_bin_agg_multi_np(hx, hy, habs, b, wins, 4,
+                                                   4)[..., 1]
+    compare("segment_window_bin_agg_multi[np mirror]",
+            sa.segment_window_bin_agg_multi_cuda(xs, ys, vals, b, wins, 4,
+                                                 4).cpu(),
+            ref.segment_window_bin_agg_multi_np(hx, hy, hv, b, wins, 4, 4),
+            want_abs)
+    vmin = rng.uniform(-100.0, 0.0, 4)
+    vmax = vmin + rng.uniform(0.0, 200.0, 4)
+    qb = np.array([0, 1, 4])
+    got, got_w = fs.segment_window_bin_select_multi_cuda(
+        xs, ys, vals, b, wins, 4, 4, vmin, vmax, qb)
+    want, want_w = fs.segment_window_bin_select_multi_np(
+        hx, hy, hv, b, wins, 4, 4, vmin, vmax, qb)
+    compare("segment_window_bin_select_multi[np mirror]", got.cpu(), want,
+            want_abs)
+    if not np.array_equal(got_w.cpu().numpy(), want_w):
+        raise Failed("segment_window_bin_select_multi: suffix_w differs "
+                      "from the numpy mirror")
+    log("serving host sample against the numpy mirrors: equal")
+
+
+def make_multi_checks(torch):
+    """``{kernel: check(tag, ...)}``: each multi kernel against its plain
+    version on the same CUDA tensors; returns the largest difference."""
+    from repro_torch.kernels import fused_select as fs
+    from repro_torch.kernels import segment_agg as sa
+
+    def swam(tag, xs, ys, vals, b, wins):
+        got = sa.segment_window_agg_multi_cuda(xs, ys, vals, b, wins)
+        want = sa.segment_window_agg_multi_torch(xs, ys, vals, b, wins)
+        absv = sa.segment_window_agg_multi_torch(xs, ys, vals.abs(), b, wins)
+        torch.cuda.synchronize()
+        return compare(f"segment_window_agg_multi[{tag}]", got.cpu(),
+                       want.cpu(), absv[:, 1].cpu())
+
+    def swbm(tag, xs, ys, vals, b, wins, bins):
+        got = sa.segment_window_bin_agg_multi_cuda(xs, ys, vals, b, wins,
+                                                   *bins)
+        want = sa.segment_window_bin_agg_multi_torch(xs, ys, vals, b, wins,
+                                                     *bins)
+        absv = sa.segment_window_bin_agg_multi_torch(xs, ys, vals.abs(), b,
+                                                     wins, *bins)
+        torch.cuda.synchronize()
+        return compare(f"segment_window_bin_agg_multi[{tag}]", got.cpu(),
+                       want.cpu(), absv[..., 1].cpu())
+
+    def swsm(tag, xs, ys, vals, b, wins, bins, qb, rng):
+        n_seg = len(b) - 1
+        vmin = rng.uniform(-120.0, 0.0, n_seg)
+        vmax = vmin + rng.uniform(0.0, 240.0, n_seg)
+        got, got_w = fs.segment_window_bin_select_multi_cuda(
+            xs, ys, vals, b, wins, *bins, vmin, vmax, qb)
+        want, want_w = fs.segment_window_bin_select_multi_torch(
+            xs, ys, vals, b, wins, *bins, vmin, vmax, qb)
+        absv, _ = fs.segment_window_bin_select_multi_torch(
+            xs, ys, vals.abs(), b, wins, *bins, vmin, vmax, qb)
+        torch.cuda.synchronize()
+        if not torch.equal(got_w, want_w):
+            raise Failed(f"segment_window_bin_select_multi[{tag}]: suffix_w "
+                         "differs from the plain version")
+        return compare(f"segment_window_bin_select_multi[{tag}]", got.cpu(),
+                       want.cpu(), absv[..., 1].cpu())
+
+    return {"segment_window_agg_multi": swam,
+            "segment_window_bin_agg_multi": swbm,
+            "segment_window_bin_select_multi": swsm}
+
+
+def time_serving_kernels(torch, timed, seed, shapes):
+    """Rows 8-10 at phase 5's median pass shapes (``shapes``: per family,
+    the median segments, objects and query spans of a pass): checked
+    against their plain versions there, then timed."""
+    from repro_torch.kernels import fused_select as fs
+    from repro_torch.kernels import segment_agg as sa
+
+    log("== phase 2c timings at phase 5's median pass shapes")
+    rng = np.random.default_rng(seed + 3)
+    checks = make_multi_checks(torch)
+    bins = (4, 4)
+    nb = bins[0] * bins[1]
+    rows = {}
+    sc, hm = shapes["scalar"], shapes["heatmap"]
+
+    def case(shape):
+        n_seg = max(1, int(shape["segments"]))
+        per = max(1, int(shape["objects"]) // n_seg)
+        xs, ys, vals, b, wins = multi_case(torch, rng, n_seg, per, bins,
+                                           zero_area=False)
+        L = int(b[-1])
+        p = torch.from_numpy(sa.bin_params_multi(wins, n_seg, *bins)).to(
+            "cuda")[sa.segment_ids(b, "cuda")]
+        n_in = int(sa.param_bin_ids(xs, ys, p, *bins)[0].sum())
+        return xs, ys, vals, b, wins, n_seg, L, n_in
+
+    xs, ys, vals, b, wins, S, L, n_in = case(sc)
+    err = checks["segment_window_agg_multi"]("median", xs, ys, vals, b, wins)
+    ms = timed(lambda: sa.segment_window_agg_multi_cuda(xs, ys, vals, b,
+                                                        wins))
+    pms = timed(lambda: sa.segment_window_agg_multi_torch(xs, ys, vals, b,
+                                                          wins))
+    # x, y read; v for in-window objects; f64 rows out
+    bms, by = bound_ms(8 * L + 4 * n_in + 32 * S, 4 * L + 2 * n_in, n_in)
+    rows["segment_window_agg_multi"] = dict(
+        shape=(S, L), err=err, ms=ms, pms=pms, bms=bms, by=by,
+        source="src/repro_torch/kernels/csrc/segment_window_agg.cu",
+        replaces="src/repro/kernels/segment_agg.py:219")
+
+    xs, ys, vals, b, wins, S, L, n_in = case(hm)
+    qb = even_spans(S, int(hm["spans"]))
+    vmin = np.full(S, -150.0)
+    vmax = np.full(S, 160.0)
+    err_b = checks["segment_window_bin_agg_multi"]("median", xs, ys, vals,
+                                                   b, wins, bins)
+    err_s = checks["segment_window_bin_select_multi"](
+        "median", xs, ys, vals, b, wins, bins, qb, rng)
+    for name, err, kern, plain, extra in (
+            ("segment_window_bin_agg_multi", err_b,
+             lambda: sa.segment_window_bin_agg_multi_cuda(
+                 xs, ys, vals, b, wins, *bins),
+             lambda: sa.segment_window_bin_agg_multi_torch(
+                 xs, ys, vals, b, wins, *bins), 0),
+            ("segment_window_bin_select_multi", err_s,
+             lambda: fs.segment_window_bin_select_multi_cuda(
+                 xs, ys, vals, b, wins, *bins, vmin, vmax, qb),
+             lambda: fs.segment_window_bin_select_multi_torch(
+                 xs, ys, vals, b, wins, *bins, vmin, vmax, qb), 1)):
+        # x, y read; v for in-window objects; f64 table (and suffix) out;
+        # 4 compares per object, 2 subtracts + 2 divides + min/max per
+        # in-window object; the suffix's f64 multiply-add per cell
+        bms, by = bound_ms(8 * L + 4 * n_in + 32 * S * nb + extra * 8 * S * nb,
+                           4 * L + 6 * n_in, n_in + extra * 2 * S * nb)
+        rows[name] = dict(
+            shape=(S, L), err=err, ms=timed(kern), pms=timed(plain), bms=bms,
+            by=by, source="src/repro_torch/kernels/csrc/"
+            "segment_window_bin_agg.cu",
+            replaces=("src/repro/kernels/segment_agg.py:372"
+                      if extra == 0 else
+                      "src/repro/kernels/fused_select.py:498"))
+    out = {}
+    for name, r in rows.items():
+        out[name] = {"name": name, "route": "cuda", "source": r["source"],
+                     "replaces": r["replaces"], "launches": 0,
+                     "max_abs_err": r["err"], "ms": r["ms"],
+                     "plain_ms": r["pms"], "bound_ms": r["bms"],
+                     "bound_by": r["by"], "library_ms": None}
+        log(f"{name} ({r['shape'][0]} segments, {r['shape'][1]} objects): "
+            f"kernel {r['ms']:.4f} ms, plain {r['pms']:.4f} ms, bound "
+            f"{r['bms']:.4f} ms ({r['by']}), max_abs_err {r['err']:.3e}")
+    return out
+
+
+# --------------------------------------------------------------------- #
 # phase 3
 # --------------------------------------------------------------------- #
 
@@ -786,12 +1051,299 @@ def phase_heatmap_path(torch, build, ds, windows):
     return launches
 
 
+# --------------------------------------------------------------------- #
+# phase 5
+# --------------------------------------------------------------------- #
+
+# B7's workload (benchmarks/serving_concurrency.py:44-107)
+PHI = 0.05
+N_HOT = 8
+ZIPF_S = 1.3
+DOMAIN = 1000.0
+
+
+def serving_config():
+    from repro_torch.core import IndexConfig
+    return IndexConfig(grid0=(8, 8), min_split_count=512,
+                       init_metadata_attrs=("a0",))
+
+
+def hot_spots(rng):
+    pts = rng.uniform(0.1 * DOMAIN, 0.9 * DOMAIN, size=(N_HOT, 2))
+    w = 1.0 / np.arange(1, N_HOT + 1) ** ZIPF_S
+    return pts, w / w.sum()
+
+
+def b7_script(rng, n_sessions, n_ticks):
+    """Per tick, per session: (kind, window) — centre a zipf-weighted hot
+    spot plus N(0, 20), half-width U(50, 150), every 4th submission a
+    4x4 heatmap (B7's ``_submit_workload``)."""
+    hot, pw = hot_spots(np.random.default_rng(23))
+    ticks, n = [], 0
+    for _ in range(n_ticks):
+        subs = []
+        for k in range(n_sessions):
+            cx, cy = (hot[rng.choice(N_HOT, p=pw)]
+                      + rng.normal(0, 0.02 * DOMAIN, 2))
+            w = rng.uniform(0.05, 0.15) * DOMAIN
+            win = (cx - w, cy - w, cx + w, cy + w)
+            subs.append(("heatmap" if (n + k) % 4 == 3 else "query", win))
+        n += n_sessions
+        ticks.append(subs)
+    return ticks
+
+
+def submit(sessions, subs):
+    for s, (kind, win) in zip(sessions, subs):
+        if kind == "heatmap":
+            s.heatmap(win, "mean", "a0", bins=(4, 4), phi=PHI)
+        else:
+            s.query(win, "mean", "a0", phi=PHI)
+
+
+class TickRecorder:
+    """Records, while active, the segments, objects and query spans of
+    every multi-window pass the serving tick makes (by wrapping the two
+    ops it calls) and the host time spent in its rounds
+    (``ServingEngine._execute_round``: gather, passes, folds) and in
+    publication (``EpochStage.publish``)."""
+
+    def __init__(self, ops, engine_cls, stage_cls):
+        self.targets = [(ops, "segment_window_agg_multi", "scalar"),
+                        (ops, "segment_window_bin_select_multi", "heatmap"),
+                        (engine_cls, "_execute_round", "rounds"),
+                        (stage_cls, "publish", "publish")]
+        self.rec = {"scalar": [], "heatmap": []}
+        self.seconds = {"rounds": 0.0, "publish": 0.0}
+        self.n_rounds = 0
+
+    def _wrap(self, fn, what):
+        rec, seconds = self.rec, self.seconds
+
+        def shape(boundaries, qbounds=None):
+            return (len(boundaries) - 1, int(boundaries[-1]),
+                    1 if qbounds is None else len(qbounds) - 1)
+
+        if what == "scalar":
+            def f(xs, ys, vals, boundaries, windows, **kw):
+                rec["scalar"].append(shape(boundaries))
+                return fn(xs, ys, vals, boundaries, windows, **kw)
+        elif what == "heatmap":
+            def f(xs, ys, vals, boundaries, windows, vmin_s, vmax_s,
+                  qbounds=None, **kw):
+                rec["heatmap"].append(shape(boundaries, qbounds))
+                return fn(xs, ys, vals, boundaries, windows, vmin_s, vmax_s,
+                          qbounds, **kw)
+        else:
+            def f(*a, **kw):
+                t = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    seconds[what] += time.perf_counter() - t
+                    self.n_rounds += what == "rounds"
+        return f
+
+    def __enter__(self):
+        self.orig = [getattr(o, n) for o, n, _ in self.targets]
+        for (o, n, what), fn in zip(self.targets, self.orig):
+            setattr(o, n, self._wrap(fn, what))
+        return self
+
+    def __exit__(self, *exc):
+        for (o, n, _), fn in zip(self.targets, self.orig):
+            setattr(o, n, fn)
+
+    def summary(self):
+        out = {"rounds": self.n_rounds,
+               "rounds_s": self.seconds["rounds"],
+               "publish_s": self.seconds["publish"]}
+        for fam, r in self.rec.items():
+            a = np.asarray(r, np.float64).reshape(-1, 3)
+            out[fam] = {"passes": len(a)}
+            for j, key in enumerate(("segments", "objects", "spans")):
+                out[fam][key] = float(np.median(a[:, j])) if len(a) else 0.0
+                out[fam][f"{key}_max"] = float(a[:, j].max(initial=0))
+        return out
+
+
+def profile_tick(torch, server, sessions, subs):
+    """One more tick under ``torch.profiler``: its wall time, the device
+    time of its kernels and the largest of them by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    submit(sessions, subs)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        server.tick()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    dev = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0.0)
+        if us > 0:
+            dev[e.key] = us * 1e-6
+    busy = sum(dev.values())
+    out = {"wall_s": wall, "device_busy_s": busy if dev else None,
+           "device_idle_share": 1.0 - busy / wall if dev else None,
+           "top_device_s": sorted(dev.items(), key=lambda kv: -kv[1])[:8]}
+    log(f"profiled tick: {json.dumps(out)}")
+    return out
+
+
+def serving_ok(r, truth, phi):
+    """Scalar or heatmap answer against its oracle (per bin within 1e-6,
+    as B7 holds it)."""
+    if not hasattr(r, "values"):
+        return r.lo - 1e-9 <= truth <= r.hi + 1e-9
+    fin = np.isfinite(truth)
+    return bool((r.lo[fin] - 1e-6 <= truth[fin]).all()
+                and (truth[fin] <= r.hi[fin] + 1e-6).all())
+
+
+def phase_serving(torch, build, ds, n_ticks, n_sessions=16):
+    from repro_torch.core import AQPEngine, EpochStage, ServingEngine
+    from repro_torch.kernels import ops
+
+    log(f"== phase 5: serving tick, {ds.n} rows, {n_sessions} sessions x "
+        f"{n_ticks} ticks (B7's workload)")
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = AQPEngine(ds, serving_config())
+    torch.cuda.synchronize()
+    log(f"engine init (8x8 grid, min_split_count 512): "
+        f"{time.perf_counter() - t0:.3f} s")
+    server = eng.serve()
+    sessions = [server.open_session(f"s{i}") for i in range(n_sessions)]
+    script = b7_script(np.random.default_rng(100 + n_sessions), n_sessions,
+                       n_ticks + 1)
+    results, windows, tick_s = [], [], []
+    published = masked = 0
+    reads0 = eng.io_stats.rows_read
+    recorder = TickRecorder(ops, ServingEngine, EpochStage)
+    build.reset_launches()
+    with recorder:
+        for subs in script[:n_ticks]:
+            submit(sessions, subs)
+            t = time.perf_counter()
+            rs = server.tick()
+            torch.cuda.synchronize()
+            tick_s.append(time.perf_counter() - t)
+            results.extend(rs)
+            windows.extend(w for _, w in subs)
+            published += server.last_publish["rounds_published"]
+            masked += server.last_publish["splits_masked"]
+    launches = dict(build.LAUNCHES)
+    rows_read = eng.io_stats.rows_read - reads0
+
+    for i, (r, w) in enumerate(zip(results, windows)):
+        if not (r.exact or r.bound <= PHI + 1e-12):
+            raise Failed(f"serving answer {i}: bound {r.bound} > phi")
+        if i % 5 == 0:
+            truth = (eng.heatmap_oracle(w, "mean", "a0", bins=r.bins)
+                     if hasattr(r, "values") else
+                     eng.oracle(w, "mean", "a0"))
+            if not serving_ok(r, truth, PHI):
+                raise Failed(f"serving answer {i}: misses the oracle")
+    log(f"{len(results)} answers: every bound <= phi or exact; every 5th "
+        "contains the oracle")
+    stats = {"queries": len(results), "wall_s": float(np.sum(tick_s)),
+             "queries_per_s": len(results) / float(np.sum(tick_s)),
+             "tick_s": tick_s, "rows_read": int(rows_read),
+             "rounds_published": published, "splits_masked": masked,
+             "n_tiles": int(eng.index.n_tiles)}
+    for kind, cls in (("scalar", "QueryResult"),
+                      ("heatmap", "HeatmapResult")):
+        t = [r.eval_time_s for r in results if type(r).__name__ == cls]
+        stats[f"{kind}_eval_time_s_p50"] = float(np.percentile(t, 50))
+        stats[f"{kind}_eval_time_s_p99"] = float(np.percentile(t, 99))
+        stats[f"{kind}_n"] = len(t)
+    stats["passes"] = recorder.summary()
+    log(f"serving: {json.dumps(stats)}")
+    log(f"launches on the serving path: {json.dumps(launches)}")
+    for k in SERVING_KERNELS:
+        if launches.get(k, 0) <= 0:
+            raise Failed(f"{k} was not launched on the serving path")
+    log(f"device memory: allocated {torch.cuda.memory_allocated()} B, "
+        f"peak {torch.cuda.max_memory_allocated()} B")
+    stats["profiled_tick"] = profile_tick(torch, server, sessions,
+                                          script[n_ticks])
+    eng.index.check_invariants("a0")
+    log("invariants hold")
+    del eng, server, sessions
+    torch.cuda.empty_cache()
+
+    # batched == sequential on the card, each mode on a fresh engine
+    script = b7_script(np.random.default_rng(55), 4, 3)
+    for budget in (None, 1):
+        got = {}
+        for mode in ("batched", "sequential"):
+            e = AQPEngine(ds, serving_config())
+            sv = ServingEngine(e, mode=mode, crack_budget=budget)
+            ses = [sv.open_session() for _ in range(4)]
+            res, pubs = [], []
+            for subs in script:
+                submit(ses, subs)
+                res.extend(sv.tick())
+                pubs.append(dict(sv.last_publish))
+            ix = e.index
+            if mode == "batched":
+                ix.check_invariants("a0")
+            got[mode] = (res, pubs, ix.n_tiles, int(ix.active.sum()),
+                         ix.count[:ix.n_tiles].copy(), ix.perm.clone(),
+                         ix.meta_min["a0"][:ix.n_tiles].copy(),
+                         ix.meta_max["a0"][:ix.n_tiles].copy())
+            del e, sv, ses, ix
+        serving_parity(torch, got["batched"], got["sequential"], budget)
+        del got
+        torch.cuda.empty_cache()
+    log(f"phase 5 took {time.perf_counter() - t_phase:.3f} s")
+    return launches, stats
+
+
+def serving_parity(torch, a, b, budget):
+    """Batched against sequential: equal index (tile table, permutation,
+    extrema) and publication; equal answer fields, values within 1e-12
+    relative (float64 sums in another atomic order)."""
+    ra, pa, *ia = a
+    rb, pb, *ib = b
+    if pa != pb:
+        raise Failed(f"budget {budget}: publication differs: {pa} vs {pb}")
+    if not (ia[0] == ib[0] and ia[1] == ib[1]
+            and np.array_equal(ia[2], ib[2]) and torch.equal(ia[3], ib[3])
+            and np.array_equal(ia[4], ib[4])
+            and np.array_equal(ia[5], ib[5])):
+        raise Failed(f"budget {budget}: the batched index differs from the "
+                     "sequential one")
+    for i, (x, y) in enumerate(zip(ra, rb)):
+        for f in ("exact", "tiles_full", "tiles_partial", "tiles_processed",
+                  "speculative_rows", "retired_during_query"):
+            if getattr(x, f) != getattr(y, f):
+                raise Failed(f"budget {budget}, answer {i}: {f} differs")
+        for f in ("values", "lo", "hi", "bin_bound", "value", "bound"):
+            if not hasattr(x, f):
+                continue
+            u = np.atleast_1d(np.asarray(getattr(x, f), np.float64))
+            v = np.atleast_1d(np.asarray(getattr(y, f), np.float64))
+            fin = np.isfinite(u)
+            if not (np.array_equal(fin, np.isfinite(v))
+                    and (u[~fin] == v[~fin]).all()
+                    and (np.abs(u[fin] - v[fin])
+                         <= 1e-12 * np.abs(v[fin])).all()):
+                raise Failed(f"budget {budget}, answer {i}: {f} differs")
+    log(f"batched == sequential (crack_budget={budget}): {len(ra)} answers, "
+        f"{ia[0]} tiles, publication {pa[-1]}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rows", type=int, default=100_000_000)
     ap.add_argument("--queries", type=int, default=50)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--ticks", type=int, default=10)
     args = ap.parse_args(argv)
 
     import torch
@@ -810,6 +1362,7 @@ def main(argv=None) -> int:
         timed = make_timer(torch, args.reps)
         rows = phase_kernels(torch, timed, args.seed)
         rows.update(phase_heatmap_kernels(torch, timed, args.seed))
+        phase_serving_kernels(torch, args.seed)
         torch.cuda.empty_cache()
         from repro_torch.data import exploration_path
         log("== dataset for phases 3 and 4")
@@ -820,6 +1373,12 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         launches.update({k: v for k, v in phase_heatmap_path(
             torch, build, ds, windows).items() if k in HEATMAP_KERNELS})
+        torch.cuda.empty_cache()
+        serving_launches, stats = phase_serving(torch, build, ds, args.ticks)
+        launches.update({k: v for k, v in serving_launches.items()
+                         if k in SERVING_KERNELS})
+        rows.update(time_serving_kernels(torch, timed, args.seed,
+                                         stats["passes"]))
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

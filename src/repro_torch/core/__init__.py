@@ -1,10 +1,12 @@
 from .engine import AQPEngine, EngineTrace
-from .index import IndexConfig, TileIndex, AdaptStats
+from .index import IndexConfig, TileIndex, AdaptStats, EpochStage
 from .bounds import (AccuracyPolicy, GroupedAccumulator, HeatmapResult,
                      PendingTile, QueryAccumulator, QueryResult)
+from .serving import NullStage, ServingEngine, Session, Ticket
 from .state import index_from_numpy, index_to_numpy
 
 __all__ = ["AQPEngine", "EngineTrace", "IndexConfig", "TileIndex",
-           "AdaptStats", "QueryResult", "QueryAccumulator", "PendingTile",
+           "AdaptStats", "EpochStage", "ServingEngine", "Session", "Ticket",
+           "NullStage", "QueryResult", "QueryAccumulator", "PendingTile",
            "AccuracyPolicy", "GroupedAccumulator", "HeatmapResult",
            "index_from_numpy", "index_to_numpy"]

@@ -13,10 +13,11 @@ The engine owns one adaptive tile index per dataset and evaluates window
 aggregate and heatmap (2-D group-by) queries under a per-query accuracy
 constraint φ (φ=0 ⇒ exact), recording a per-query trace (time, objects
 read, tiles processed) and the session's viewport trajectory. Both query
-types refine through one ``RefinementDriver``. Predictive prefetch, the
-learned-salience policy and the concurrent server come with later
-slices of the port (``ROADMAP.md`` queue A); their entry points raise
-until then.
+types refine through one ``RefinementDriver``; :meth:`AQPEngine.serve`
+shares the engine's index with a concurrent multi-session server.
+Predictive prefetch and the learned-salience policy come with a later
+slice of the port (``ROADMAP.md`` queue A, item 8); their entry points
+raise until then.
 """
 from __future__ import annotations
 
@@ -152,10 +153,30 @@ class AQPEngine:
             "predictive prefetch is not ported yet (ROADMAP.md queue A, "
             "item 8)")
 
-    def serve(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the concurrent server is not ported yet (ROADMAP.md queue A, "
-            "item 7)")
+    def serve(self, *, mode: str = "batched",
+              crack_budget: Optional[int] = None,
+              prefetch_rows: Optional[int] = None):
+        """Lift this engine into a concurrent multi-session server.
+
+        Returns a :class:`~repro_torch.core.serving.ServingEngine`
+        wrapping THIS engine's index: sessions opened on it share the
+        one adaptive index, same-tick queries are micro-batched into
+        fused gathered reads and packed multi-window kernel passes, and
+        index mutation is isolated behind epoch publication. Each session
+        carries its own :class:`EngineTrace`; queries served through
+        ``serve()`` are recorded there, not on ``self.trace``.
+
+        mode: "batched" (micro-batched ticks) or "sequential" (per-query
+          reference path — same answers and same published index).
+        crack_budget: max queries per tick allowed to stage index
+          mutations, granted round-robin across sessions (None ⇒
+          unlimited).
+        prefetch_rows: predictive pre-cracking; anything but ``None``
+          raises until the viewport predictor is ported.
+        """
+        from .serving import ServingEngine
+        return ServingEngine(self, mode=mode, crack_budget=crack_budget,
+                             prefetch_rows=prefetch_rows)
 
     def oracle(self, window, agg: str, attr: str) -> float:
         return query_mod.evaluate_oracle(self.index, window, agg, attr)

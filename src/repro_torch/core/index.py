@@ -36,8 +36,9 @@ reference path (:meth:`TileIndex.process`,
 :meth:`TileIndex.process_heatmap`) and the batched pipeline
 (:meth:`TileIndex.read_batch` / :meth:`TileIndex.read_batch_heatmap`,
 then :meth:`TileIndex.apply_batch`). Heatmap splits cut along bin-aligned
-edges (``IndexConfig.bin_aligned_splits``). ``ChunkIndexSet`` comes with
-a later slice of the port.
+edges (``IndexConfig.bin_aligned_splits``). :class:`EpochStage` defers a
+serving tick's applies to one publication between ticks.
+``ChunkIndexSet`` comes with a later slice of the port.
 """
 from __future__ import annotations
 
@@ -1055,3 +1056,86 @@ class TileIndex:
     @property
     def n_active(self) -> int:
         return int(self.active[:self.n_tiles].sum())
+
+
+class EpochStage:
+    """Staged (epoch-deferred) application of refinement rounds.
+
+    The serving layer's isolation mechanism: during a tick every query
+    reads against ONE frozen index epoch — rounds that would normally
+    enrich/split tiles in place (:meth:`TileIndex.apply_batch`) are
+    STAGED here instead, and :meth:`publish` applies them all at once
+    between ticks. Because no read happens while publish runs, no
+    reader can ever observe a half-applied split: an epoch is either
+    entirely pre-publish or entirely post-publish.
+
+    Publication is canonicalized two ways so the micro-batched and
+    sequential-reference serving modes produce bit-for-bit identical
+    index evolution:
+
+    - entries publish in ``(owner, staging-seq)`` order — i.e. per
+      query in arrival order, each query's rounds in round order —
+      which is exactly the order the sequential reference stages them;
+    - a tile is split by its FIRST claimant only: when two same-tick
+      queries both request a split of tile t, the later request is
+      masked to an enrichment (its exact metadata write is idempotent),
+      so the split grid/edges applied are deterministic and the tile
+      can never be split twice.
+
+    Under "torch"/"cuda" a staged payload holds its round's gathered
+    device segments until publication.
+    """
+
+    def __init__(self):
+        self._entries = []       # (owner, seq, tile_index, payload,
+        #                           n_used, split_flags)
+        self._seq = 0
+        self._owner = 0
+
+    def set_owner(self, owner: int) -> None:
+        """Tag subsequent staged rounds with the owning query's arrival
+        index (the publication sort key)."""
+        self._owner = int(owner)
+
+    @property
+    def n_staged(self) -> int:
+        return len(self._entries)
+
+    def stage_apply(self, index, payload, n_used: int, split_flags):
+        """Driver seam: called where the driver would call
+        ``index.apply_batch``. A chunk forest's composite payload
+        (``payload["runs"]``) comes with chunked storage."""
+        if payload.get("runs") is not None:
+            raise NotImplementedError(
+                "chunked storage is not ported yet (ROADMAP.md queue A, "
+                "item 6)")
+        self._entries.append((self._owner, self._seq, index, payload,
+                              int(n_used), list(split_flags[:n_used])))
+        self._seq += 1
+
+    def publish(self) -> Dict[str, int]:
+        """Apply every staged round atomically (no concurrent readers by
+        construction — the tick has quiesced). Returns publication
+        counters: rounds applied and split requests masked by the
+        first-claimant rule."""
+        entries = sorted(self._entries, key=lambda en: (en[0], en[1]))
+        self._entries = []
+        claimed = set()
+        masked = 0
+        applied = 0
+        for _, _, ti, payload, used, flags in entries:
+            if used == 0 or payload.get("dead"):
+                continue
+            eff = []
+            for i, t in enumerate(payload["tile_ids"][:used]):
+                want = bool(flags[i])
+                key = (id(ti), int(t))
+                if want and key in claimed:
+                    want = False
+                    masked += 1
+                elif want:
+                    claimed.add(key)
+                eff.append(want)
+            ti.apply_batch(payload, used, eff)
+            applied += 1
+        return {"rounds_published": applied, "splits_masked": masked}

@@ -18,7 +18,9 @@ axis pass, per-bin contributions from one packed
    RefinementDriver` refines in batched rounds (one gathered read + one
    packed ``segment_window_agg`` kernel per round) until bound ≤ φ.
 
-``sequential=True`` selects the per-tile reference path.
+``sequential=True`` selects the per-tile reference path; ``stage`` (an
+:class:`~repro_torch.core.index.EpochStage`, batched path only) defers a
+query's index mutation to the serving tick's publication.
 """
 from __future__ import annotations
 
@@ -83,7 +85,7 @@ def _build_accumulator(index, window, agg: str, attr: str):
 def evaluate(index, window, agg: str, attr: str,
              phi: float = 0.0, alpha: float = 1.0, *,
              batch_k: Optional[int] = None,
-             sequential: bool = False) -> QueryResult:
+             sequential: bool = False, stage=None) -> QueryResult:
     t_start = time.perf_counter()
     io_before = index.ds.stats.snapshot()
     adapt_before = index.adapt_stats.snapshot()
@@ -93,7 +95,8 @@ def evaluate(index, window, agg: str, attr: str,
         index, window, agg, attr)
 
     driver = RefinementDriver(
-        acc, ScalarQueryAdapter(index, window, attr, full_set), phi, alpha)
+        acc, ScalarQueryAdapter(index, window, attr, full_set), phi, alpha,
+        stage=stage)
     processed = driver.run(batch_k=batch_k, sequential=sequential)
 
     value, lo, hi, bound = acc.interval()
@@ -185,7 +188,7 @@ def evaluate_heatmap(index, window, agg: str, attr: str,
                      alpha: float = 1.0, *,
                      policy: Optional[AccuracyPolicy] = None,
                      batch_k: Optional[int] = None,
-                     sequential: bool = False) -> HeatmapResult:
+                     sequential: bool = False, stage=None) -> HeatmapResult:
     """φ-constrained heatmap (2-D group-by) over the window's bx×by grid.
 
     Same evaluation skeleton as :func:`evaluate` — literally the same
@@ -228,7 +231,8 @@ def evaluate_heatmap(index, window, agg: str, attr: str,
         acc.set_policy(policy, phi, (bx, by))
 
     driver = RefinementDriver(
-        acc, HeatmapQueryAdapter(index, window, attr, (bx, by)), phi, alpha)
+        acc, HeatmapQueryAdapter(index, window, attr, (bx, by)), phi, alpha,
+        stage=stage)
     processed = driver.run(batch_k=batch_k, sequential=sequential)
 
     values, lo, hi, bin_bound, bound = acc.interval()

@@ -24,9 +24,10 @@ sequential per-tile reference path (``sequential=True``).
 The round cap uses the reference's ``MAX_SEGMENTS``/``MAX_UNROLL``
 (:mod:`repro_torch.kernels.segment_agg`): the CUDA kernels need no such
 cap, but the round sizes — and so ``read_calls`` and the index
-evolution — must stay the reference's. The serving layer's epoch
-staging and the SPMD ``EpochDriver`` come with later slices of the
-port.
+evolution — must stay the reference's. With a ``stage`` (the serving
+layer's :class:`~repro_torch.core.index.EpochStage`), a round's side
+effects are staged for publication between ticks instead of applied in
+place. The SPMD ``EpochDriver`` comes with a later slice of the port.
 """
 from __future__ import annotations
 
@@ -153,7 +154,8 @@ class RefinementDriver:
     """One score → round-size → read → fold → apply loop for every query
     type; see the module docstring for the contract."""
 
-    def __init__(self, acc, adapter, phi: float, alpha: float = 1.0):
+    def __init__(self, acc, adapter, phi: float, alpha: float = 1.0,
+                 stage=None):
         # the index is the adapter's: reads, splits, and accounting must
         # hit the same object, so the driver never takes a separate one.
         # It may be a TileIndex or a ChunkIndexSet — both present cfg,
@@ -165,6 +167,13 @@ class RefinementDriver:
         self.adapter = adapter
         self.phi = float(phi)
         self.alpha = float(alpha)
+        # epoch publication seam (serving layer): when set, refinement
+        # side effects are STAGED on this EpochStage instead of applied in
+        # place — the index stays frozen until the scheduler publishes the
+        # epoch between ticks. Read-only w.r.t. answers: a query's rounds
+        # touch disjoint tiles, so deferring applies past its own reads
+        # never changes its fold decisions.
+        self.stage = stage
         # pending tiles dropped because their chunk retired mid-query
         # (the answer then covers only the still-live data)
         self.dropped = 0
@@ -186,6 +195,8 @@ class RefinementDriver:
             return 0
         order = self.adapter.score_order(acc, self.alpha)
         if sequential:
+            assert self.stage is None, \
+                "epoch staging requires the batched path"
             return self._run_sequential(order, bound)
         return self._run_batched(order, bound, batch_k)
 
@@ -287,7 +298,12 @@ class RefinementDriver:
             index.adapt_stats.speculative_rows += int(
                 bounds_[len(batch)] - bounds_[n_used])
             # refinement applies to exactly the folded prefix, so the
-            # index evolves bit-for-bit as under sequential processing
-            index.apply_batch(payload, n_used,
-                              self.adapter.split_flags(batch[:n_used]))
+            # index evolves bit-for-bit as under sequential processing —
+            # either in place, or staged for epoch publication when the
+            # serving layer holds the index frozen for concurrent readers
+            flags = self.adapter.split_flags(batch[:n_used])
+            if self.stage is not None:
+                self.stage.stage_apply(index, payload, n_used, flags)
+            else:
+                index.apply_batch(payload, n_used, flags)
         return processed

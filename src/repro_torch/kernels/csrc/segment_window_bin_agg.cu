@@ -4,11 +4,19 @@
 // window — the heatmap read. The select variant adds the selection
 // epilogue: suffix_w (S + 1, bx * by), the reversed cumulative sum over
 // segments of cnt * (vmax_s - vmin_s), last row exactly 0.
+// The multi entry (segment_window_bin_agg_multi / _select_multi, the
+// serving tick's heatmap pass) masks and bins each segment by its OWN
+// window's contract params, and its epilogue takes the reversed
+// cumulative sum within each query span (qb[q], qb[q + 1]) only:
+// suffix_w (S, bx * by), no zero row (each consumer appends its own).
 //
 // Replaces the TPU kernels repro/kernels/segment_agg.py
 // segment_window_bin_agg_pallas (pallas_call at :295) and
+// segment_window_bin_agg_multi_pallas (:372), and
 // repro/kernels/fused_select.py fused_table_pallas (pallas_call at :364,
-// called by segment_window_bin_select_pallas at :389), which unroll one
+// called by segment_window_bin_select_pallas at :389) and
+// fused_table_multi_pallas (:498, called by
+// segment_window_bin_select_multi_pallas at :523), which unroll one
 // masked reduction per (segment, bin) because the TPU has no scatter.
 // Here both are one keyed reduction: key = segment * nb + bin, per-thread
 // register runs, a block-private table in shared memory and one atomic
@@ -31,27 +39,43 @@
 // is bit for bit the host rule window_bin_ids_np. The suffix epilogue
 // multiplies and adds with __dmul_rn / __dadd_rn, which nvcc never
 // contracts into an FMA, in the order numpy's reversed cumsum takes:
-// suffix_w equals the host mirror's bit for bit.
+// suffix_w equals the host mirror's bit for bit, per span too (the
+// Pallas multi epilogue takes a global float32 suffix minus the span's
+// tail instead, repro/kernels/fused_select.py:179-182).
 #include "agg_common.cuh"
 
+// a window's binning contract params (float32)
 struct BinWindow {
   float x0, y0, x1, y1, cw, ch;
+};
+
+// one per segment (the multi entry), or only p[0] (one shared window)
+struct BinWindows {
+  BinWindow p[AGG_MAX_SEGMENTS];
 };
 
 struct SegWidths {
   double dv[AGG_MAX_SEGMENTS];  // per segment: vmax - vmin (float64)
 };
 
-template <bool kShared>
+// query spans: span q holds segments [qb[q], qb[q + 1])
+struct Spans {
+  int qb[AGG_MAX_SEGMENTS + 1];
+};
+
+template <bool kShared, bool kMulti>
 __global__ void segment_window_bin_agg_kernel(
     const float* __restrict__ x, const float* __restrict__ y,
-    const float* __restrict__ v, Bounds bounds, int S, BinWindow w, int bx,
-    int by, Cell* __restrict__ ws) {
+    const float* __restrict__ v, Bounds bounds, int S, BinWindows wins,
+    int bx, int by, Cell* __restrict__ ws) {
   extern __shared__ __align__(16) char smem[];
   const int nb = bx * by;
+  const int nw = kMulti ? S : 1;
   long long* b = reinterpret_cast<long long*>(smem);
-  Table t = table_at(smem + (S + 1) * sizeof(long long), S * nb);
+  BinWindow* win = reinterpret_cast<BinWindow*>(b + S + 1);
+  Table t = table_at(reinterpret_cast<char*>(win + nw), S * nb);
   for (int s = threadIdx.x; s <= S; s += blockDim.x) b[s] = bounds.b[s];
+  for (int k = threadIdx.x; k < nw; k += blockDim.x) win[k] = wins.p[k];
   if (kShared) table_init(t, S * nb);
   __syncthreads();
 
@@ -59,14 +83,21 @@ __global__ void segment_window_bin_agg_kernel(
   const long long i0 =
       bounds.b[0] + (long long)blockIdx.x * AGG_CHUNK + threadIdx.x;
   int s = i0 < end ? segment_of(b, S, i0) : 0;
+  BinWindow w = win[kMulti ? s : 0];
   Run r;
   run_reset(r, s * nb);
   for (int j = 0; j < AGG_ITEMS; ++j) {
     const long long i = i0 + (long long)j * AGG_THREADS;
     if (i >= end) break;
+    // one shared window: find the segment only for in-window objects;
+    // a window per segment: before the window test
+    if (kMulti && i >= b[s + 1]) {
+      s = segment_of(b, S, i);
+      w = win[s];
+    }
     const float xi = x[i], yi = y[i];
     if (xi >= w.x0 && xi <= w.x1 && yi >= w.y0 && yi <= w.y1) {
-      if (i >= b[s + 1]) s = segment_of(b, S, i);
+      if (!kMulti && i >= b[s + 1]) s = segment_of(b, S, i);
       const int cx = clip_cell(__fdiv_rn(__fsub_rn(xi, w.x0), w.cw), bx);
       const int cy = clip_cell(__fdiv_rn(__fsub_rn(yi, w.y0), w.ch), by);
       if (kShared) run_add(r, s * nb + cy * bx + cx, v[i], t);
@@ -82,30 +113,88 @@ __global__ void segment_window_bin_agg_kernel(
   }
 }
 
-// The (S, nb, 4) rows, and with them suffix_w: thread c < nb walks bin
-// c's column from the last segment up — acc = w[S-1], then
-// acc = acc + w[s] — as numpy's cumsum over the reversed rows does.
+// The (S, nb, 4) rows, and with them suffix_w: thread q * nb + c walks
+// bin c's column of span q from the span's last segment up —
+// acc = w[e-1], then acc = acc + w[s] — as numpy's cumsum over the
+// span's reversed rows does. zero_row: also write row S as 0.
 __global__ void finalize_select(const Cell* ws, double* out, int S, int nb,
-                                SegWidths widths, double* suffix) {
+                                SegWidths widths, Spans spans, int nq,
+                                int zero_row, double* suffix) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int cells = S * nb;
-  if (c < cells) {
+  if (c < S * nb) {
     out[4 * c + 0] = (double)ws[c].cnt;
     out[4 * c + 1] = ws[c].sum;
     out[4 * c + 2] = (double)o2f(ws[c].mn);
     out[4 * c + 3] = (double)o2f(ws[c].mx);
   }
-  if (c < nb) {
-    double acc =
-        __dmul_rn((double)ws[(S - 1) * nb + c].cnt, widths.dv[S - 1]);
-    suffix[(S - 1) * nb + c] = acc;
-    for (int s = S - 2; s >= 0; --s) {
-      acc = __dadd_rn(acc,
-                      __dmul_rn((double)ws[s * nb + c].cnt, widths.dv[s]));
-      suffix[s * nb + c] = acc;
+  if (c < nq * nb) {
+    const int q = c / nb, bin = c - q * nb;
+    const int a = spans.qb[q], e = spans.qb[q + 1];
+    if (e > a) {
+      double acc =
+          __dmul_rn((double)ws[(e - 1) * nb + bin].cnt, widths.dv[e - 1]);
+      suffix[(e - 1) * nb + bin] = acc;
+      for (int s = e - 2; s >= a; --s) {
+        acc = __dadd_rn(
+            acc, __dmul_rn((double)ws[s * nb + bin].cnt, widths.dv[s]));
+        suffix[s * nb + bin] = acc;
+      }
     }
-    suffix[S * nb + c] = 0.0;
   }
+  if (zero_row && c < nb) suffix[S * nb + c] = 0.0;
+}
+
+// Shared launch of both entries. h_dv == nullptr: the table only.
+static int launch(const float* x, const float* y, const float* v,
+                  const long long* h_bounds, int S, const BinWindows& wins,
+                  bool multi, int bx, int by, const double* h_dv,
+                  const Spans& spans, int nq, int zero_row, void* ws,
+                  double* out, double* suffix, void* stream) {
+  const int nb = bx * by;
+  const int cells = S * nb;
+  Bounds bounds;
+  for (int s = 0; s <= S; ++s) bounds.b[s] = h_bounds[s];
+  cudaStream_t st = (cudaStream_t)stream;
+  Cell* ws_cells = (Cell*)ws;
+  cudaError_t err;
+  workspace_init<<<(cells + 255) / 256, 256, 0, st>>>(ws_cells, cells);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const long long n = bounds.b[S] - bounds.b[0];
+  if (n > 0) {
+    const unsigned blocks = (unsigned)((n + AGG_CHUNK - 1) / AGG_CHUNK);
+    const size_t head =
+        (S + 1) * sizeof(long long) + (multi ? S : 1) * sizeof(BinWindow);
+    const bool shared = cells <= AGG_MAX_CELLS;
+    const size_t smem = head + (shared ? table_bytes(cells) : 0);
+    if (shared && multi)
+      segment_window_bin_agg_kernel<true, true>
+          <<<blocks, AGG_THREADS, smem, st>>>(x, y, v, bounds, S, wins, bx,
+                                              by, ws_cells);
+    else if (shared)
+      segment_window_bin_agg_kernel<true, false>
+          <<<blocks, AGG_THREADS, smem, st>>>(x, y, v, bounds, S, wins, bx,
+                                              by, ws_cells);
+    else if (multi)
+      segment_window_bin_agg_kernel<false, true>
+          <<<blocks, AGG_THREADS, smem, st>>>(x, y, v, bounds, S, wins, bx,
+                                              by, ws_cells);
+    else
+      segment_window_bin_agg_kernel<false, false>
+          <<<blocks, AGG_THREADS, smem, st>>>(x, y, v, bounds, S, wins, bx,
+                                              by, ws_cells);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  if (h_dv == nullptr) {
+    workspace_finalize<<<(cells + 255) / 256, 256, 0, st>>>(ws_cells, out,
+                                                             cells);
+  } else {
+    SegWidths widths;
+    for (int s = 0; s < S; ++s) widths.dv[s] = h_dv[s];
+    const int threads = cells > nq * nb ? cells : nq * nb;
+    finalize_select<<<(threads + 255) / 256, 256, 0, st>>>(
+        ws_cells, out, S, nb, widths, spans, nq, zero_row, suffix);
+  }
+  return (int)cudaGetLastError();
 }
 
 // h_bounds: host int64 (S + 1,); window: float32 (x0, y0, x1, y1, cw,
@@ -119,42 +208,45 @@ extern "C" int segment_window_bin_agg_launch(
     const long long* h_bounds, int S, float x0, float y0, float x1,
     float y1, float cw, float ch, int bx, int by, const double* h_dv,
     void* ws, double* out, double* suffix, void* stream) {
-  const int nb = bx * by;
-  const int cells = S * nb;
   if (S < 1 || S > AGG_MAX_SEGMENTS || bx < 1 || by < 1 ||
       (h_dv != nullptr) != (suffix != nullptr))
     return (int)cudaErrorInvalidValue;
-  Bounds bounds;
-  for (int s = 0; s <= S; ++s) bounds.b[s] = h_bounds[s];
-  const BinWindow w = {x0, y0, x1, y1, cw, ch};
-  cudaStream_t st = (cudaStream_t)stream;
-  Cell* ws_cells = (Cell*)ws;
-  cudaError_t err;
-  workspace_init<<<(cells + 255) / 256, 256, 0, st>>>(ws_cells, cells);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const long long n = bounds.b[S] - bounds.b[0];
-  if (n > 0) {
-    const unsigned blocks = (unsigned)((n + AGG_CHUNK - 1) / AGG_CHUNK);
-    const size_t head = (S + 1) * sizeof(long long);
-    if (cells <= AGG_MAX_CELLS)
-      segment_window_bin_agg_kernel<true>
-          <<<blocks, AGG_THREADS, head + table_bytes(cells), st>>>(
-              x, y, v, bounds, S, w, bx, by, ws_cells);
-    else
-      segment_window_bin_agg_kernel<false>
-          <<<blocks, AGG_THREADS, head, st>>>(x, y, v, bounds, S, w, bx,
-                                              by, ws_cells);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  BinWindows wins;
+  wins.p[0] = {x0, y0, x1, y1, cw, ch};
+  Spans spans;
+  spans.qb[0] = 0;
+  spans.qb[1] = S;
+  return launch(x, y, v, h_bounds, S, wins, false, bx, by, h_dv, spans, 1,
+                1, ws, out, suffix, stream);
+}
+
+// The multi entry: h_params host float32 (S, 6), one contract row per
+// segment; with h_dv non-null also h_qb (host int64 (nq + 1,) query
+// spans, 0 = qb[0] <= ... <= qb[nq] = S) and suffix: device float64
+// (S, bx * by).
+extern "C" int segment_window_bin_agg_multi_launch(
+    const float* x, const float* y, const float* v,
+    const long long* h_bounds, int S, const float* h_params, int bx,
+    int by, const double* h_dv, const long long* h_qb, int nq, void* ws,
+    double* out, double* suffix, void* stream) {
+  if (S < 1 || S > AGG_MAX_SEGMENTS || bx < 1 || by < 1 ||
+      (h_dv != nullptr) != (suffix != nullptr))
+    return (int)cudaErrorInvalidValue;
+  BinWindows wins;
+  for (int s = 0; s < S; ++s) {
+    const float* p = h_params + 6 * s;
+    wins.p[s] = {p[0], p[1], p[2], p[3], p[4], p[5]};
   }
-  if (h_dv == nullptr) {
-    workspace_finalize<<<(cells + 255) / 256, 256, 0, st>>>(ws_cells, out,
-                                                             cells);
-  } else {
-    SegWidths widths;
-    for (int s = 0; s < S; ++s) widths.dv[s] = h_dv[s];
-    finalize_select<<<(cells + 255) / 256, 256, 0, st>>>(ws_cells, out, S,
-                                                          nb, widths,
-                                                          suffix);
+  Spans spans;
+  if (h_dv != nullptr) {
+    if (h_qb == nullptr || nq < 1 || nq > AGG_MAX_SEGMENTS || h_qb[0] != 0 ||
+        h_qb[nq] != S)
+      return (int)cudaErrorInvalidValue;
+    for (int q = 0; q <= nq; ++q) {
+      if (q > 0 && h_qb[q] < h_qb[q - 1]) return (int)cudaErrorInvalidValue;
+      spans.qb[q] = (int)h_qb[q];
+    }
   }
-  return (int)cudaGetLastError();
+  return launch(x, y, v, h_bounds, S, wins, true, bx, by, h_dv, spans, nq,
+                0, ws, out, suffix, stream);
 }

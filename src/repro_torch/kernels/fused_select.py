@@ -1,7 +1,8 @@
 """Fused heatmap select: the per-(segment, window-bin) table plus the
 selection suffix widths, in one pass.
 
-Port of the single-window part of :mod:`repro.kernels.fused_select`.
+Port of :mod:`repro.kernels.fused_select`: the single-window select of a
+query's own rounds and the multi-window select of the serving tick.
 Given the per-segment sound value bounds ``vmin_s/vmax_s`` (the pending
 intervals of a round's tiles, in FOLD ORDER),
 ``w[s, b] = cnt[s, b] · (vmax_s[s] − vmin_s[s])`` is the per-bin CI
@@ -25,6 +26,18 @@ Three versions, one contract:
   ``segment_window_bin_select_pallas``). The widths ``vmax − vmin`` are
   taken in float64 on the host (the Pallas op rounds the bounds to
   float32 first), so ``suffix_w`` equals the mirror's bit for bit.
+
+The multi-window select (``segment_window_bin_select_multi_*``; TPU
+original: ``fused_table_multi_pallas`` /
+``segment_window_bin_select_multi_pallas``) bins segment s by its own
+window and cuts the segments into query spans (``qbounds``): row s of
+its ``(S, nb)`` suffix is the reversed cumsum over s's OWN span only,
+and consumers append each span's zero row. The reference's device
+epilogue takes it as a global suffix minus the span's tail in float32
+(``segmented_suffix``); here every version walks each span from its
+last segment up in float64, so each span's rows are bit for bit the
+mirror's — what ``round_certain`` reads must not split the batched
+tick from the sequential one.
 """
 from __future__ import annotations
 
@@ -33,7 +46,10 @@ import torch
 
 from . import build
 from . import ref
-from .segment_agg import (host_bounds, launch_segment_window_bin,
+from .segment_agg import (check_spans, host_bounds,
+                          launch_segment_window_bin,
+                          launch_segment_window_bin_multi,
+                          segment_window_bin_agg_multi_torch,
                           segment_window_bin_agg_torch)
 
 
@@ -65,23 +81,35 @@ def widths(vmin_s, vmax_s) -> np.ndarray:
             - np.asarray(vmin_s, np.float64))
 
 
+def span_suffix(agg: torch.Tensor, vmin_s, vmax_s, qb: np.ndarray,
+                rows: int) -> torch.Tensor:
+    """``(rows, nb)`` float64 suffix widths of ``w = cnt · (vmax −
+    vmin)`` per query span ``[qb[q], qb[q+1])``: each span walked from
+    its last segment up, ``acc = acc + w[s]`` — numpy's reversed cumsum,
+    bit for bit, on any device. Rows past the spans stay 0."""
+    dv = torch.from_numpy(widths(vmin_s, vmax_s)).to(agg.device)
+    w = agg[:, :, 0] * dv[:, None]
+    suffix = torch.zeros((rows, w.shape[1]), dtype=torch.float64,
+                         device=agg.device)
+    for a, b in zip(qb[:-1].tolist(), qb[1:].tolist()):
+        if b > a:
+            acc = w[b - 1]
+            suffix[b - 1] = acc
+            for s in range(b - 2, a - 1, -1):
+                acc = acc + w[s]
+                suffix[s] = acc
+    return suffix
+
+
 def segment_window_bin_select_torch(xs, ys, vals, boundaries, window,
                                     bx: int, by: int, vmin_s, vmax_s):
     """Plain version: ``(agg (S, bx*by, 4), suffix_w (S+1, bx*by))``,
     float64 on the input's device."""
     agg = segment_window_bin_agg_torch(xs, ys, vals, boundaries, window,
                                        bx, by)
-    dv = torch.from_numpy(widths(vmin_s, vmax_s)).to(agg.device)
-    w = agg[:, :, 0] * dv[:, None]
-    n_seg = w.shape[0]
-    suffix = torch.zeros((n_seg + 1, bx * by), dtype=torch.float64,
-                         device=agg.device)
-    acc = w[n_seg - 1]
-    suffix[n_seg - 1] = acc
-    for s in range(n_seg - 2, -1, -1):
-        acc = acc + w[s]
-        suffix[s] = acc
-    return agg, suffix
+    n_seg = agg.shape[0]
+    return agg, span_suffix(agg, vmin_s, vmax_s,
+                            np.array([0, n_seg]), n_seg + 1)
 
 
 def segment_window_bin_select_cuda(xs, ys, vals, boundaries, window,
@@ -92,4 +120,60 @@ def segment_window_bin_select_cuda(xs, ys, vals, boundaries, window,
                                     window, bx, by,
                                     dv=widths(vmin_s, vmax_s))
     build.LAUNCHES["segment_window_bin_select"] += 1
+    return out
+
+
+def segment_window_bin_select_multi_np(xs, ys, vals, boundaries, windows,
+                                       bx: int, by: int, vmin_s, vmax_s,
+                                       qbounds=None):
+    """Multi-window fused host pass: per-segment OWN-window grouped
+    table + per-QUERY-SPAN selection suffix widths.
+
+    The table is ``ref.segment_window_bin_agg_multi_np`` — per segment
+    bit-for-bit the single-window sorted-slice f64 reference.
+    ``qbounds`` (``(n_q+1,)`` segment offsets, default one span) cuts
+    the fold-ordered segments into per-query spans; ``suffix_w`` is
+    ``(S, bx·by)`` f64 where row s is the residual width over rows
+    ``s..end−1`` of s's own span — each span's rows are BIT-FOR-BIT the
+    first L rows a single-query :func:`segment_window_bin_select_np`
+    would produce over the same stream (same f64 reversed cumsum over
+    the same widths; consumers append the literal zero terminal row).
+    Returns ``(agg (S, bx·by, 4) f64, suffix_w (S, bx·by) f64)``."""
+    agg = ref.segment_window_bin_agg_multi_np(xs, ys, vals, boundaries,
+                                              windows, bx, by)
+    n_seg = agg.shape[0]
+    dv = (np.asarray(vmax_s, np.float64)
+          - np.asarray(vmin_s, np.float64))[:, None]
+    w = agg[:, :, 0] * dv
+    qb = (np.array([0, n_seg], np.int64) if qbounds is None
+          else np.asarray(qbounds, np.int64))
+    suffix_w = np.empty_like(w)
+    for q in range(len(qb) - 1):
+        a, b = int(qb[q]), int(qb[q + 1])
+        if b > a:
+            suffix_w[a:b] = np.cumsum(w[a:b][::-1], axis=0)[::-1]
+    return agg, suffix_w
+
+
+def segment_window_bin_select_multi_torch(xs, ys, vals, boundaries,
+                                          windows, bx: int, by: int,
+                                          vmin_s, vmax_s, qbounds=None):
+    """Plain version: ``(agg (S, bx*by, 4), suffix_w (S, bx*by))``,
+    float64 on the input's device."""
+    agg = segment_window_bin_agg_multi_torch(xs, ys, vals, boundaries,
+                                             windows, bx, by)
+    n_seg = agg.shape[0]
+    return agg, span_suffix(agg, vmin_s, vmax_s,
+                            check_spans(qbounds, n_seg), n_seg)
+
+
+def segment_window_bin_select_multi_cuda(xs, ys, vals, boundaries,
+                                         windows, bx: int, by: int,
+                                         vmin_s, vmax_s, qbounds=None):
+    """Launch ``segment_window_bin_select_multi``: ``(agg (S, bx*by, 4),
+    suffix_w (S, bx*by))``, float64 on the device."""
+    out = launch_segment_window_bin_multi(
+        xs, ys, vals, host_bounds(boundaries), windows, bx, by,
+        dv=widths(vmin_s, vmax_s), qbounds=qbounds)
+    build.LAUNCHES["segment_window_bin_select_multi"] += 1
     return out

@@ -19,6 +19,11 @@ suffix widths, bit for bit equal on every backend.
 
 Precision rules the port keeps, and where the reference states them:
 
+- **Window compare (float32), one window per segment too.** The multi
+  ops compare each segment with its own window under the same rule: the
+  ``"np"`` mirror keeps each window as given (never a float64 array
+  row, which the reference builds, ROADMAP C.6), the other backends
+  round each to float32.
 - **Window compare (float32).** ``window_mask_np``
   (``repro/kernels/ops.py:574-577``) and ``segment_window_agg_np``
   (``repro/kernels/ref.py:355-361``) compare float32 coordinates with a
@@ -69,8 +74,13 @@ from .bin_agg import bin_agg_cuda, bin_agg_torch
 from .ref import window_mask_np
 from .segment_agg import (segment_bin_agg_cuda, segment_bin_agg_edges_cuda,
                           segment_bin_agg_edges_torch, segment_bin_agg_torch,
-                          segment_window_agg_cuda, segment_window_agg_torch,
+                          segment_window_agg_cuda,
+                          segment_window_agg_multi_cuda,
+                          segment_window_agg_multi_torch,
+                          segment_window_agg_torch,
                           segment_window_bin_agg_cuda,
+                          segment_window_bin_agg_multi_cuda,
+                          segment_window_bin_agg_multi_torch,
                           segment_window_bin_agg_torch, window_f32)
 
 BACKENDS = ("np", "torch", "cuda")
@@ -208,7 +218,72 @@ def segment_window_bin_select(xs, ys, vals, boundaries, window, vmin_s,
         xs, ys, vals, boundaries, window, bx, by, vmin_s, vmax_s)
 
 
+def segment_window_agg_multi(xs, ys, vals, boundaries, windows, *,
+                             backend=None):
+    """Per-segment (count, sum, min, max) where segment s is filtered by
+    its OWN closed ``windows[s]`` — the multi-query serving primitive:
+    the concatenated (query, tile) streams of one serving tick answer N
+    different viewports in a single packed pass. ``windows`` holds S
+    windows; each compares as its own single-window read would (see the
+    module docstring). Returns ``(S, 4)``."""
+    backend = _backend(backend, xs, ys, vals)
+    if backend == "np":
+        return ref.segment_window_agg_multi_np(
+            as_host(xs), as_host(ys), as_host(vals),
+            np.asarray(boundaries, np.int64), windows)
+    if backend == "torch":
+        return segment_window_agg_multi_torch(xs, ys, vals, boundaries,
+                                              windows)
+    return segment_window_agg_multi_cuda(xs, ys, vals, boundaries, windows)
+
+
+def segment_window_bin_agg_multi(xs, ys, vals, boundaries, windows, *, bx,
+                                 by, backend=None):
+    """Per-segment, per-bin (count, sum, min, max) where segment s is
+    binned by the ``bx × by`` grid of its OWN window ``windows[s]``
+    (the contract of ``ref.window_bin_params`` on every backend). All
+    segments share the bin resolution; windows may differ freely.
+    Returns ``(S, bx*by, 4)``."""
+    backend = _backend(backend, xs, ys, vals)
+    boundaries = np.asarray(boundaries, np.int64)
+    if backend == "np":
+        return ref.segment_window_bin_agg_multi_np(
+            as_host(xs), as_host(ys), as_host(vals), boundaries, windows,
+            bx, by)
+    if backend == "torch":
+        return segment_window_bin_agg_multi_torch(xs, ys, vals, boundaries,
+                                                  windows, bx, by)
+    return segment_window_bin_agg_multi_cuda(xs, ys, vals, boundaries,
+                                             windows, bx, by)
+
+
+def segment_window_bin_select_multi(xs, ys, vals, boundaries, windows,
+                                    vmin_s, vmax_s, qbounds=None, *, bx,
+                                    by, backend=None):
+    """Multi-window fused heatmap-selection primitive — the serving
+    tick's heatmap pass: the :func:`segment_window_bin_agg_multi` table
+    PLUS per-query-span suffix widths ``suffix_w`` ``(S, bx*by)``.
+    ``qbounds`` (``(n_q+1,)`` segment offsets, default one span) cuts
+    the fold-ordered segments into query spans; row s is the residual
+    width over the rest of s's own span, each span's rows bit for bit
+    the "np" mirror's on every backend (consumers append the span's
+    zero row). Returns ``(agg, suffix_w)``."""
+    backend = _backend(backend, xs, ys, vals)
+    boundaries = np.asarray(boundaries, np.int64)
+    if backend == "np":
+        return fused_select.segment_window_bin_select_multi_np(
+            as_host(xs), as_host(ys), as_host(vals), boundaries, windows,
+            bx, by, vmin_s, vmax_s, qbounds)
+    if backend == "torch":
+        return fused_select.segment_window_bin_select_multi_torch(
+            xs, ys, vals, boundaries, windows, bx, by, vmin_s, vmax_s,
+            qbounds)
+    return fused_select.segment_window_bin_select_multi_cuda(
+        xs, ys, vals, boundaries, windows, bx, by, vmin_s, vmax_s, qbounds)
+
+
 __all__ = ["segment_window_agg", "segment_bin_agg", "bin_agg",
            "segment_bin_agg_edges", "segment_window_bin_agg",
-           "segment_window_bin_select", "window_mask", "window_mask_np",
-           "default_backend", "BACKENDS"]
+           "segment_window_bin_select", "segment_window_agg_multi",
+           "segment_window_bin_agg_multi", "segment_window_bin_select_multi",
+           "window_mask", "window_mask_np", "default_backend", "BACKENDS"]

@@ -1,8 +1,9 @@
 """NumPy host mirrors of the kernels (the index's ``"np"`` control plane).
 
 Copied from the reference package (``repro/kernels/ref.py:345-400``,
-``:403-459`` and ``:512-581``, and ``repro/kernels/ops.py:65-90,
-574-577``) without change, so the port's
+``:403-459``, ``:464-509`` and ``:512-581``, and ``repro/kernels/ops.py:65-90,
+574-577``) without change — apart from the window compare of
+:func:`segment_window_agg_multi_np` (ROADMAP C.6) — so the port's
 ``"np"`` backend equals the reference bit for bit. Segments are
 CONTIGUOUS — described by a boundaries vector — and sums accumulate in
 float64 with numpy's pairwise algorithm over each segment slice.
@@ -246,3 +247,55 @@ def segment_window_bin_agg_np(xs, ys, vals, boundaries, window, bx, by):
         else:
             out[c] = (0, 0.0, np.inf, -np.inf)
     return out.reshape(n_seg, k, 4)
+
+
+def segment_window_agg_multi_np(xs, ys, vals, boundaries, windows):
+    """Per-contiguous-segment (count, sum, min, max), each segment under
+    its OWN window (f64 ``(S, 4)``).
+
+    Delegates each segment's slice to :func:`segment_window_agg_np`, so
+    segment s's row is BIT-FOR-BIT what a single-window call over the
+    same stream produces — the serving scheduler's packed pass answers
+    each query exactly as that query's own per-query round would.
+
+    ``windows`` is a sequence of S windows, each compared AS GIVEN: a
+    tuple of Python floats stays weak under numpy 2 and compares in
+    float32, exactly as the ticket's own single-window read does. The
+    reference turns the windows into a float64 array first
+    (``repro/kernels/ref.py:477``), so its rows compare in float64 and
+    can disagree with the same query's axis-index count on an object at
+    ``float32(e) < e`` (ROADMAP C.6); this copy keeps the ticket's rule.
+    """
+    n_seg = len(boundaries) - 1
+    out = np.empty((n_seg, 4), np.float64)
+    two = np.array([0, 0], np.int64)
+    for s in range(n_seg):
+        a, b = int(boundaries[s]), int(boundaries[s + 1])
+        two[1] = b - a
+        out[s] = segment_window_agg_np(xs[a:b], ys[a:b], vals[a:b],
+                                       two, windows[s])[0]
+    return out
+
+
+def segment_window_bin_agg_multi_np(xs, ys, vals, boundaries, windows,
+                                    bx, by):
+    """Per-contiguous-segment, per-bin aggregates, each segment binned
+    by the bx×by grid of its OWN window (f64 ``(S, bx*by, 4)``).
+
+    Per segment it is bit-for-bit a single-window
+    :func:`segment_window_bin_agg_np` call over the same stream (same
+    per-cell sorted-slice f64 accumulation), which is what lets the
+    serving layer's micro-batched heatmap pass equal the per-query
+    reference exactly.
+    """
+    windows = np.asarray(windows, np.float64)
+    n_seg = len(boundaries) - 1
+    k = bx * by
+    out = np.empty((n_seg, k, 4), np.float64)
+    two = np.array([0, 0], np.int64)
+    for s in range(n_seg):
+        a, b = int(boundaries[s]), int(boundaries[s + 1])
+        two[1] = b - a
+        out[s] = segment_window_bin_agg_np(xs[a:b], ys[a:b], vals[a:b],
+                                           two, windows[s], bx, by)[0]
+    return out

@@ -19,6 +19,10 @@ ONE concatenated stream (``boundaries`` ``(S+1,)`` delimit segment s as
   it — a heatmap tile's exact per-bin contribution
   (``csrc/segment_window_bin_agg.cu``, shared with the fused select op
   of :mod:`repro_torch.kernels.fused_select`).
+- ``segment_window_agg_multi`` / ``segment_window_bin_agg_multi``: the
+  same two reads with each segment under its OWN window — the serving
+  tick's packed pass over several queries' tiles
+  (``csrc/segment_window_agg.cu``, ``csrc/segment_window_bin_agg.cu``).
 
 Every function returns float64 rows ``(count, sum, min, max)`` on the
 input's device: integer-valued counts, float64 sums, float32 extrema
@@ -142,22 +146,47 @@ def edge_cell_ids(xs, ys, sid, x_edges, y_edges) -> torch.Tensor:
     return cells(ys, y_edges) * gx + cells(xs, x_edges)
 
 
-def window_bin_ids(xs, ys, window, bx: int, by: int):
-    """``(in_window_mask, bin_id)`` of float32 tensors — the host rule
-    ``ref.window_bin_ids_np`` through the binning contract
-    ``ref.window_bin_params``: float32 window and cell sizes (the cell
-    sizes derived in float64 first), float32 compares, and
-    ``clip(floor((x − x0) / cw))`` as IEEE float32 subtract and divide of
-    expanded tensor operands (never a scalar divisor, which PyTorch may
-    turn into a multiply by the reciprocal)."""
-    x0, y0, x1, y1, cw, ch = (
-        torch.tensor(float(v), dtype=torch.float32,
-                     device=xs.device).expand_as(xs)
-        for v in window_bin_params(window, bx, by)[0])
+def param_bin_ids(xs, ys, p: torch.Tensor, bx: int, by: int):
+    """``(in_window_mask, bin_id)`` of float32 tensors under per-object
+    contract params ``p`` (float32 ``(L, 6)`` rows ``(x0, y0, x1, y1,
+    cw, ch)`` of ``ref.window_bin_params``, gathered or expanded to the
+    objects): float32 compares, and ``clip(floor((x − x0) / cw))`` as
+    IEEE float32 subtract and divide of tensor operands of the objects'
+    own shape (never a scalar divisor, which PyTorch may turn into a
+    multiply by the reciprocal)."""
+    x0, y0, x1, y1, cw, ch = p.unbind(1)
     m = (xs >= x0) & (xs <= x1) & (ys >= y0) & (ys <= y1)
     cx = clip_cell((xs - x0) / cw, bx)
     cy = clip_cell((ys - y0) / ch, by)
     return m, cy * bx + cx
+
+
+def window_bin_ids(xs, ys, window, bx: int, by: int):
+    """``(in_window_mask, bin_id)`` of float32 tensors — the host rule
+    ``ref.window_bin_ids_np`` through the binning contract
+    ``ref.window_bin_params``: float32 window and cell sizes (the cell
+    sizes derived in float64 first), then :func:`param_bin_ids`."""
+    p = torch.from_numpy(window_bin_params(window, bx, by)).to(xs.device)
+    return param_bin_ids(xs, ys, p.expand(len(xs), 6), bx, by)
+
+
+def windows_f32(windows, n_seg: int) -> np.ndarray:
+    """Per-segment windows as a float32 ``(S, 4)`` array, each rounded by
+    :func:`window_f32` — the rule every device path compares under."""
+    w = np.array([window_f32(v) for v in windows], np.float32).reshape(-1, 4)
+    if len(w) != n_seg:
+        raise ValueError(f"{len(w)} windows for {n_seg} segments")
+    return w
+
+
+def bin_params_multi(windows, n_seg: int, bx: int, by: int) -> np.ndarray:
+    """Per-segment contract params, float32 ``(S, 6)``
+    (``ref.window_bin_params`` of each segment's own window)."""
+    p = window_bin_params(windows, bx, by)
+    if len(p) != n_seg or bx < 1 or by < 1:
+        raise ValueError(f"{len(p)} windows for {n_seg} segments, or an "
+                         f"empty bin grid {bx}x{by}")
+    return np.ascontiguousarray(p)
 
 
 def agg4(key: torch.Tensor, vals: torch.Tensor,
@@ -234,6 +263,37 @@ def segment_window_bin_agg_torch(xs, ys, vals, boundaries, window,
                 n_seg * nb).reshape(n_seg, nb, 4)
 
 
+def segment_window_agg_multi_torch(xs, ys, vals, boundaries, windows):
+    """Plain version of :func:`segment_window_agg_multi_cuda`: float64
+    ``(S, 4)`` on the input's device, segment s under ``windows[s]``
+    rounded to float32."""
+    b = host_bounds(boundaries)
+    lo, hi = int(b[0]), int(b[-1])
+    xs, ys, vals = xs[lo:hi], ys[lo:hi], vals[lo:hi]
+    sid = segment_ids(b, vals.device)
+    w = torch.from_numpy(windows_f32(windows, len(b) - 1)).to(
+        vals.device)[sid]
+    m = ((xs >= w[:, 0]) & (xs <= w[:, 2]) & (ys >= w[:, 1])
+         & (ys <= w[:, 3]))
+    return agg4(sid[m], vals[m], len(b) - 1)
+
+
+def segment_window_bin_agg_multi_torch(xs, ys, vals, boundaries, windows,
+                                       bx: int, by: int):
+    """Plain version of :func:`segment_window_bin_agg_multi_cuda`:
+    float64 ``(S, bx*by, 4)`` on the input's device, segment s binned by
+    the contract params of its own ``windows[s]``."""
+    b = host_bounds(boundaries)
+    lo, hi = int(b[0]), int(b[-1])
+    sid = segment_ids(b, vals.device)
+    n_seg, nb = len(b) - 1, bx * by
+    p = torch.from_numpy(bin_params_multi(windows, n_seg, bx, by)).to(
+        vals.device)[sid]
+    m, cid = param_bin_ids(xs[lo:hi], ys[lo:hi], p, bx, by)
+    return agg4((sid * nb + cid)[m], vals[lo:hi][m],
+                n_seg * nb).reshape(n_seg, nb, 4)
+
+
 # --------------------------------------------------------------------- #
 # CUDA kernel wrappers
 # --------------------------------------------------------------------- #
@@ -245,6 +305,9 @@ _SBA_ARGS = [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              _P, _P, _P]
 _SWB_ARGS = [_P, _P, _P, _P, ctypes.c_int] + [ctypes.c_float] * 6 + [
     ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P]
+_SWAM_ARGS = [_P, _P, _P, _P, ctypes.c_int, _P, _P, _P, _P]
+_SWBM_ARGS = [_P, _P, _P, _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int,
+              _P, _P, ctypes.c_int, _P, _P, _P, _P]
 
 
 def check_planes(b: np.ndarray, *planes: torch.Tensor) -> torch.device:
@@ -401,4 +464,93 @@ def segment_window_bin_agg_cuda(xs, ys, vals, boundaries, window, bx: int,
     out, _ = launch_segment_window_bin(xs, ys, vals, host_bounds(boundaries),
                                        window, bx, by)
     build.LAUNCHES["segment_window_bin_agg"] += 1
+    return out
+
+
+def segment_window_agg_multi_cuda(xs, ys, vals, boundaries, windows):
+    """Launch ``segment_window_agg_multi`` (TPU original:
+    ``repro/kernels/segment_agg.py`` ``segment_window_agg_multi_pallas``):
+    segment s under its own ``windows[s]``, rounded to float32. Returns
+    float64 ``(S, 4)`` on the device."""
+    b = host_bounds(boundaries)
+    n_seg = len(b) - 1
+    if n_seg > MAX_SEGMENTS:
+        raise ValueError(f"{n_seg} segments > MAX_SEGMENTS={MAX_SEGMENTS}")
+    dev = check_planes(b, xs, ys, vals)
+    w = windows_f32(windows, n_seg)
+    fn = build.load("segment_window_agg", "segment_window_agg_multi_launch",
+                    _SWAM_ARGS)
+    ws = torch.empty((n_seg, 3), dtype=torch.int64, device=dev)
+    out = torch.empty((n_seg, 4), dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        rc = fn(xs.data_ptr(), ys.data_ptr(), vals.data_ptr(),
+                b.ctypes.data, n_seg, w.ctypes.data, ws.data_ptr(),
+                out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    build.check("segment_window_agg", rc)
+    build.LAUNCHES["segment_window_agg_multi"] += 1
+    return out
+
+
+def check_spans(qbounds, n_seg: int) -> np.ndarray:
+    """Query spans ``(n_q+1,)`` over the segments (default: one span),
+    validated: ``0 = qb[0] <= … <= qb[-1] = S``."""
+    qb = (np.array([0, n_seg], np.int64) if qbounds is None
+          else np.ascontiguousarray(qbounds, np.int64))
+    if qb.ndim != 1 or len(qb) < 2 or qb[0] != 0 or qb[-1] != n_seg \
+            or (np.diff(qb) < 0).any():
+        raise ValueError("query spans must be a non-decreasing (n_q+1,) "
+                         f"vector from 0 to S={n_seg}")
+    return qb
+
+
+def launch_segment_window_bin_multi(xs, ys, vals, b: np.ndarray, windows,
+                                    bx: int, by: int, dv=None,
+                                    qbounds=None):
+    """One launch of the multi-window entry of
+    ``csrc/segment_window_bin_agg.cu`` (shared by
+    ``segment_window_bin_agg_multi`` and, with the per-segment float64
+    widths ``dv`` and the query spans, ``segment_window_bin_select_multi``;
+    the callers count their own launches). Returns ``(agg (S, bx*by, 4),
+    suffix_w (S, bx*by) or None)``."""
+    n_seg = len(b) - 1
+    nb = bx * by
+    if n_seg > MAX_SEGMENTS:
+        raise ValueError(f"{n_seg} segments > MAX_SEGMENTS={MAX_SEGMENTS}")
+    params = bin_params_multi(windows, n_seg, bx, by)
+    dev = check_planes(b, xs, ys, vals)
+    fn = build.load("segment_window_bin_agg",
+                    "segment_window_bin_agg_multi_launch", _SWBM_ARGS)
+    ws = torch.empty((n_seg * nb, 3), dtype=torch.int64, device=dev)
+    out = torch.empty((n_seg, nb, 4), dtype=torch.float64, device=dev)
+    suffix = qb = None
+    if dv is not None:
+        dv = np.ascontiguousarray(dv, np.float64)
+        if dv.shape != (n_seg,):
+            raise ValueError(f"widths of shape {dv.shape}, want "
+                             f"({n_seg},)")
+        qb = check_spans(qbounds, n_seg)
+        suffix = torch.empty((n_seg, nb), dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        rc = fn(xs.data_ptr(), ys.data_ptr(), vals.data_ptr(),
+                b.ctypes.data, n_seg, params.ctypes.data, bx, by,
+                None if dv is None else dv.ctypes.data,
+                None if qb is None else qb.ctypes.data,
+                0 if qb is None else len(qb) - 1, ws.data_ptr(),
+                out.data_ptr(), None if suffix is None else suffix.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+    build.check("segment_window_bin_agg", rc)
+    return out, suffix
+
+
+def segment_window_bin_agg_multi_cuda(xs, ys, vals, boundaries, windows,
+                                      bx: int, by: int):
+    """Launch ``segment_window_bin_agg_multi`` (TPU original:
+    ``repro/kernels/segment_agg.py``
+    ``segment_window_bin_agg_multi_pallas``), binning each segment by its
+    own window's contract params (the Pallas kernel recomputes the cell
+    sizes in float32, ROADMAP C.3). Returns float64 ``(S, bx*by, 4)`` on
+    the device."""
+    out, _ = launch_segment_window_bin_multi(
+        xs, ys, vals, host_bounds(boundaries), windows, bx, by)
+    build.LAUNCHES["segment_window_bin_agg_multi"] += 1
     return out

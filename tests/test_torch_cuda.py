@@ -7,8 +7,8 @@ Run on a machine with an NVIDIA Hopper GPU and ``nvcc``:
 The kernels build at first use. Each kernel is held against its plain
 PyTorch version on the same CUDA tensors (counts and extrema equal,
 float64 sums within 1e-12 · Σ|v|, the select op's suffix widths equal
-bit for bit), and the main path and the heatmap path on the ``"cuda"``
-backend against the same paths on ``"torch"``.
+bit for bit), and the main path, the heatmap path and the serving tick on the
+``"cuda"`` backend against the same paths on ``"torch"``.
 """
 import numpy as np
 import pytest
@@ -66,7 +66,10 @@ def _edges(bb, g, seed):
 @pytest.mark.parametrize("op", [
     "segment_window_agg", "segment_bin_agg", "bin_agg",
     "segment_bin_agg_edges", "segment_window_bin_agg",
-    "segment_window_bin_select", "segment_window_bin_select_16x16"])
+    "segment_window_bin_select", "segment_window_bin_select_16x16",
+    "segment_window_agg_multi", "segment_window_bin_agg_multi",
+    "segment_window_bin_select_multi",
+    "segment_window_bin_select_multi_16x16"])
 def test_kernel_matches_plain_version(card, op):
     n_seg = 32 if op.endswith("16x16") else 8
     xs, ys, vals, b, bb = _case(1, n_seg=n_seg)
@@ -75,6 +78,13 @@ def test_kernel_matches_plain_version(card, op):
     xe, ye = _edges(bb, 4, 2)
     vmin = np.full(n_seg, -200.0)
     vmax = np.linspace(50.0, 300.0, n_seg)
+    # one window per segment, crossing its bbox; spans of 1, 3 and the
+    # rest of the segments
+    wins = [tuple(float(v) + 0.3 for v in (
+        r[0] + 0.25 * (r[2] - r[0]), r[1] + 0.25 * (r[3] - r[1]),
+        r[0] + 0.75 * (r[2] - r[0]), r[1] + 0.75 * (r[3] - r[1])))
+        for r in bb]
+    qb = np.array([0, 1, 4, n_seg], np.int64)
     calls = {
         "segment_window_agg": lambda v, be: ops.segment_window_agg(
             xs, ys, v, b, w, backend=be),
@@ -93,6 +103,19 @@ def test_kernel_matches_plain_version(card, op):
         "segment_window_bin_select_16x16":
             lambda v, be: ops.segment_window_bin_select(
                 xs, ys, v, b, w, vmin, vmax, bx=16, by=16, backend=be),
+        "segment_window_agg_multi":
+            lambda v, be: ops.segment_window_agg_multi(
+                xs, ys, v, b, wins, backend=be),
+        "segment_window_bin_agg_multi":
+            lambda v, be: ops.segment_window_bin_agg_multi(
+                xs, ys, v, b, wins, bx=4, by=4, backend=be),
+        "segment_window_bin_select_multi":
+            lambda v, be: ops.segment_window_bin_select_multi(
+                xs, ys, v, b, wins, vmin, vmax, qb, bx=4, by=4, backend=be),
+        "segment_window_bin_select_multi_16x16":
+            lambda v, be: ops.segment_window_bin_select_multi(
+                xs, ys, v, b, wins, vmin, vmax, qb, bx=16, by=16,
+                backend=be),
     }
     counter = op.replace("_16x16", "")
     before = build.LAUNCHES[counter]
@@ -149,3 +172,42 @@ def test_main_path_cuda_matches_torch(card):
                 (rt.objects_read, rt.tiles_processed)
     assert torch.equal(engines["cuda"].index.perm, engines["torch"].index.perm)
     engines["cuda"].index.check_invariants("a0")
+
+
+def test_serving_tick_cuda_matches_torch(card):
+    """Four sessions, two ticks of scalar queries and 4x4 heatmaps, on
+    the "cuda" and "torch" backends over one dataset: equal reads,
+    splits, permutation and publication; values to float64 order."""
+    from repro_torch.core import ServingEngine
+
+    ds = make_synthetic_dataset(n=200_000, seed=5, device=card)
+    wins = exploration_path(ds, n_queries=8, target_objects=10_000)
+    out = {}
+    before = dict(build.LAUNCHES)
+    for backend in ("torch", "cuda"):
+        sv = ServingEngine(AQPEngine(ds, IndexConfig(
+            init_metadata_attrs=("a0",), backend=backend)))
+        sessions = [sv.open_session() for _ in range(4)]
+        res = []
+        for tick in range(2):
+            for i, s in enumerate(sessions):
+                w = wins[4 * tick + i]
+                if i % 2:
+                    s.heatmap(w, "mean", "a0", bins=(4, 4), phi=0.05)
+                else:
+                    s.query(w, "mean", "a0", phi=0.05)
+            res.append((sv.tick(), dict(sv.last_publish)))
+        out[backend] = (res, sv.index)
+    for (rt, pt), (rc, pc) in zip(out["torch"][0], out["cuda"][0]):
+        assert pt == pc
+        for a, c in zip(rt, rc):
+            assert (a.objects_read, a.tiles_processed, a.exact) == \
+                (c.objects_read, c.tiles_processed, c.exact)
+            f = "values" if hasattr(a, "values") else "value"
+            np.testing.assert_allclose(np.atleast_1d(getattr(c, f)),
+                                       np.atleast_1d(getattr(a, f)),
+                                       rtol=1e-12)
+    assert torch.equal(out["cuda"][1].perm, out["torch"][1].perm)
+    out["cuda"][1].check_invariants("a0")
+    for k in ("segment_window_agg_multi", "segment_window_bin_select_multi"):
+        assert build.LAUNCHES[k] > before.get(k, 0), k

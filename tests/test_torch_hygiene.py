@@ -62,10 +62,14 @@ def test_unported_entry_points_name_their_roadmap_item():
     eng = AQPEngine(make_synthetic_dataset(n=1000, device="cpu"),
                     IndexConfig(backend="np"))
     learned = AccuracyPolicy(salience="learned")
+    session = eng.serve().open_session()
     for call, item in (
             (lambda: eng.heatmap((0, 0, 1, 1), "sum", "a0", phi=0.05,
                                  policy=learned), "item 8"),
-            (eng.prefetch, "item 8"), (eng.serve, "item 7")):
+            (eng.prefetch, "item 8"),
+            (lambda: eng.serve(prefetch_rows=1000), "item 8"),
+            (lambda: session.heatmap((0, 0, 1, 1), "sum", "a0", phi=0.05,
+                                     policy=learned), "item 8")):
         with pytest.raises(NotImplementedError, match=item):
             call()
 

@@ -453,3 +453,257 @@ def test_split_edges_stay_float64():
     pallas = np.asarray(rops.segment_bin_agg_edges(xs, ys, vals, b, xe, ye,
                                                    backend="pallas"))
     assert pallas[0, :, 0].tolist() == [2.0, 3.0]  # f rounded onto e
+
+
+# --------------------------------------------------------------------- #
+# the serving slice's ops: segment_window_agg_multi,
+# segment_window_bin_agg_multi, segment_window_bin_select_multi
+# --------------------------------------------------------------------- #
+
+MULTI_CASES = {
+    "S1": dict(n_seg=1, rows=3000),
+    "S16": dict(n_seg=16, rows=600),
+    "S64": dict(n_seg=64, rows=200),
+    "S16_empty": dict(n_seg=16, rows=600, empty=(0, 5, 15)),
+}
+# query spans over the segments (spans of one segment included)
+SPANS = {1: [0, 1], 16: [0, 1, 5, 6, 16], 64: [0, 8, 9, 30, 31, 64]}
+
+
+def multi_inputs(case, bins=None, seed=41):
+    """Segments in their own bboxes, segment s under its OWN window (a
+    tuple of Python floats whose edges are not float32 values, crossing
+    the segment's bbox), with objects on each window's edges and their
+    float32 neighbours — and, given ``bins``, on its bin lines. The last
+    segment's window has zero area, with objects on its point."""
+    xs, ys, vals, b, bb = make_segments(seed, **MULTI_CASES[case])
+    rng = np.random.default_rng(seed)
+    windows = []
+    for s in range(len(b) - 1):
+        x0, y0, x1, y1 = bb[s]
+        w = tuple(float(np.round(v, 1) + 0.03) for v in (
+            x0 + 0.2 * (x1 - x0), y0 + 0.1 * (y1 - y0),
+            x0 + 0.8 * (x1 - x0), y0 + 0.7 * (y1 - y0)))
+        sl = slice(int(b[s]), int(b[s + 1]))
+        if sl.stop > sl.start:
+            if bins is not None:
+                xs[sl], ys[sl] = bin_line_objects(xs[sl], ys[sl], w, bins,
+                                                  rng, k=40)
+            xs[sl], ys[sl] = window_edge_objects(xs[sl], ys[sl], w, rng,
+                                                 k=30)
+        windows.append(w)
+    last = slice(int(b[-2]), int(b[-1]))
+    if last.stop > last.start:
+        px, py = np.float32(xs[last.start]), np.float32(ys[last.start])
+        xs[last.start:last.start + 20] = px
+        ys[last.start:last.start + 20] = py
+        windows[-1] = (float(px), float(py), float(px), float(py))
+    return xs, ys, vals, b, windows
+
+
+def per_segment(fn, xs, ys, vals, b, windows):
+    """The reference's single-window op on each segment under its own
+    window — what each query's own read gives."""
+    rows = []
+    for s in range(len(b) - 1):
+        one = np.array([0, b[s + 1] - b[s]], np.int64)
+        sl = slice(int(b[s]), int(b[s + 1]))
+        rows.append(fn(xs[sl], ys[sl], vals[sl], one, windows[s])[0])
+    return np.stack(rows)
+
+
+@pytest.mark.parametrize("case", list(MULTI_CASES))
+def test_segment_window_agg_multi(case):
+    """Each segment against its own window under the ticket's rule: the
+    reference's single-window mirror on Python floats (float32 compare).
+    Given a float64 array of windows, the port's mirror is the
+    reference's multi mirror bit for bit."""
+    xs, ys, vals, b, windows = multi_inputs(case)
+    want = per_segment(lambda *a: rops.segment_window_agg(*a, backend="np"),
+                       xs, ys, vals, b, windows)
+    got_np = pops.segment_window_agg_multi(t(xs), t(ys), t(vals), b,
+                                           windows, backend="np")
+    np.testing.assert_array_equal(got_np, want)
+    w64 = np.asarray(windows, np.float64)
+    np.testing.assert_array_equal(
+        pops.segment_window_agg_multi(t(xs), t(ys), t(vals), b, w64,
+                                      backend="np"),
+        rops.segment_window_agg_multi(xs, ys, vals, b, w64, backend="np"))
+    absv = per_segment(
+        lambda *a: rops.segment_window_agg(*a, backend="np"), xs, ys,
+        np.abs(vals), b, windows)[:, 1]
+    got = pops.segment_window_agg_multi(t(xs), t(ys), t(vals), b, windows,
+                                        backend="torch")
+    assert got.dtype == torch.float64 and got.shape == want.shape
+    assert_matches(got, want, absv)
+    assert want[-1, 0] >= 20 or int(b[-1] - b[-2]) == 0  # zero-area ran
+
+
+def test_multi_window_compare_follows_the_ticket():
+    """ROADMAP C.6: objects at ``float32(e) < e`` on a window's left edge
+    e. The ticket's own read (a window of Python floats, compared in
+    float32) counts them; the reference's multi mirror turns the windows
+    into a float64 array and drops them. The port's multi op follows the
+    ticket on every backend."""
+    e = 300.3
+    assert float(np.float32(e)) < e
+    rng = np.random.default_rng(2)
+    xs = np.full(40, np.float32(e))
+    xs[20:] = rng.uniform(310, 400, 20).astype(np.float32)
+    ys = rng.uniform(310, 400, 40).astype(np.float32)
+    vals = rng.normal(0, 1, 40).astype(np.float32)
+    b = np.array([0, 40], np.int64)
+    window = (e, 300.0, 500.0, 500.0)
+    single = rops.segment_window_agg(xs, ys, vals, b, window, backend="np")
+    multi = rops.segment_window_agg_multi(xs, ys, vals, b, [window],
+                                          backend="np")
+    assert single[0, 0] == 40 and multi[0, 0] == 20
+    for backend in ("np", "torch"):
+        got = np.asarray(pops.segment_window_agg_multi(
+            t(xs), t(ys), t(vals), b, [window], backend=backend))
+        assert got[0, 0] == single[0, 0]
+        assert (got[:, 2:] == single[:, 2:]).all()
+
+
+@pytest.mark.parametrize("bins", [(4, 4), (16, 16)])
+@pytest.mark.parametrize("case", list(MULTI_CASES))
+def test_segment_window_bin_agg_multi(case, bins):
+    bx, by = bins
+    xs, ys, vals, b, windows = multi_inputs(case, bins)
+    want = rops.segment_window_bin_agg_multi(xs, ys, vals, b, windows,
+                                             bx=bx, by=by, backend="np")
+    got_np = pops.segment_window_bin_agg_multi(
+        t(xs), t(ys), t(vals), b, windows, bx=bx, by=by, backend="np")
+    np.testing.assert_array_equal(got_np, want)
+    absv = rops.segment_window_bin_agg_multi(
+        xs, ys, np.abs(vals), b, windows, bx=bx, by=by,
+        backend="np")[..., 1]
+    got = pops.segment_window_bin_agg_multi(
+        t(xs), t(ys), t(vals), b, windows, bx=bx, by=by, backend="torch")
+    assert got.dtype == torch.float64 and got.shape == want.shape
+    assert_matches(got, want, absv)
+
+
+@pytest.mark.parametrize("bins", [(4, 4), (16, 16)])
+@pytest.mark.parametrize("case", list(MULTI_CASES))
+def test_segment_window_bin_select_multi(case, bins):
+    """The serving tick's heatmap op: the table as above and
+    ``suffix_w`` per query span bit for bit the reference mirror's —
+    and each span's rows bit for bit the single-window select's over
+    the span alone (what the sequential tick reads)."""
+    bx, by = bins
+    xs, ys, vals, b, windows = multi_inputs(case, bins)
+    n_seg = len(b) - 1
+    qb = np.array(SPANS[n_seg], np.int64)
+    rng = np.random.default_rng(9)
+    vmin = rng.uniform(-100, 0, n_seg)
+    vmax = vmin + rng.uniform(0, 200, n_seg)
+    want, want_w = rops.segment_window_bin_select_multi(
+        xs, ys, vals, b, windows, vmin, vmax, qb, bx=bx, by=by,
+        backend="np")
+    got_np, got_np_w = pops.segment_window_bin_select_multi(
+        t(xs), t(ys), t(vals), b, windows, vmin, vmax, qb, bx=bx, by=by,
+        backend="np")
+    np.testing.assert_array_equal(got_np, want)
+    np.testing.assert_array_equal(got_np_w, want_w)
+    got, got_w = pops.segment_window_bin_select_multi(
+        t(xs), t(ys), t(vals), b, windows, vmin, vmax, qb, bx=bx, by=by,
+        backend="torch")
+    assert got_w.shape == (n_seg, bx * by)
+    np.testing.assert_array_equal(got_w.numpy(), want_w)
+    absv = rops.segment_window_bin_agg_multi(
+        xs, ys, np.abs(vals), b, windows, bx=bx, by=by,
+        backend="np")[..., 1]
+    assert_matches(got, want, absv)
+    # span q's rows: the single-window select over its segments, whose
+    # widths are the same (the windows differ per segment, the counts
+    # are the table's)
+    w = want[:, :, 0] * (vmax - vmin)[:, None]
+    for a, e in zip(qb[:-1], qb[1:]):
+        single = np.concatenate([np.cumsum(w[a:e][::-1], 0)[::-1],
+                                 np.zeros((1, bx * by))])
+        np.testing.assert_array_equal(got_w.numpy()[a:e], single[:-1])
+
+
+LATTICE_WINDOWS = [(0.0, 0.0, 512.0, 512.0), (128.0, 64.0, 640.0, 576.0),
+                   (256.0, 384.0, 768.0, 896.0), (384.0, 0.0, 896.0, 512.0),
+                   (0.0, 256.0, 512.0, 768.0)]
+
+
+@pytest.mark.parametrize("op", ["segment_window_agg_multi",
+                                "segment_window_bin_agg_multi",
+                                "segment_window_bin_select_multi"])
+def test_multi_kernels_match_pallas(op):
+    """The port's plain versions against the reference's Pallas kernels
+    (interpret mode) on lattice inputs, one window per segment: counts
+    and extrema equal; the Pallas sums are float32, so sums agree to
+    float32 rounding of Σ|v|."""
+    xs, ys, vals, b, _, _ = lattice_segments(13)
+    n_seg = len(b) - 1
+    wins = LATTICE_WINDOWS[:n_seg]
+    vmin = np.full(n_seg, -150.0)
+    vmax = np.full(n_seg, 160.0)
+    qb = np.array([0, 2, 3, n_seg], np.int64)
+    calls = {
+        "segment_window_agg_multi":
+            lambda m, x, y, v, be: m.segment_window_agg_multi(
+                x, y, v, b, wins, backend=be),
+        "segment_window_bin_agg_multi":
+            lambda m, x, y, v, be: m.segment_window_bin_agg_multi(
+                x, y, v, b, wins, bx=4, by=4, backend=be),
+        "segment_window_bin_select_multi":
+            lambda m, x, y, v, be: m.segment_window_bin_select_multi(
+                x, y, v, b, wins, vmin, vmax, qb, bx=4, by=4,
+                backend=be)[0],
+    }
+    call = calls[op]
+    pallas = np.asarray(call(rops, xs, ys, vals, "pallas"),
+                        np.float64).reshape(-1, 4)
+    got = call(pops, t(xs), t(ys), t(vals), "torch").numpy().reshape(-1, 4)
+    absv = np.asarray(call(rops, xs, ys, np.abs(vals), "np")).reshape(
+        -1, 4)[:, 1]
+    np.testing.assert_array_equal(got[:, 0], pallas[:, 0])
+    occ = got[:, 0] > 0
+    assert occ.any()
+    assert (got[occ, 2] == pallas[occ, 2]).all()
+    assert (got[occ, 3] == pallas[occ, 3]).all()
+    assert (np.abs(got[:, 1] - pallas[:, 1]) <= 1e-5 * absv + 1e-3).all()
+
+
+def test_multi_ops_validate_their_inputs():
+    xs = torch.zeros(4)
+    b = np.array([0, 2, 4])
+    w = [(0.0, 0.0, 1.0, 1.0)] * 2
+    with pytest.raises(TypeError):
+        pops.segment_window_agg_multi(xs, xs, xs, b, w, backend="cuda")
+    with pytest.raises(ValueError):           # one window for two segments
+        pops.segment_window_agg_multi(xs, xs, xs, b, w[:1], backend="torch")
+    with pytest.raises(ValueError):           # spans must end at S
+        pops.segment_window_bin_select_multi(
+            xs, xs, xs, b, w, np.zeros(2), np.ones(2), [0, 1], bx=2, by=2,
+            backend="torch")
+
+
+def test_span_suffix_is_never_total_minus_tail():
+    """Hazard 2: the reference's device epilogue takes a span's suffix as
+    the global suffix minus the span's tail (``segmented_suffix``, float32
+    there), which rounds differently from the span's own reversed cumsum
+    even in float64. The port's per-span walk equals the mirror."""
+    from repro.kernels.fused_select import segmented_suffix
+
+    w = np.array([[0.1], [0.2], [0.3]])
+    qb = np.array([0, 1, 3])
+    mirror = np.concatenate([np.cumsum(w[a:b][::-1], 0)[::-1]
+                             for a, b in zip(qb[:-1], qb[1:])])
+    suf = np.cumsum(w[::-1], 0)[::-1]
+    tail = np.concatenate([suf, np.zeros((1, 1))])[np.repeat(qb[1:],
+                                                             np.diff(qb))]
+    assert (suf - tail)[0, 0] != mirror[0, 0]          # float64 too
+    qend = np.repeat(qb[1:], np.diff(qb)).astype(np.int32)
+    dev = np.asarray(segmented_suffix(w.astype(np.float32), qend))
+    assert not np.array_equal(dev.astype(np.float64), mirror)
+    from repro_torch.kernels.fused_select import span_suffix
+    agg = torch.zeros((3, 1, 4), dtype=torch.float64)
+    agg[:, 0, 0] = 1.0
+    got = span_suffix(agg, np.zeros(3), w[:, 0], qb, 3)
+    np.testing.assert_array_equal(got.numpy(), mirror)
