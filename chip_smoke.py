@@ -61,7 +61,23 @@ kernels (``segment_window_agg_multi``, ``segment_window_bin_agg_multi``,
 ``segment_window_bin_select_multi``: one window per segment, suffix
 widths per query span) against their plain versions on edge cases and a
 host sample; after phase 5 it checks and times them at the median
-shapes of phase 5's passes.
+shapes of phase 5's passes. Phase 2d holds ``window_agg`` and
+``window_count`` against their plain versions on edge cases (n = 0, 1,
+3 and 4097; an unaligned view with n short of the planes; +-inf, empty
+and zero-area windows; objects on the window's edges and their float32
+neighbours), checks that views cut at different offsets raise, holds a
+host sample against the numpy mirror, and times ``window_agg`` on one
+390 625-object tile and on B3's data (n = 1e6, B3's window), the shape
+at which phase 6 launches it.
+
+Right after the dataset is made, the paper-scale scan runs
+``window_agg`` and ``window_count`` over the whole file (x, y, a0 on the
+card) under B3's window and an all-covering one, each held against its
+plain version and timed beside its byte bound.
+
+6. The port's kernels bench (``repro_torch.benchmarks.kernels_bench``,
+   B3) at its full size on the card, its rows printed; launch counts are
+   reset before it, and ``window_agg`` must have launched in it.
 
 The line before the last is a JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -839,6 +855,220 @@ def time_serving_kernels(torch, timed, seed, shapes):
 
 
 # --------------------------------------------------------------------- #
+# phase 2d, window_agg; the paper-scale scan; phase 6, the port's B3
+# --------------------------------------------------------------------- #
+
+WINDOW_AGG_SRC = "src/repro_torch/kernels/csrc/window_agg.cu"
+WINDOW_AGG_TPU = "src/repro/kernels/window_agg.py:77"
+
+
+def check_window_agg(torch, tag, xs, ys, vals, window, n=None):
+    """``window_agg`` and ``window_count`` on the card against their
+    plain versions on the same tensors; returns the largest difference."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.window_agg import window_agg_torch
+
+    got = ops.window_agg(xs, ys, vals, window, n=n, backend="cuda")
+    cnt = ops.window_count(xs, ys, window, n=n, backend="cuda")
+    want = window_agg_torch(xs, ys, vals, window, n)
+    absv = window_agg_torch(xs, ys, vals.abs(), window, n)
+    torch.cuda.synchronize()
+    err = compare(f"window_agg[{tag}]", got.cpu(), want.cpu(),
+                  absv[1].cpu())
+    if cnt.item() != want[0].item():
+        raise Failed(f"window_count[{tag}]: {cnt.item()} != "
+                     f"{want[0].item()}")
+    return err
+
+
+def phase_window_agg(torch, timed, build, seed):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.window_agg import (window_agg_cuda,
+                                                window_agg_torch)
+
+    log("== phase 2d: window_agg against its plain version")
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 4)
+    before = build.LAUNCHES["window_agg"]
+
+    def planes(n, lo=0.0, hi=1000.0):
+        a = [rng.uniform(lo, hi, n).astype(np.float32) for _ in range(2)]
+        a.append(rng.normal(5.0, 30.0, n).astype(np.float32))
+        return [torch.from_numpy(v).to("cuda") for v in a]
+
+    w = (200.3, 180.7, 610.1, 590.9)       # edges that are not float32
+    n_cases = 0
+    for n in (0, 1, 3, 4097):
+        xs, ys, vals = planes(n)
+        check_window_agg(torch, f"n={n}", xs, ys, vals, w)
+        n_cases += 1
+    xs, ys, vals = planes(100_003)
+    # an unaligned view and n short of the planes (the float4 body after
+    # a scalar head)
+    check_window_agg(torch, "view", xs[1:], ys[1:], vals[1:], w,
+                     n=len(xs) - 9)
+    # views cut at different offsets cannot share the float4 loads: the
+    # wrapper raises, launching nothing
+    for pl in ((xs[1:-1], ys[2:], vals[:-2]), (xs[1:-1], ys[2:], None),
+               (xs[:-1], ys[:-1], vals[1:])):
+        n_before = build.LAUNCHES["window_agg"]
+        try:
+            window_agg_cuda(*pl, w)
+        except ValueError:
+            pass
+        else:
+            raise Failed("window_agg took planes at different offsets")
+        if build.LAUNCHES["window_agg"] != n_before:
+            raise Failed("window_agg launched on planes at different "
+                         "offsets")
+    for tag, win in (("everywhere", (-np.inf, -np.inf, np.inf, np.inf)),
+                     ("empty", (-5.0, -5.0, -1.0, -1.0))):
+        check_window_agg(torch, tag, xs, ys, vals, win)
+    # a zero-area window with objects on its point
+    px, py = float(xs[5]), float(ys[5])
+    zx, zy = xs.clone(), ys.clone()
+    zx[::11], zy[::11] = px, py
+    check_window_agg(torch, "zero_area", zx, zy, vals, (px, py, px, py))
+    # objects on the window's edges and their float32 neighbours, the
+    # window as Python floats; all-negative values
+    hx, hy = xs.cpu().numpy().copy(), ys.cpu().numpy().copy()
+    k = 3000
+    for j, (axis, e) in enumerate(((hx, w[0]), (hx, w[2]), (hy, w[1]),
+                                   (hy, w[3]))):
+        e32 = np.float32(e)
+        sl = slice(j * k, (j + 1) * k)
+        d = np.arange(k) % 3 - 1
+        axis[sl] = np.where(d < 0, np.nextafter(e32, np.float32(-np.inf)),
+                            np.where(d > 0, np.nextafter(
+                                e32, np.float32(np.inf)), e32))
+        other = hy if axis is hx else hx
+        other[sl] = np.float32(0.5 * (w[1] + w[3]) if axis is hx
+                               else 0.5 * (w[0] + w[2]))
+    ex, ey = (torch.from_numpy(a).to("cuda") for a in (hx, hy))
+    check_window_agg(torch, "edges", ex, ey, vals, w)
+    check_window_agg(torch, "negative", ex, ey, -vals.abs() - 1.0, w)
+    n_cases += 6
+    log(f"window_agg edge cases ({n_cases}, each with window_count): equal;"
+        f" planes at different offsets raise")
+
+    # a host sample below 2^24 objects against the numpy mirror: count
+    # equal, extrema equal, the sum within one float32 ulp of its row
+    xs, ys, vals = planes(2_000_000)
+    got = window_agg_cuda(xs, ys, vals, w).cpu().numpy()
+    want = ref.window_agg_np(xs.cpu().numpy(), ys.cpu().numpy(),
+                             vals.cpu().numpy(), w, len(xs))
+    if not (got[0] == want[0] and got[2] == want[2] and got[3] == want[3]
+            and abs(got[1] - np.float64(want[1]))
+            <= np.spacing(np.abs(want[1]))):
+        raise Failed(f"window_agg disagrees with the numpy mirror: {got} "
+                     f"vs {want}")
+    log("window_agg host sample (2e6 objects) against the numpy mirror: "
+        "equal")
+
+    # time at the main path's tile (one 390 625-object segment, 1e8 / 256)
+    # and at B3's data, where phase 6 launches it: the kernels line's row
+    from repro_torch.benchmarks import kernels_bench
+    tile = 390_625
+    shapes = (("tile", planes(tile, 300.0, 500.0),
+               (350.3, 340.7, 460.1, 450.9)),
+              ("B3", [torch.from_numpy(a).to("cuda")
+                      for a in kernels_bench.data(1_000_000)],
+               kernels_bench.WINDOW))
+    for tag, (xs, ys, vals), wt in shapes:
+        err = check_window_agg(torch, tag, xs, ys, vals, wt)
+        n_in = int(window_agg_torch(xs, ys, None, wt)[0].item())
+        ms = timed(lambda: window_agg_cuda(xs, ys, vals, wt))
+        pms = timed(lambda: window_agg_torch(xs, ys, vals, wt))
+        # x and y read once, v of the in-window objects, the f64 row out;
+        # 4 compares per object, the f64 sum and 2 extrema per in-window
+        # object (the kernel reads every v: 12 bytes an object)
+        bms, by = bound_ms(8 * len(xs) + 4 * n_in + 32,
+                           4 * len(xs) + 2 * n_in, n_in)
+        log(f"window_agg {tag} ({len(xs)} objects, {n_in} in the window): "
+            f"kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms "
+            f"({by}), max_abs_err {err:.3e}")
+    launched = build.LAUNCHES["window_agg"] - before
+    log(f"window_agg launches in phase 2d: {launched}")
+    if launched <= 0:
+        raise Failed("window_agg was not launched in phase 2d")
+    log(f"phase 2d took {time.perf_counter() - t_phase:.3f} s")
+    return {"window_agg": {
+        "name": "window_agg", "route": "cuda", "source": WINDOW_AGG_SRC,
+        "replaces": WINDOW_AGG_TPU, "launches": 0, "max_abs_err": err,
+        "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+        "library_ms": None}}
+
+
+def phase_scan(torch, timed, ds):
+    """``window_agg`` / ``window_count`` over the whole file (x, y, a0 on
+    the card) under B3's window and an all-covering one, each against
+    its plain version and timed beside its byte bound."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.window_agg import window_agg_torch
+
+    log(f"== paper-scale scan: window_agg over {ds.n} rows")
+    t_phase = time.perf_counter()
+    x, y = ds.x, ds.y
+    a0 = ds.read_all_unaccounted("a0")
+    n = ds.n
+    out = {}
+    for tag, w in (("b3", (200.0, 200.0, 600.0, 600.0)),
+                   ("everywhere", (-np.inf, -np.inf, np.inf, np.inf))):
+        err = check_window_agg(torch, f"scan,{tag}", x, y, a0, w)
+        row = window_agg_torch(x, y, a0, w).cpu().numpy()
+        n_in = int(row[0])
+        ms = timed(lambda: ops.window_agg(x, y, a0, w, backend="cuda"))
+        cms = timed(lambda: ops.window_count(x, y, w, backend="cuda"))
+        pms = timed(lambda: window_agg_torch(x, y, a0, w))
+        # the bound counts x, y and the in-window v; the kernel reads every
+        # v, so its rate (read_gb_s) is over 12 n bytes
+        bms = bound_ms(8 * n + 4 * n_in + 32, 4 * n + 2 * n_in, n_in)
+        cbms = bound_ms(8 * n + 32, 4 * n, 0)
+        out[tag] = {"count": float(row[0]), "sum": float(row[1]),
+                    "max_abs_err": err, "window_agg_ms": ms,
+                    "bound_ms": bms[0], "bound_by": bms[1],
+                    "share_of_bound": bms[0] / ms,
+                    "read_gb_s": 12 * n / ms * 1e-6, "window_count_ms": cms,
+                    "count_bound_ms": cbms[0],
+                    "count_share_of_bound": cbms[0] / cms,
+                    "count_read_gb_s": 8 * n / cms * 1e-6, "plain_ms": pms}
+        log(f"scan {tag}: window_agg {ms:.4f} ms (bound {bms[0]:.4f} ms, "
+            f"{bms[1]}, {bms[0] / ms:.3f} of it; reads "
+            f"{12 * n / ms * 1e-6:.1f} GB/s), window_count {cms:.4f} ms "
+            f"(bound {cbms[0]:.4f} ms, {cbms[0] / cms:.3f} of it; reads "
+            f"{8 * n / cms * 1e-6:.1f} GB/s), plain {pms:.4f} ms, "
+            f"count {n_in}, max_abs_err {err:.3e}")
+    log(f"scan: {json.dumps(out)}")
+    del x, y, a0
+    torch.cuda.empty_cache()
+    log(f"the scan took {time.perf_counter() - t_phase:.3f} s")
+    return out
+
+
+def phase_bench(torch, build):
+    """The port's B3 at its full size, on the card."""
+    from repro_torch.benchmarks import common, kernels_bench
+
+    log("== phase 6: the port's kernels bench (B3)")
+    t0 = time.perf_counter()
+    common.EMITTED.clear()
+    build.reset_launches()
+    kernels_bench.main()
+    launches = dict(build.LAUNCHES)
+    log(f"phase 6: {len(common.EMITTED)} B3 rows in "
+        f"{time.perf_counter() - t0:.3f} s")
+    log(f"launches in phase 6: {json.dumps(launches)}")
+    for k in ("window_agg", "bin_agg", "segment_window_bin_select",
+              "segment_window_bin_select_multi"):
+        if launches.get(k, 0) <= 0:
+            raise Failed(f"{k} was not launched by the kernels bench")
+    for r in common.EMITTED:
+        if not (np.isfinite(r["us_per_call"]) and r["GB_s"] > 0):
+            raise Failed(f"B3 row {r['name']} is not a finite time")
+    return launches
+
+
+# --------------------------------------------------------------------- #
 # phase 3
 # --------------------------------------------------------------------- #
 
@@ -1363,10 +1593,12 @@ def main(argv=None) -> int:
         rows = phase_kernels(torch, timed, args.seed)
         rows.update(phase_heatmap_kernels(torch, timed, args.seed))
         phase_serving_kernels(torch, args.seed)
+        rows.update(phase_window_agg(torch, timed, build, args.seed))
         torch.cuda.empty_cache()
         from repro_torch.data import exploration_path
         log("== dataset for phases 3 and 4")
         ds = make_dataset(torch, args.seed, args.rows)
+        phase_scan(torch, timed, ds)
         windows = exploration_path(ds, n_queries=args.queries,
                                    target_objects=100_000, seed=11)
         launches = phase_main_path(torch, build, ds, windows)
@@ -1379,6 +1611,7 @@ def main(argv=None) -> int:
                          if k in SERVING_KERNELS})
         rows.update(time_serving_kernels(torch, timed, args.seed,
                                          stats["passes"]))
+        launches["window_agg"] = phase_bench(torch, build)["window_agg"]
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

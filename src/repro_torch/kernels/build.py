@@ -26,7 +26,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("segment_window_agg", "segment_bin_agg", "segment_bin_agg_edges",
-           "segment_window_bin_agg")
+           "segment_window_bin_agg", "window_agg")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -13,9 +13,9 @@ Backends, chosen per call (``backend=``, default ``"cuda"``):
   on the device.
 
 Every backend returns ``(count, sum, min, max)`` rows: counts exact,
-sums float64 (``"np"``'s ``bin_agg`` keeps the reference's float32
-rows), extrema exact. ``segment_window_bin_select`` also returns the
-suffix widths, bit for bit equal on every backend.
+sums float64 (``"np"``'s ``bin_agg`` and ``window_agg`` keep the
+reference's float32 rows), extrema exact. ``segment_window_bin_select``
+also returns the suffix widths, bit for bit equal on every backend.
 
 Precision rules the port keeps, and where the reference states them:
 
@@ -82,6 +82,7 @@ from .segment_agg import (segment_bin_agg_cuda, segment_bin_agg_edges_cuda,
                           segment_window_bin_agg_multi_cuda,
                           segment_window_bin_agg_multi_torch,
                           segment_window_bin_agg_torch, window_f32)
+from .window_agg import window_agg_cuda, window_agg_torch
 
 BACKENDS = ("np", "torch", "cuda")
 
@@ -97,6 +98,8 @@ def _backend(backend, *tensors) -> str:
     if backend == "np":
         return backend
     for t in tensors:
+        if t is None:
+            continue
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"the {backend!r} backend takes tensors")
         if backend == "cuda" and t.device.type != "cuda":
@@ -109,6 +112,35 @@ def window_mask(xs, ys, window):
     """Closed-window mask of tensors under the float32 compare rule."""
     x0, y0, x1, y1 = window_f32(window)
     return (xs >= x0) & (xs <= x1) & (ys >= y0) & (ys <= y1)
+
+
+def window_agg(xs, ys, vals, window, *, n=None, backend=None):
+    """(count, sum, min, max) of ``vals`` for the first ``n`` objects in
+    the closed ``window`` (``n``: the logical length, entries past it are
+    ignored; default all). ``"np"`` returns the reference's float32 row;
+    ``"torch"``/``"cuda"`` a float64 ``(4,)`` tensor with an exact
+    count. ``vals=None`` (device backends) counts only, as over an
+    all-zero value plane."""
+    backend = _backend(backend, xs, ys, vals)
+    if backend == "np":
+        xs = as_host(xs)
+        n = len(xs) if n is None else int(n)
+        return ref.window_agg_np(xs, as_host(ys), as_host(vals), window, n)
+    if backend == "torch":
+        return window_agg_torch(xs, ys, vals, window, n)
+    return window_agg_cuda(xs, ys, vals, window, n)
+
+
+def window_count(xs, ys, window, *, n=None, backend=None):
+    """Count of the first ``n`` objects in ``window`` (axis attributes
+    only, no value plane read). ``"np"``: the reference's float32 count;
+    ``"torch"``/``"cuda"``: a 0-d float64 tensor."""
+    backend = _backend(backend, xs, ys)
+    if backend == "np":
+        # the reference streams a zero value plane (repro/kernels/ops.py:569)
+        zeros = np.zeros(len(as_host(xs)), np.float32)
+        return window_agg(xs, ys, zeros, window, n=n, backend="np")[0]
+    return window_agg(xs, ys, None, window, n=n, backend=backend)[0]
 
 
 def segment_window_agg(xs, ys, vals, boundaries, window, *, backend=None):
@@ -282,7 +314,8 @@ def segment_window_bin_select_multi(xs, ys, vals, boundaries, windows,
         xs, ys, vals, boundaries, windows, bx, by, vmin_s, vmax_s, qbounds)
 
 
-__all__ = ["segment_window_agg", "segment_bin_agg", "bin_agg",
+__all__ = ["window_agg", "window_count", "segment_window_agg",
+           "segment_bin_agg", "bin_agg",
            "segment_bin_agg_edges", "segment_window_bin_agg",
            "segment_window_bin_select", "segment_window_agg_multi",
            "segment_window_bin_agg_multi", "segment_window_bin_select_multi",

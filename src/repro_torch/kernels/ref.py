@@ -1,8 +1,8 @@
 """NumPy host mirrors of the kernels (the index's ``"np"`` control plane).
 
 Copied from the reference package (``repro/kernels/ref.py:345-400``,
-``:403-459``, ``:464-509`` and ``:512-581``, and ``repro/kernels/ops.py:65-90,
-574-577``) without change — apart from the window compare of
+``:403-459``, ``:464-509`` and ``:512-581``, and ``repro/kernels/ops.py:53-62,
+65-90, 574-577``) without change — apart from the window compare of
 :func:`segment_window_agg_multi_np` (ROADMAP C.6) — so the port's
 ``"np"`` backend equals the reference bit for bit. Segments are
 CONTIGUOUS — described by a boundaries vector — and sums accumulate in
@@ -21,6 +21,22 @@ def window_mask_np(xs, ys, window):
     """NumPy host-side mask (control-plane helper, not a kernel)."""
     x0, y0, x1, y1 = window
     return (xs >= x0) & (xs <= x1) & (ys >= y0) & (ys <= y1)
+
+
+def window_agg_np(xs, ys, vals, window, n):
+    """(count, sum, min, max) of the first ``n`` objects inside the closed
+    window: the window cast to float32 (the float32 compare rule), the
+    sum taken in float64, the row returned as float32, as the reference
+    does; an empty selection gives ``(0, 0, +inf, -inf)``."""
+    xs, ys = np.asarray(xs)[:n], np.asarray(ys)[:n]
+    vals = np.asarray(vals, np.float32)[:n]
+    x0, y0, x1, y1 = np.asarray(window, np.float32)
+    m = (xs >= x0) & (xs <= x1) & (ys >= y0) & (ys <= y1)
+    sel = vals[m]
+    if sel.size == 0:
+        return np.array([0.0, 0.0, np.inf, -np.inf], np.float32)
+    return np.array([m.sum(), sel.sum(dtype=np.float64), sel.min(),
+                     sel.max()], np.float32)
 
 
 def bin_agg_np(xs, ys, vals, bbox, gx, gy, n):

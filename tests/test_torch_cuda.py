@@ -69,7 +69,7 @@ def _edges(bb, g, seed):
     "segment_window_bin_select", "segment_window_bin_select_16x16",
     "segment_window_agg_multi", "segment_window_bin_agg_multi",
     "segment_window_bin_select_multi",
-    "segment_window_bin_select_multi_16x16"])
+    "segment_window_bin_select_multi_16x16", "window_agg", "window_count"])
 def test_kernel_matches_plain_version(card, op):
     n_seg = 32 if op.endswith("16x16") else 8
     xs, ys, vals, b, bb = _case(1, n_seg=n_seg)
@@ -116,8 +116,15 @@ def test_kernel_matches_plain_version(card, op):
             lambda v, be: ops.segment_window_bin_select_multi(
                 xs, ys, v, b, wins, vmin, vmax, qb, bx=16, by=16,
                 backend=be),
+        # an unaligned view, n short of the planes
+        "window_agg": lambda v, be: ops.window_agg(
+            xs[1:], ys[1:], v[1:], w, n=len(xs) - 7, backend=be),
+        "window_count": lambda v, be: ops.window_count(
+            xs[1:], ys[1:], w, n=len(xs) - 7, backend=be).reshape(1, 1)
+            .expand(1, 4),
     }
-    counter = op.replace("_16x16", "")
+    counter = "window_agg" if op == "window_count" else op.replace(
+        "_16x16", "")
     before = build.LAUNCHES[counter]
     got = calls[op](vals, "cuda")
     torch.cuda.synchronize()
@@ -128,6 +135,21 @@ def test_kernel_matches_plain_version(card, op):
         assert torch.equal(got[1], want[1])       # suffix_w, bit for bit
         got, want, absv = got[0], want[0], absv[0]
     _assert_equal_rows(got, want, absv[..., 1])
+
+
+@pytest.mark.parametrize("cut", ["values", "count"])
+def test_window_agg_raises_on_planes_at_different_offsets(card, cut):
+    xs, ys, vals, _, _ = _case(4, n_seg=1)
+    xs, ys, vals = (torch.from_numpy(a).to(card) for a in (xs, ys, vals))
+    before = build.LAUNCHES["window_agg"]
+    with pytest.raises(ValueError, match="mod 16"):
+        if cut == "values":
+            ops.window_agg(xs[:-1], ys[:-1], vals[1:], (0, 0, 900, 900),
+                           backend="cuda")
+        else:
+            ops.window_count(xs[1:-1], ys[2:], (0, 0, 900, 900),
+                             backend="cuda")
+    assert build.LAUNCHES["window_agg"] == before
 
 
 def test_heatmap_cuda_matches_torch(card):

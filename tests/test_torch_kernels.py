@@ -707,3 +707,102 @@ def test_span_suffix_is_never_total_minus_tail():
     agg[:, 0, 0] = 1.0
     got = span_suffix(agg, np.zeros(3), w[:, 0], qb, 3)
     np.testing.assert_array_equal(got.numpy(), mirror)
+
+
+# --------------------------------------------------------------------- #
+# the kernels bench's op: window_agg / window_count
+# --------------------------------------------------------------------- #
+
+# (plane length, logical n)
+WA_CASES = {"n1": (1, None), "n7": (7, None), "n127": (127, None),
+            "n4096": (4096, None), "n16384": (16384, None),
+            "n_lt_len": (5000, 3001), "n0": (100, 0)}
+# Python-float windows whose edges are not float32 values: the float32
+# compare rule decides the objects put on them
+WA_WINDOWS = {
+    "window": (20.3, 20.7, 70.1, 69.9),
+    "everywhere": (-np.inf, -np.inf, np.inf, np.inf),
+    "empty": (200.0, 200.0, 300.0, 300.0),
+}
+
+
+def window_inputs(case, wname, seed=19, integer=False):
+    """Points on [0, 100)², objects on the finite window's edges and
+    their float32 neighbours; ``integer`` rounds the values to integers
+    (|v| < 2^24 in every partial sum: exact in float32 in any order)."""
+    length, n = WA_CASES[case]
+    rng = np.random.default_rng(seed)
+    xs = rng.uniform(0, 100, length).astype(np.float32)
+    ys = rng.uniform(0, 100, length).astype(np.float32)
+    vals = rng.normal(0, 10, length).astype(np.float32)
+    if integer:
+        vals = np.round(vals * 10)
+    window = WA_WINDOWS[wname]
+    if np.isfinite(window).all():
+        xs, ys = window_edge_objects(xs, ys, window, rng)
+    return xs, ys, vals, window, n
+
+
+def assert_within_f32_ulp(got, want):
+    """Counts and extrema equal; the float64 sum within one float32 ulp
+    of the reference's row, which rounds its sum to float32."""
+    g = np.asarray(got, np.float64)
+    w = np.asarray(want, np.float32)
+    assert g[0] == w[0], "count"
+    assert g[2] == w[2] and g[3] == w[3], "extrema"
+    assert abs(g[1] - np.float64(w[1])) <= np.spacing(np.abs(w[1])), "sum"
+
+
+@pytest.mark.parametrize("wname", list(WA_WINDOWS))
+@pytest.mark.parametrize("case", list(WA_CASES))
+def test_window_agg(case, wname):
+    """Port "np" ≡ reference "np" bit for bit; port "torch" (exact count,
+    float64 sum) against the reference's float32 row."""
+    xs, ys, vals, window, n = window_inputs(case, wname)
+    want = rops.window_agg(xs, ys, vals, window, n=n, backend="np")
+    got_np = pops.window_agg(t(xs), t(ys), t(vals), window, n=n,
+                             backend="np")
+    assert got_np.dtype == want.dtype
+    np.testing.assert_array_equal(got_np, want)
+    got = pops.window_agg(t(xs), t(ys), t(vals), window, n=n,
+                          backend="torch")
+    assert got.dtype == torch.float64 and got.shape == (4,)
+    assert_within_f32_ulp(got.numpy(), want)
+    cnt_np = pops.window_count(t(xs), t(ys), window, n=n, backend="np")
+    assert cnt_np == rops.window_count(xs, ys, window, n=n, backend="np")
+    cnt = pops.window_count(t(xs), t(ys), window, n=n, backend="torch")
+    assert cnt.dim() == 0 and cnt.dtype == torch.float64
+    assert cnt.item() == want[0]
+
+
+@pytest.mark.parametrize("case", list(WA_CASES))
+def test_window_agg_matches_pallas(case):
+    """Port "torch" against the reference's Pallas kernel (interpret
+    mode), window edges on float32 neighbours: counts and extrema equal,
+    and the sum within one float32 ulp of the Pallas row, which sums in
+    float32 — on integer values, so that every float32 partial sum is
+    exact and the Pallas block order cannot move it."""
+    xs, ys, vals, window, n = window_inputs(case, "window", integer=True)
+    pallas = np.asarray(rops.window_agg(xs, ys, vals, window, n=n,
+                                        backend="pallas"))
+    got = pops.window_agg(t(xs), t(ys), t(vals), window, n=n,
+                          backend="torch").numpy()
+    assert_within_f32_ulp(got, pallas)
+
+
+def test_window_count_reads_no_values_and_ops_validate():
+    xs, ys, vals, window, _ = window_inputs("n4096", "window")
+    zeros = pops.window_agg(t(xs), t(ys), t(np.zeros_like(vals)), window,
+                            backend="torch")
+    assert torch.equal(pops.window_agg(t(xs), t(ys), None, window,
+                                       backend="torch"), zeros)
+    from repro_torch.kernels.window_agg import window_agg_cuda
+    with pytest.raises(TypeError):        # a CPU tensor under "cuda"
+        pops.window_agg(t(xs), t(ys), t(vals), window, backend="cuda")
+    with pytest.raises(TypeError):
+        pops.window_count(t(xs), t(ys), window, backend="cuda")
+    with pytest.raises(TypeError):
+        window_agg_cuda(t(xs), t(ys), t(vals), window)
+    with pytest.raises(ValueError):       # n past the planes
+        pops.window_agg(t(xs), t(ys), t(vals), window, n=len(xs) + 1,
+                        backend="torch")
