@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port's main path on one NVIDIA H100 and check it.
 
     python3 chip_smoke.py [--seed 0] [--rows 100000000] [--queries 50]
-                          [--ticks 10]
+                          [--ticks 10] [--reps 20] [--clocks-of TREE]
 
 Phases (each prints its own lines; any failure exits non-zero):
 
@@ -48,27 +48,35 @@ Phases (each prints its own lines; any failure exits non-zero):
    against sequential, with and without a crack budget: the same index,
    publication and answers.
 
-Phase 2 also holds the heatmap kernels (``segment_bin_agg_edges``,
-``segment_window_bin_agg``, ``segment_window_bin_select``) against their
-plain versions — the select op's suffix widths bit for bit — on edge
-cases, a table too large for shared memory, a host sample against the
+Phase 2b holds the heatmap kernels (``segment_bin_agg_edges``,
+``segment_window_bin_agg``, ``segment_window_bin_select``: one launch a
+call) against their plain versions — the select op's suffix widths bit
+for bit — on edge cases (a table too large for shared memory, planes at
+different offsets mod 16, 64 segments, an empty stream, two calls back
+to back, tables of different sizes in turns), a host sample against the
 numpy mirrors, and at the heatmap path's shapes: 8 segments of ~3.9e5
 objects, 8x8 bins, 4x4 split cells for the batched ops, and one tile of
 ~3.9e5 objects (1e8 / 256, the initial grid's mean tile) for
 ``segment_window_bin_agg``, which the path launches only from
-``process_heatmap`` with S = 1. Phase 2c holds the serving tick's
-kernels (``segment_window_agg_multi``, ``segment_window_bin_agg_multi``,
-``segment_window_bin_select_multi``: one window per segment, suffix
-widths per query span) against their plain versions on edge cases and a
-host sample; after phase 5 it checks and times them at the median
-shapes of phase 5's passes. Phase 2d holds ``window_agg`` and
-``window_count`` against their plain versions on edge cases (n = 0, 1,
-3 and 4097; an unaligned view with n short of the planes; +-inf, empty
-and zero-area windows; objects on the window's edges and their float32
-neighbours), checks that views cut at different offsets raise, holds a
-host sample against the numpy mirror, and times ``window_agg`` on one
-390 625-object tile and on B3's data (n = 1e6, B3's window), the shape
-at which phase 6 launches it.
+``process_heatmap`` with S = 1. There it times each on three clocks —
+(a) CUDA events around the call, L2 flushed (the kernels line's ms), (b)
+the device time of the call's kernels from ``torch.profiler``, (c) the
+wrapper's host microseconds — and fails unless the profiler sees one
+kernel a call. ``--clocks-of TREE`` builds the port under ``TREE/src``
+(a parent commit unpacked there) and prints only those clocks, so that
+parent and change can be timed in turns in one call. Phase 2c holds the
+serving tick's kernels (``segment_window_agg_multi``,
+``segment_window_bin_agg_multi``, ``segment_window_bin_select_multi``:
+one window per segment, suffix widths per query span) against their
+plain versions on edge cases and a host sample; after phase 5 it checks
+and times them at the median shapes of phase 5's passes. Phase 2d holds
+``window_agg`` and ``window_count`` against their plain versions on edge
+cases (n = 0, 1, 3 and 4097; an unaligned view with n short of the
+planes; +-inf, empty and zero-area windows; objects on the window's
+edges and their float32 neighbours), checks that views cut at
+different offsets raise, holds a host sample against the numpy mirror,
+and times ``window_agg`` on one 390 625-object tile and on B3's data
+(n = 1e6, B3's window), the shape at which phase 6 launches it.
 
 Right after the dataset is made, the paper-scale scan runs
 ``window_agg`` and ``window_count`` over the whole file (x, y, a0 on the
@@ -78,6 +86,9 @@ plain version and timed beside its byte bound.
 6. The port's kernels bench (``repro_torch.benchmarks.kernels_bench``,
    B3) at its full size on the card, its rows printed; launch counts are
    reset before it, and ``window_agg`` must have launched in it.
+
+Phases 3 to 5 run with every plain ``*_torch`` kernel version wrapped in
+a counter: the card's path must call none of them.
 
 The line before the last is a JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -502,30 +513,45 @@ def phase_heatmap_kernels(torch, timed, seed):
     check_select("S=32,16x16", xs, ys, vals, b, w32, (16, 16))
     log("heatmap edge cases: equal (suffix_w bit for bit)")
 
-    # --- the heatmap path's shapes: 8 segments of ~3.9e5 objects, 8x8
-    # bins, 4x4 split cells
-    seg_rows = 390_625
-    xs, ys, vals, b, bb = segments(torch, gen, 8, seg_rows)
+    # --- edge cases of the one-launch design: planes at different offsets
+    # mod 16 (the scalar walk), 64 segments, an empty stream, edges past
+    # the small parameter block and a split table past the shared one, two
+    # calls back to back and tables of different sizes interleaved (the
+    # workspace must come back to its identity state after every call)
+    xs, ys, vals, b, bb = segments(torch, gen, 8, 3000)
     L = int(b[-1])
-    cx, cy = 0.5 * (bb[:, 0] + bb[:, 2]).mean(), 0.5 * (bb[:, 1] +
-                                                        bb[:, 3]).mean()
-    window = (float(cx - 150), float(cy - 150), float(cx + 150),
-              float(cy + 150))
-    xe, ye = split_edges(bb, 4)
-    n_seg = len(b) - 1
-    vmin = np.full(n_seg, -150.0)
-    vmax = np.full(n_seg, 160.0)
+    px = torch.cat([xs, xs[:3]])
+    py = torch.cat([ys[:1], ys, ys[:2]])
+    pv = torch.cat([vals[:2], vals, vals[:1]])
+    ox, oy, ov = px[:L], py[1:L + 1], pv[2:L + 2]
+    check_all("offsets", ox, oy, ov, b, bb, w, bins)
+    # all three planes 4 bytes past a 16-byte boundary: a scalar head of 3
+    # objects, the float4 body, a scalar tail of 1
+    check_all("shifted", px[1:L + 1], py[1:L + 1], pv[1:L + 1], b, bb, w,
+              bins)
+    check_all("empty_stream", xs, ys, vals, np.zeros(9, np.int64), bb, w,
+              bins)
+    for _ in range(2):
+        check_all("back_to_back", xs, ys, vals, b, bb, w, bins)
+    for tag, bn in (("interleave,8x8", bins), ("interleave,2x2", (2, 2)),
+                    ("interleave,8x8", bins), ("interleave,1x1", (1, 1))):
+        check_all(tag, xs, ys, vals, b, bb, w, bn, g=bn[0])
+    xs, ys, vals, b, bb = segments(torch, gen, 64, 500)
+    check_all("S=64", xs, ys, vals, b, bb, w32, bins)
+    # 64 x 7 + 64 x 7 = 896 interior edges, 64 x 64 = 4096 split cells
+    check_edges("S=64,8x8", xs, ys, vals, b, *split_edges(bb, 8))
+    log("one-launch edge cases: equal")
+
+    # --- the heatmap path's shapes, checked; then the three clocks
+    hs = heatmap_shapes(torch, seed)
+    xs, ys, vals, b, xe, ye, window = (hs[k] for k in (
+        "xs", "ys", "vals", "b", "xe", "ye", "window"))
+    vmin, vmax = hs["vmin"], hs["vmax"]
     err_e = check_edges("main", xs, ys, vals, b, xe, ye)
     check_wbin("main", xs, ys, vals, b, window, bins)
     err_s = check_select("main", xs, ys, vals, b, window, bins)
-    # process_heatmap's launch: S = 1, one tile of seg_rows objects that
-    # the window crosses
-    xs1, ys1, vals1 = xs[:seg_rows], ys[:seg_rows], vals[:seg_rows]
-    b1 = np.array([0, seg_rows], np.int64)
-    x0, y0, x1, y1 = bb[0]
-    window1 = (float(x0 + 0.2 * (x1 - x0)), float(y0 + 0.2 * (y1 - y0)),
-               float(x0 + 0.7 * (x1 - x0)), float(y0 + 0.7 * (y1 - y0)))
-    err_w = check_wbin("tile", xs1, ys1, vals1, b1, window1, bins)
+    err_w = check_wbin("tile", hs["xs1"], hs["ys1"], hs["vals1"], hs["b1"],
+                       hs["window1"], bins)
 
     # a host sample against the float64 numpy mirrors
     m = 50_000
@@ -561,11 +587,110 @@ def phase_heatmap_kernels(torch, timed, seed):
                      "numpy mirror")
     log("heatmap host sample against the numpy mirrors: equal")
 
-    # --- times at the heatmap path's shapes
+    clocks = heatmap_clocks(torch, timed, hs, enforce=True)
+    errs = {"segment_bin_agg_edges": err_e, "segment_window_bin_agg": err_w,
+            "segment_window_bin_select": err_s}
+    for name, c in clocks.items():
+        pms = timed(c.pop("plain"))
+        rows[name] = {"name": name, "route": "cuda", "source": c["source"],
+                      "replaces": c["replaces"], "launches": 0,
+                      "max_abs_err": errs[name], "ms": c["a_ms"],
+                      "plain_ms": pms, "bound_ms": c["bound_ms"],
+                      "bound_by": c["bound_by"], "library_ms": None}
+        log(f"{name}: kernel {c['a_ms']:.4f} ms, plain {pms:.4f} ms, bound "
+            f"{c['bound_ms']:.4f} ms ({c['bound_by']}), max_abs_err "
+            f"{errs[name]:.3e}")
+    return rows
+
+
+def heatmap_shapes(torch, seed):
+    """The heatmap path's shapes, made alike for any tree being measured:
+    8 segments of 390 625 objects (1e8 / 256, the initial grid's mean
+    tile) with a 300 x 300 window, 8x8 bins and 4x4 split cells (the
+    batched rounds of rows 4 and 7), and one such tile under a window
+    crossing it (process_heatmap's S = 1 launch of row 6)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 5)
+    seg_rows = 390_625
+    xs, ys, vals, b, bb = segments(torch, gen, 8, seg_rows)
+    cx, cy = 0.5 * (bb[:, 0] + bb[:, 2]).mean(), 0.5 * (bb[:, 1] +
+                                                        bb[:, 3]).mean()
+    xe, ye = split_edges(bb, 4)
+    x0, y0, x1, y1 = bb[0]
+    return {"xs": xs, "ys": ys, "vals": vals, "b": b,
+            "xe": xe, "ye": ye, "bins": (8, 8),
+            "window": (float(cx - 150), float(cy - 150), float(cx + 150),
+                       float(cy + 150)),
+            "vmin": np.full(8, -150.0), "vmax": np.full(8, 160.0),
+            "xs1": xs[:seg_rows], "ys1": ys[:seg_rows],
+            "vals1": vals[:seg_rows], "b1": np.array([0, seg_rows], np.int64),
+            "window1": (float(x0 + 0.2 * (x1 - x0)),
+                        float(y0 + 0.2 * (y1 - y0)),
+                        float(x0 + 0.7 * (x1 - x0)),
+                        float(y0 + 0.7 * (y1 - y0)))}
+
+
+def device_clock(torch, fn, flush, reps):
+    """Clock (b): the device time of one call, the sum of the durations of
+    the kernels ``torch.profiler`` records over ``reps`` calls (L2 flushed
+    before each; the flush's own kernel left out), over ``reps``; with the
+    kernels launched per call and their names."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a trace that lost events is taken again
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        ks = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and "at::" not in e.name
+              and not e.name.lower().startswith(("memset", "memcpy"))]
+        if ks and len(ks) % reps == 0:
+            break
+    return (sum(e.time_range.elapsed_us() for e in ks) * 1e-3 / reps,
+            len(ks) / reps, sorted({e.name.split("(")[0] for e in ks}))
+
+
+def host_clock(torch, fn, reps):
+    """Clock (c): the wrapper's host time of one call, microseconds, the
+    least over ``reps`` calls timed without a synchronise."""
+    best = float("inf")
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t)
+    torch.cuda.synchronize()
+    return best * 1e6
+
+
+def heatmap_clocks(torch, timed, hs, enforce):
+    """Rows 4, 6 and 7 at the heatmap path's shapes (:func:`heatmap_shapes`)
+    on three clocks: (a) CUDA events around the call, L2 flushed, median
+    (the table's ms); (b) the device time of its kernels from
+    ``torch.profiler``; (c) the wrapper's host microseconds. Also the
+    kernels a call launches, which must be 1 (``enforce``). Takes only the
+    op wrappers every tree of the port has, so it measures a parent tree
+    as well (``--clocks-of``)."""
+    from repro_torch.kernels import fused_select as fs
+    from repro_torch.kernels import segment_agg as sa
+
+    xs, ys, vals, b, xe, ye, window, bins = (hs[k] for k in (
+        "xs", "ys", "vals", "b", "xe", "ye", "window", "bins"))
+    xs1, ys1, vals1, b1, window1 = (hs[k] for k in (
+        "xs1", "ys1", "vals1", "b1", "window1"))
+    vmin, vmax = hs["vmin"], hs["vmax"]
+    L, L1 = int(b[-1]), int(b1[-1])
+    n_seg, nb = len(b) - 1, bins[0] * bins[1]
     n_in = int(sa.window_bin_ids(xs, ys, window, *bins)[0].sum())
     n_in1 = int(sa.window_bin_ids(xs1, ys1, window1, *bins)[0].sum())
-    nb = bins[0] * bins[1]
-    out_b = 32 * n_seg * nb
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    src = "src/repro_torch/kernels/csrc/"
     specs = {
         "segment_bin_agg_edges": (
             lambda: sa.segment_bin_agg_edges_cuda(xs, ys, vals, b, xe, ye),
@@ -573,7 +698,7 @@ def phase_heatmap_kernels(torch, timed, seed):
             # x, y, v read; 3 + 3 float64 edge compares and the float64
             # sum per object, float32 min/max
             bound_ms(12 * L + 32 * n_seg * 16, 2 * L, 7 * L),
-            err_e, "src/repro_torch/kernels/csrc/segment_bin_agg_edges.cu",
+            src + "segment_bin_agg_edges.cu",
             "src/repro/kernels/segment_agg.py:448"),
         "segment_window_bin_agg": (
             lambda: sa.segment_window_bin_agg_cuda(xs1, ys1, vals1, b1,
@@ -582,29 +707,42 @@ def phase_heatmap_kernels(torch, timed, seed):
                                                     window1, *bins),
             # x, y read; v for in-window objects; 4 compares per object,
             # 2 subtracts + 2 divides + min/max per in-window object
-            bound_ms(8 * seg_rows + 4 * n_in1 + 32 * nb,
-                     4 * seg_rows + 6 * n_in1, n_in1),
-            err_w, "src/repro_torch/kernels/csrc/segment_window_bin_agg.cu",
+            bound_ms(8 * L1 + 4 * n_in1 + 32 * nb, 4 * L1 + 6 * n_in1,
+                     n_in1),
+            src + "segment_window_bin_agg.cu",
             "src/repro/kernels/segment_agg.py:295"),
         "segment_window_bin_select": (
             lambda: fs.segment_window_bin_select_cuda(
                 xs, ys, vals, b, window, *bins, vmin, vmax),
             lambda: fs.segment_window_bin_select_torch(
                 xs, ys, vals, b, window, *bins, vmin, vmax),
-            bound_ms(8 * L + 4 * n_in + out_b + 8 * (n_seg + 1) * nb,
+            bound_ms(8 * L + 4 * n_in + 32 * n_seg * nb
+                     + 8 * (n_seg + 1) * nb,
                      4 * L + 6 * n_in, n_in + 2 * n_seg * nb),
-            err_s, "src/repro_torch/kernels/csrc/segment_window_bin_agg.cu",
+            src + "segment_window_bin_agg.cu",
             "src/repro/kernels/fused_select.py:364"),
     }
-    for name, (kern, plain, (bms, by), err, src, rep) in specs.items():
-        ms, pms = timed(kern), timed(plain)
-        rows[name] = {"name": name, "route": "cuda", "source": src,
-                      "replaces": rep, "launches": 0, "max_abs_err": err,
-                      "ms": ms, "plain_ms": pms, "bound_ms": bms,
-                      "bound_by": by, "library_ms": None}
-        log(f"{name}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
-            f"{bms:.4f} ms ({by}), max_abs_err {err:.3e}")
-    return rows
+    # clocks (a) and (c) of every row before any profiler session, whose
+    # tracing could stay attached to later launches
+    out = {name: {"a_ms": timed(kern), "c_us": host_clock(torch, kern, 20)}
+           for name, (kern, *_) in specs.items()}
+    for name, (kern, plain, (bms, by), source, rep) in specs.items():
+        b_ms, per_call, names = device_clock(torch, kern, flush, 20)
+        c = out[name]
+        c.update({"b_ms": b_ms, "launches_per_call": per_call,
+                  "kernels": names, "bound_ms": bms, "bound_by": by,
+                  "b_share_of_bound": bms / b_ms if b_ms else None,
+                  "source": source, "replaces": rep, "plain": plain})
+        log(f"{name} clocks: (a) {c['a_ms']:.4f} ms, (b) {b_ms:.4f} ms "
+            f"device, (c) {c['c_us']:.1f} us host; {per_call:g} kernels a "
+            f"call {names}; bound {bms:.4f} ms")
+        if enforce and per_call != 1:
+            raise Failed(f"{name} launched {per_call:g} kernels a call "
+                         "(profiler), not 1")
+    log("clocks: " + json.dumps({k: {f: v for f, v in c.items()
+                                     if f != "plain"}
+                                 for k, c in out.items()}))
+    return out
 
 
 # --------------------------------------------------------------------- #
@@ -1567,6 +1705,40 @@ def serving_parity(torch, a, b, budget):
         f"{ia[0]} tiles, publication {pa[-1]}")
 
 
+class PlainGuard:
+    """While active, counts every call of a plain ``*_torch`` kernel
+    version: each such function of the kernel modules, and each name
+    ``ops`` or another kernel module bound to one, is wrapped with a
+    counter. The card's path (``backend="cuda"``) must call none."""
+
+    def __init__(self):
+        from repro_torch.kernels import (bin_agg, fused_select, ops,
+                                         segment_agg, window_agg)
+        self.modules = (segment_agg, fused_select, bin_agg, window_agg, ops)
+        self.calls = {}
+
+    def _counted(self, name, fn):
+        calls = self.calls
+
+        def f(*a, **kw):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **kw)
+        return f
+
+    def __enter__(self):
+        self.saved = []
+        for m in self.modules:
+            for name, fn in list(vars(m).items()):
+                if name.endswith("_torch") and callable(fn):
+                    self.saved.append((m, name, fn))
+                    setattr(m, name, self._counted(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for m, name, fn in self.saved:
+            setattr(m, name, fn)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1574,13 +1746,18 @@ def main(argv=None) -> int:
     ap.add_argument("--queries", type=int, default=50)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--ticks", type=int, default=10)
+    ap.add_argument("--clocks-of", metavar="TREE",
+                    help="only build the port under TREE/src and print "
+                    "phase 2b's three clocks of rows 4, 6 and 7 (to time "
+                    "a parent tree and this one in turns in one call)")
     args = ap.parse_args(argv)
 
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.join(HERE, "src"))
+    tree = HERE if args.clocks_of is None else os.path.abspath(args.clocks_of)
+    sys.path.insert(0, os.path.join(tree, "src"))
     try:
         from repro_torch.kernels import build
     except ImportError as e:
@@ -1590,6 +1767,15 @@ def main(argv=None) -> int:
     try:
         phase_card_and_build(torch, build)
         timed = make_timer(torch, args.reps)
+        if args.clocks_of is not None:
+            log(f"== phase 2b clocks of {tree}")
+            clocks = heatmap_clocks(torch, timed,
+                                    heatmap_shapes(torch, args.seed),
+                                    enforce=False)
+            print(json.dumps({"clocks_of": tree, "clocks": {
+                k: {f: v for f, v in c.items() if f != "plain"}
+                for k, c in clocks.items()}}))
+            return 0
         rows = phase_kernels(torch, timed, args.seed)
         rows.update(phase_heatmap_kernels(torch, timed, args.seed))
         phase_serving_kernels(torch, args.seed)
@@ -1601,12 +1787,19 @@ def main(argv=None) -> int:
         phase_scan(torch, timed, ds)
         windows = exploration_path(ds, n_queries=args.queries,
                                    target_objects=100_000, seed=11)
-        launches = phase_main_path(torch, build, ds, windows)
-        torch.cuda.empty_cache()
-        launches.update({k: v for k, v in phase_heatmap_path(
-            torch, build, ds, windows).items() if k in HEATMAP_KERNELS})
-        torch.cuda.empty_cache()
-        serving_launches, stats = phase_serving(torch, build, ds, args.ticks)
+        with PlainGuard() as guard:
+            launches = phase_main_path(torch, build, ds, windows)
+            torch.cuda.empty_cache()
+            launches.update({k: v for k, v in phase_heatmap_path(
+                torch, build, ds, windows).items() if k in HEATMAP_KERNELS})
+            torch.cuda.empty_cache()
+            serving_launches, stats = phase_serving(torch, build, ds,
+                                                    args.ticks)
+        log(f"plain kernel versions called in phases 3-5: "
+            f"{json.dumps(guard.calls)}")
+        if guard.calls:
+            raise Failed("the card's path called a plain kernel version: "
+                         f"{guard.calls}")
         launches.update({k: v for k, v in serving_launches.items()
                          if k in SERVING_KERNELS})
         rows.update(time_serving_kernels(torch, timed, args.seed,

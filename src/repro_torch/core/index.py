@@ -53,8 +53,8 @@ from ..data.rawfile import RawDataset, as_host
 from ..kernels import fused_select as fused_mod
 from ..kernels import ops
 from ..kernels import ref as ref_mod
-from ..kernels.segment_agg import (EVERYWHERE, MAX_UNROLL, edge_cell_ids,
-                                   segment_ids, segment_window_agg_torch,
+from ..kernels.segment_agg import (EVERYWHERE, MAX_SEGMENTS, MAX_UNROLL,
+                                   edge_cell_ids, segment_ids,
                                    window_bin_ids)
 from . import geometry
 from .geometry import FULL, PARTIAL
@@ -142,10 +142,37 @@ def _host(a) -> np.ndarray:
     return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
-def _segment_stats(vals: torch.Tensor, bounds: np.ndarray) -> np.ndarray:
-    """Whole-segment float64 (count, sum, min, max) on the device."""
-    return _host(segment_window_agg_torch(vals, vals, vals, bounds,
-                                          EVERYWHERE))
+def _host_pair(a: torch.Tensor, b: torch.Tensor):
+    """Two device results on the host, in one device→host copy when ``b``
+    lies right behind ``a`` in one buffer (the select kernel's table and
+    suffix widths)."""
+    same = a.untyped_storage().data_ptr() == b.untyped_storage().data_ptr()
+    if (same and a.is_contiguous() and b.is_contiguous()
+            and b.storage_offset() == a.storage_offset() + a.numel()):
+        both = _host(torch.as_strided(a, (a.numel() + b.numel(),), (1,)))
+        return (both[:a.numel()].reshape(a.shape),
+                both[a.numel():].reshape(b.shape))
+    return _host(a), _host(b)
+
+
+def _segment_stats(vals: torch.Tensor, bounds: np.ndarray,
+                   backend: str) -> np.ndarray:
+    """Whole-segment float64 (count, sum, min, max) of ``vals`` over the
+    segments ``bounds`` delimits: ``ops.segment_window_agg`` on
+    ``backend`` ("torch": the plain version; "cuda": the kernel) under a
+    ±inf window, one call per run of at most ``MAX_SEGMENTS`` segments
+    (the kernel's boundary table), the rows concatenated on the device
+    and copied to the host once.
+
+    The window compares the values themselves (``x = y = v``) against
+    ±inf: ±inf values count, but the kernel would drop a NaN value, which
+    fails every compare (the plain version skips the compare under this
+    window). Synthetic and paper data hold no NaN."""
+    rows = [ops.segment_window_agg(vals, vals, vals,
+                                   bounds[a:a + MAX_SEGMENTS + 1],
+                                   EVERYWHERE, backend=backend)
+            for a in range(0, len(bounds) - 1, MAX_SEGMENTS)]
+    return _host(rows[0] if len(rows) == 1 else torch.cat(rows))
 
 
 def _check_split_counts(agg: np.ndarray, counts: np.ndarray) -> None:
@@ -270,7 +297,7 @@ class TileIndex:
         """Compute metadata for tiles from values given in perm order."""
         if not self._np:
             idx, bounds = self._gather_segments(tile_ids)
-            st = _segment_stats(vals_perm_order[idx], bounds)
+            st = _segment_stats(vals_perm_order[idx], bounds, self._backend)
             nz = self.count[tile_ids] > 0
             self.meta_sum[attr][tile_ids] = np.where(nz, st[:, 1], 0.0)
             self.meta_min[attr][tile_ids[nz]] = st[nz, 2]
@@ -406,8 +433,9 @@ class TileIndex:
             else:
                 contrib = (0, 0.0, np.inf, -np.inf)
         else:
-            st = _host(segment_window_agg_torch(
-                xs, ys, vals, np.array([0, c], np.int64), window))[0]
+            st = _host(ops.segment_window_agg(
+                xs, ys, vals, np.array([0, c], np.int64), window,
+                backend=self._backend))[0]
             contrib = ((int(st[0]), float(st[1]), float(st[2]),
                         float(st[3])) if st[0] else (0, 0.0, np.inf, -np.inf))
 
@@ -425,7 +453,8 @@ class TileIndex:
             self.meta_min[attr][tile_id] = float(vals.min())
             self.meta_max[attr][tile_id] = float(vals.max())
         else:
-            st = _segment_stats(vals, np.array([0, len(vals)], np.int64))[0]
+            st = _segment_stats(vals, np.array([0, len(vals)], np.int64),
+                                self._backend)[0]
             self.meta_sum[attr][tile_id] = float(st[1])
             self.meta_min[attr][tile_id] = float(st[2])
             self.meta_max[attr][tile_id] = float(st[3])
@@ -637,8 +666,8 @@ class TileIndex:
                                 dtype=np.float64))
                 else:
                     self.meta_sum[a][sl] = _segment_stats(
-                        vals_sorted, np.concatenate(
-                            [[0], np.cumsum(counts)]))[:, 1]
+                        vals_sorted, np.concatenate([[0], np.cumsum(counts)]),
+                        self._backend)[:, 1]
             else:
                 # inherit sound min/max bounds; sum unknown for children
                 self.meta_min[a][sl] = self.meta_min[a][tile_id]
@@ -732,10 +761,9 @@ class TileIndex:
             agg, suffix_w = fused_mod.segment_window_bin_select_np(
                 xs, ys, vals, bounds, window, bx, by, vmin_s, vmax_s)
         else:
-            agg, suffix_w = ops.segment_window_bin_select(
+            agg, suffix_w = _host_pair(*ops.segment_window_bin_select(
                 xs, ys, vals, bounds, window, vmin_s, vmax_s, bx=bx, by=by,
-                backend=self._backend)
-            agg, suffix_w = _host(agg), _host(suffix_w)
+                backend=self._backend))
         payload["suffix_w"] = suffix_w
         self.adapt_stats.kernel_calls += 1
         # bin-aligned split lines for every tile of the round (the same
@@ -787,7 +815,7 @@ class TileIndex:
             full = ref_mod.segment_window_agg_np(xs, ys, vals, bounds,
                                                  EVERYWHERE)
         else:
-            full = _segment_stats(vals, bounds)
+            full = _segment_stats(vals, bounds, self._backend)
         nz = counts > 0
         self.meta_sum[attr][tile_ids[nz]] = full[nz, 1]
         self.meta_min[attr][tile_ids[nz]] = full[nz, 2]
@@ -971,7 +999,7 @@ class TileIndex:
                 else:
                     # children are contiguous in key order
                     sums = _segment_stats(vals_sorted, np.concatenate(
-                        [[0], np.cumsum(flat_cnt)]))[:, 1]
+                        [[0], np.cumsum(flat_cnt)]), self._backend)[:, 1]
                 self.meta_sum[a][sl] = sums
             else:
                 # inherit sound min/max bounds; sum unknown for children
@@ -1041,12 +1069,12 @@ class TileIndex:
         bb = self.bbox[ids]
         for plane, lo, hi in ((self.x_s, bb[:, 0], bb[:, 2]),
                               (self.y_s, bb[:, 1], bb[:, 3])):
-            st = _segment_stats(plane, bounds)
+            st = _segment_stats(plane, bounds, self._backend)
             assert (st[nz, 2] >= lo[nz] - tol).all()
             assert (st[nz, 3] <= hi[nz] + tol).all()
         if attr is not None and attr in self.meta_sum:
             col = self.ds.read_all_unaccounted(attr)
-            st = _segment_stats(col[self.perm], bounds)
+            st = _segment_stats(col[self.perm], bounds, self._backend)
             assert (st[nz, 2] >= self.meta_min[attr][ids[nz]]).all()
             assert (st[nz, 3] <= self.meta_max[attr][ids[nz]]).all()
             v = nz & self.meta_valid[attr][ids]

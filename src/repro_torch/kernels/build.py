@@ -86,9 +86,8 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, dict]:
     return report
 
 
-def load(name: str, fn: str, argtypes) -> ctypes._CFuncPtr:
-    """The launch function ``fn`` of library ``name`` (built on first
-    use), with its ``argtypes`` set and an ``int`` error-code result."""
+def library(name: str) -> ctypes.CDLL:
+    """Library ``name``, built and loaded on first use."""
     lib = _LIBS.get(name)
     if lib is None:
         path = library_path(name)
@@ -98,7 +97,13 @@ def load(name: str, fn: str, argtypes) -> ctypes._CFuncPtr:
         lib.agg_error_string.argtypes = [ctypes.c_int]
         lib.agg_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib
-    f = getattr(lib, fn)
+    return lib
+
+
+def load(name: str, fn: str, argtypes) -> ctypes._CFuncPtr:
+    """The launch function ``fn`` of library ``name`` (built on first
+    use), with its ``argtypes`` set and an ``int`` error-code result."""
+    f = getattr(library(name), fn)
     f.argtypes = argtypes
     f.restype = ctypes.c_int
     return f

@@ -33,6 +33,7 @@ hand-written kernels and take CUDA tensors only.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -303,8 +304,8 @@ _SWA_ARGS = [_P, _P, _P, _P, ctypes.c_int, ctypes.c_float, ctypes.c_float,
              ctypes.c_float, ctypes.c_float, _P, _P, _P]
 _SBA_ARGS = [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              _P, _P, _P]
-_SWB_ARGS = [_P, _P, _P, _P, ctypes.c_int] + [ctypes.c_float] * 6 + [
-    ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P]
+_ONE_ARGS = [_P] * 9     # x, y, v, host args, ws, ticket, out, suffix, stream
+_EDGES_ARGS = [_P] * 8   # x, y, v, host args, ws, ticket, out, stream
 _SWAM_ARGS = [_P, _P, _P, _P, ctypes.c_int, _P, _P, _P, _P]
 _SWBM_ARGS = [_P, _P, _P, _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int,
               _P, _P, ctypes.c_int, _P, _P, _P, _P]
@@ -389,71 +390,161 @@ def segment_bin_agg_cuda(xs, ys, vals, boundaries, bboxes, gx: int,
     return out
 
 
+# --- the one-launch kernels (rows 4, 6 and 7 of PERF.md's kernel table):
+# a cached launch function, one workspace per (device, stream) that every
+# call leaves in its identity state, one output buffer a call
+
+# the one-window entry's host arguments (csrc/segment_window_bin_agg.cu
+# WinArgs: numpy packs them without padding, as the C struct lies)
+_WIN_ARGS = np.dtype([("b", "<i8", MAX_SEGMENTS + 1),
+                      ("dv", "<f8", MAX_SEGMENTS), ("w", "<f4", 6),
+                      ("i", "<i4", 4)])
+# the split kernel's host arguments (csrc/segment_bin_agg_edges.cu
+# EdgeHead, then the edges): the boundaries and (S, gx, gy, ne) in
+# EDGE_HEAD float64 words, then the ne interior edges. Its launch takes at
+# most EDGE_CAP of them.
+EDGE_HEAD = (MAX_SEGMENTS + 1) + 2
+EDGE_CAP = 4022
+# an empty cell's (min, max) word: the encodings of +inf and -inf
+_EMPTY_EXTREMA = (0x007FFFFF << 32) | 0xFF800000
+
+_FNS: dict = {}
+_WORKSPACES: dict = {}
+
+
+def _one_launch(lib: str, fn: str, argtypes):
+    """The cached launch function ``fn`` of ``lib``; at first use, its
+    host argument layout is checked against the library's."""
+    f = _FNS.get(fn)
+    if f is None:
+        f = build.load(lib, fn, argtypes)
+        dll = build.library(lib)
+        if lib == "segment_window_bin_agg":
+            ok = dll.segment_window_bin_agg_args_size() == _WIN_ARGS.itemsize
+        else:
+            head, cap = ctypes.c_int(), ctypes.c_int()
+            dll.segment_bin_agg_edges_limits(ctypes.byref(head),
+                                             ctypes.byref(cap))
+            ok = (head.value, cap.value) == (8 * EDGE_HEAD, EDGE_CAP)
+        if not ok:
+            raise RuntimeError(f"{lib}: the library's argument layout "
+                               "differs from the wrapper's")
+        _FNS[fn] = f
+    return f
+
+
+def workspace(dev: torch.device, stream: int, cells: int) -> torch.Tensor:
+    """The one-launch kernels' global workspace on ``(dev, stream)``:
+    int64 words, three a cell (count, sum, then min and max, as
+    ``csrc/agg_common.cuh`` ``Cell`` lies) and the ticket last, in
+    identity state between calls (every call resets what it used). Calls
+    on one stream are ordered, so they share it; another stream gets its
+    own. Allocated and initialised when first needed, and again when a
+    call needs more cells than it holds."""
+    key = (dev.index, stream)
+    ws = _WORKSPACES.get(key)
+    if ws is None or ws.numel() < 3 * cells + 1:
+        ws = torch.zeros(3 * cells + 1, dtype=torch.int64, device=dev)
+        ws[2:3 * cells:3] = _EMPTY_EXTREMA
+        _WORKSPACES[key] = ws
+    return ws
+
+
+def _run_one(name: str, fn, dev: torch.device, cells: int, planes, args,
+             outs) -> None:
+    """``fn(*planes, args, ws, ticket, *outs, stream)`` on the current
+    stream with its workspace, without entering a device context when
+    ``dev`` is current. A failed launch drops the workspace and raises."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ws = workspace(dev, stream, cells)
+    call = (*planes, args, ws.data_ptr(),
+            ws.data_ptr() + 8 * (ws.numel() - 1), *outs, stream)
+    if dev.index == torch.cuda.current_device():
+        rc = fn(*call)
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*call)
+    if rc != 0:
+        _WORKSPACES.pop((dev.index, stream), None)
+        build.check(name, rc)
+
+
 def segment_bin_agg_edges_cuda(xs, ys, vals, boundaries, x_edges,
                                y_edges):
     """Launch ``segment_bin_agg_edges`` (TPU original:
-    ``repro/kernels/segment_agg.py`` ``segment_bin_agg_edges_pallas``).
-    The edges stay float64. Returns float64 ``(S, gx*gy, 4)`` on the
-    device."""
+    ``repro/kernels/segment_agg.py`` ``segment_bin_agg_edges_pallas``),
+    one kernel a call. The edges stay float64 and travel in the launch's
+    parameters: at most ``EDGE_CAP`` interior edges (``S·(gx + gy −
+    2)``), else it raises before any launch. Returns float64
+    ``(S, gx*gy, 4)`` on the device."""
     b = host_bounds(boundaries)
     n_seg, gx, gy = check_edges(b, x_edges, y_edges)
-    if n_seg > MAX_SEGMENTS or 8 * (n_seg + 1 + n_seg * (gx + gy - 2)) \
-            > 32768:
-        raise ValueError(f"{n_seg} segments of {gx}x{gy} cells exceed the "
-                         f"kernel's shared edge table")
+    ne = n_seg * (gx + gy - 2)
+    if n_seg > MAX_SEGMENTS or ne > EDGE_CAP:
+        raise ValueError(f"{n_seg} segments of {gx}x{gy} cells: more than "
+                         f"{MAX_SEGMENTS} segments or {ne} interior edges, "
+                         f"more than the kernel's {EDGE_CAP}")
     dev = check_planes(b, xs, ys, vals)
     k = gx * gy
-    edges = torch.from_numpy(np.concatenate([
-        np.asarray(x_edges, np.float64)[:, 1:-1].ravel(),
-        np.asarray(y_edges, np.float64)[:, 1:-1].ravel()])).to(dev)
-    fn = build.load("segment_bin_agg_edges", "segment_bin_agg_edges_launch",
-                    _SBA_ARGS)
-    ws = torch.empty((n_seg * k, 3), dtype=torch.int64, device=dev)
+    args = np.zeros(EDGE_HEAD + ne, np.float64)
+    args[:n_seg + 1].view(np.int64)[:] = b
+    args[MAX_SEGMENTS + 1:EDGE_HEAD].view(np.int32)[:] = (n_seg, gx, gy, ne)
+    nx = EDGE_HEAD + n_seg * (gx - 1)
+    args[EDGE_HEAD:nx] = np.asarray(x_edges, np.float64)[:, 1:-1].ravel()
+    args[nx:] = np.asarray(y_edges, np.float64)[:, 1:-1].ravel()
     out = torch.empty((n_seg, k, 4), dtype=torch.float64, device=dev)
-    with torch.cuda.device(dev):
-        rc = fn(xs.data_ptr(), ys.data_ptr(), vals.data_ptr(),
-                b.ctypes.data, edges.data_ptr(), n_seg, gx, gy,
-                ws.data_ptr(), out.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream)
-    build.check("segment_bin_agg_edges", rc)
+    fn = _one_launch("segment_bin_agg_edges",
+                     "segment_bin_agg_edges_one_launch", _EDGES_ARGS)
+    _run_one("segment_bin_agg_edges", fn, dev, n_seg * k,
+             (xs.data_ptr(), ys.data_ptr(), vals.data_ptr()),
+             args.ctypes.data, (out.data_ptr(),))
     build.LAUNCHES["segment_bin_agg_edges"] += 1
     return out
 
 
+@functools.lru_cache(maxsize=256)
+def _contract(window: tuple, bx: int, by: int) -> tuple:
+    """``ref.window_bin_params`` of one window (a heatmap's rounds all
+    bin by one)."""
+    return tuple(window_bin_params(window, bx, by)[0].tolist())
+
+
 def launch_segment_window_bin(xs, ys, vals, b: np.ndarray, window, bx: int,
                               by: int, dv=None):
-    """One launch of the ``csrc/segment_window_bin_agg.cu`` kernel
-    (shared by ``segment_window_bin_agg`` and, with the per-segment
-    float64 widths ``dv``, ``segment_window_bin_select``; the callers
-    count their own launches). Returns ``(agg (S, bx*by, 4), suffix_w
-    (S+1, bx*by) or None)``."""
+    """One launch of the ``csrc/segment_window_bin_agg.cu`` one-window
+    kernel (shared by ``segment_window_bin_agg`` and, with the
+    per-segment float64 widths ``dv``, ``segment_window_bin_select``; the
+    callers count their own launches). Returns ``(agg (S, bx*by, 4),
+    suffix_w (S+1, bx*by) or None)``: views of one float64 buffer, the
+    suffix rows behind the table's."""
     n_seg = len(b) - 1
     nb = bx * by
     if n_seg > MAX_SEGMENTS or bx < 1 or by < 1:
         raise ValueError(f"{n_seg} segments > MAX_SEGMENTS={MAX_SEGMENTS} "
                          f"or an empty bin grid {bx}x{by}")
     dev = check_planes(b, xs, ys, vals)
-    params = [float(v) for v in window_bin_params(window, bx, by)[0]]
-    fn = build.load("segment_window_bin_agg",
-                    "segment_window_bin_agg_launch", _SWB_ARGS)
-    ws = torch.empty((n_seg * nb, 3), dtype=torch.int64, device=dev)
-    out = torch.empty((n_seg, nb, 4), dtype=torch.float64, device=dev)
-    suffix = None
+    args = np.zeros(1, _WIN_ARGS)
+    args["b"][0, :n_seg + 1] = b
+    args["w"][0] = _contract(tuple(float(w) for w in window), bx, by)
+    args["i"][0] = (n_seg, bx, by, dv is not None)
+    rows = 4 * n_seg * nb
     if dv is not None:
         dv = np.ascontiguousarray(dv, np.float64)
         if dv.shape != (n_seg,):
             raise ValueError(f"widths of shape {dv.shape}, want "
                              f"({n_seg},)")
-        suffix = torch.empty((n_seg + 1, nb), dtype=torch.float64,
-                             device=dev)
-    with torch.cuda.device(dev):
-        rc = fn(xs.data_ptr(), ys.data_ptr(), vals.data_ptr(),
-                b.ctypes.data, n_seg, *params, bx, by,
-                None if dv is None else dv.ctypes.data, ws.data_ptr(),
-                out.data_ptr(), None if suffix is None else suffix.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream)
-    build.check("segment_window_bin_agg", rc)
-    return out, suffix
+        args["dv"][0, :n_seg] = dv
+    buf = torch.empty(rows + (0 if dv is None else (n_seg + 1) * nb),
+                      dtype=torch.float64, device=dev)
+    fn = _one_launch("segment_window_bin_agg",
+                     "segment_window_bin_agg_one_launch", _ONE_ARGS)
+    _run_one("segment_window_bin_agg", fn, dev, n_seg * nb,
+             (xs.data_ptr(), ys.data_ptr(), vals.data_ptr()),
+             args.ctypes.data,
+             (buf.data_ptr(),
+              None if dv is None else buf.data_ptr() + 8 * rows))
+    agg = buf[:rows].view(n_seg, nb, 4)
+    return agg, (None if dv is None else buf[rows:].view(n_seg + 1, nb))
 
 
 def segment_window_bin_agg_cuda(xs, ys, vals, boundaries, window, bx: int,

@@ -233,3 +233,188 @@ def test_serving_tick_cuda_matches_torch(card):
     out["cuda"][1].check_invariants("a0")
     for k in ("segment_window_agg_multi", "segment_window_bin_select_multi"):
         assert build.LAUNCHES[k] > before.get(k, 0), k
+
+
+# --- the one-launch kernels (rows 4, 6 and 7 of PERF.md's kernel table)
+
+ONE_LAUNCH = ("segment_bin_agg_edges", "segment_window_bin_agg",
+              "segment_window_bin_select")
+
+
+def _one_launch_call(op, xs, ys, vals, b, bb, bins=(8, 8), g=4):
+    """``(call(v, backend), counter)`` for one of the one-launch ops on
+    these planes: a 300 x 300 window, ``bins``, ``g x g`` split cells."""
+    n_seg = len(b) - 1
+    w = (100.3, 100.7, 400.1, 400.9)
+    xe, ye = _edges(bb, g, 2)
+    vmin = np.full(n_seg, -200.0)
+    vmax = np.linspace(50.0, 300.0, n_seg)
+    calls = {
+        "segment_bin_agg_edges": lambda v, be: ops.segment_bin_agg_edges(
+            xs, ys, v, b, xe, ye, backend=be),
+        "segment_window_bin_agg": lambda v, be: ops.segment_window_bin_agg(
+            xs, ys, v, b, w, bx=bins[0], by=bins[1], backend=be),
+        "segment_window_bin_select":
+            lambda v, be: ops.segment_window_bin_select(
+                xs, ys, v, b, w, vmin, vmax, bx=bins[0], by=bins[1],
+                backend=be),
+    }
+    return calls[op]
+
+
+def _check_one_launch(call, vals):
+    got = call(vals, "cuda")
+    torch.cuda.synchronize()
+    want = call(vals, "torch")
+    absv = call(vals.abs(), "torch")
+    if isinstance(got, tuple):
+        assert torch.equal(got[1], want[1])       # suffix_w, bit for bit
+        assert (got[1][-1] == 0).all()
+        got, want, absv = got[0], want[0], absv[0]
+    _assert_equal_rows(got, want, absv[..., 1])
+
+
+def _planes(card, seed, n_seg=8, rows=20_000, empty=()):
+    xs, ys, vals, b, bb = _case(seed, n_seg=n_seg, rows=rows)
+    counts = np.diff(b)
+    counts[list(empty)] = 0
+    b = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    return (*(torch.from_numpy(a).to(card) for a in (xs, ys, vals)), b, bb)
+
+
+@pytest.mark.parametrize("op", ONE_LAUNCH)
+def test_one_launch_back_to_back_calls_agree(card, op):
+    """Two calls in a row, each against the plain version: the first
+    call's last block left the workspace and the ticket as it found
+    them."""
+    xs, ys, vals, b, bb = _planes(card, 11)
+    call = _one_launch_call(op, xs, ys, vals, b, bb)
+    _check_one_launch(call, vals)
+    _check_one_launch(call, vals)
+
+
+def test_one_launch_tables_of_different_sizes_interleave(card):
+    """Calls whose tables differ in size (S·nb from 1 to 512 cells, and
+    the split's S·k) share one workspace in turns."""
+    xs, ys, vals, b, bb = _planes(card, 12)
+    b1 = b[[0, 1]]
+    for op in ONE_LAUNCH * 2:
+        for args, kw in (((xs, ys, vals, b, bb), {}),
+                         ((xs, ys, vals, b1, bb[:1]), {"bins": (1, 1),
+                                                       "g": 1}),
+                         ((xs, ys, vals, b, bb), {"bins": (2, 2), "g": 2})):
+            _check_one_launch(_one_launch_call(op, *args, **kw), vals)
+
+
+@pytest.mark.parametrize("op", ONE_LAUNCH)
+@pytest.mark.parametrize("shift", [(0, 1, 2), (1, 1, 1), (3, 3, 0)],
+                         ids=["apart", "together", "v_apart"])
+def test_one_launch_planes_at_any_offset(card, op, shift):
+    """x, y and v as views starting ``shift`` floats into their buffers:
+    at different offsets mod 16 (the scalar walk), all at one offset (a
+    scalar head, the float4 body, a scalar tail), v alone apart."""
+    xs, ys, vals, b, bb = _planes(card, 13)
+    L = int(b[-1])
+    views = [torch.cat([p[:s], p, p[:3]])[s:s + L]
+             for p, s in zip((xs, ys, vals), shift)]
+    for p, s in zip(views, shift):
+        assert p.data_ptr() % 16 == 4 * s % 16
+    _check_one_launch(_one_launch_call(op, *views[:2], views[2], b, bb),
+                      views[2])
+
+
+@pytest.mark.parametrize("op", ONE_LAUNCH)
+@pytest.mark.parametrize("case", ["S=64", "empty_stream", "past_2048"])
+def test_one_launch_edge_shapes(card, op, case):
+    """64 segments; a stream whose segments are all empty (the last
+    block still writes the empty rows); a table past the 2048 shared
+    cells (32 segments x 16x16 bins, 32 segments x 8x8 split cells),
+    which folds into the global workspace."""
+    if case == "S=64":
+        xs, ys, vals, b, bb = _planes(card, 14, n_seg=64, rows=2000)
+        kw = {}
+    elif case == "empty_stream":
+        xs, ys, vals, b, bb = _planes(card, 15, empty=range(8))
+        assert b[-1] == 0
+        kw = {}
+    else:
+        xs, ys, vals, b, bb = _planes(card, 16, n_seg=32, rows=3000)
+        kw = {"bins": (16, 16), "g": 8}
+    _check_one_launch(_one_launch_call(op, xs, ys, vals, b, bb, **kw), vals)
+
+
+@pytest.mark.parametrize("op", ONE_LAUNCH)
+def test_one_launch_kernels_launch_once_a_call(card, op):
+    """``torch.profiler`` sees exactly one kernel a call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    xs, ys, vals, b, bb = _planes(card, 17)
+    call = _one_launch_call(op, xs, ys, vals, b, bb)
+    call(vals, "cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            call(vals, "cuda")
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA and "at::" not in e.name
+               and not e.name.lower().startswith(("memset", "memcpy"))]
+    assert len(kernels) == 5, kernels
+
+
+@pytest.mark.parametrize("op", ONE_LAUNCH)
+def test_one_launch_refused_launch_leaves_next_call_correct(card, op,
+                                                            monkeypatch):
+    """Boundaries that decrease, let past the wrapper's own check: the
+    library refuses the launch, the wrapper raises and drops its
+    workspace, and the next call is right."""
+    from repro_torch.kernels import fused_select as fs
+    from repro_torch.kernels import segment_agg as sa
+
+    xs, ys, vals, b, bb = _planes(card, 18)
+    call = _one_launch_call(op, xs, ys, vals, b, bb)
+    _check_one_launch(call, vals)
+    bad = b.copy()
+    bad[3], bad[4] = bad[4], bad[3]
+    before = build.LAUNCHES[op]
+    with monkeypatch.context() as m:
+        for mod in (sa, fs):
+            m.setattr(mod, "host_bounds",
+                      lambda bnd: np.asarray(bnd, np.int64))
+        with pytest.raises(RuntimeError, match="launch failed"):
+            _one_launch_call(op, xs, ys, vals, bad, bb)(vals, "cuda")
+    assert build.LAUNCHES[op] == before
+    stream = torch.cuda.current_stream(card).cuda_stream
+    assert (card.index or 0, stream) not in sa._WORKSPACES \
+        and (card.index, stream) not in sa._WORKSPACES
+    _check_one_launch(call, vals)
+
+
+def test_one_launch_streams_keep_their_own_workspace(card):
+    """Calls on two streams at once each take their stream's workspace:
+    both results are right, and each stream holds its own."""
+    from repro_torch.kernels import segment_agg as sa
+
+    xs, ys, vals, b, bb = _planes(card, 19)
+    calls = [_one_launch_call(op, xs, ys, vals, b, bb) for op in ONE_LAUNCH]
+    want = [call(vals, "torch") for call in calls]
+    absv = [call(vals.abs(), "torch") for call in calls]
+    streams = [torch.cuda.Stream(card) for _ in range(2)]
+    torch.cuda.synchronize()
+    got = []
+    for _ in range(3):
+        for s in streams:
+            with torch.cuda.stream(s):
+                got.append([call(vals, "cuda") for call in calls])
+    torch.cuda.synchronize()
+    keys = {(xs.device.index, s.cuda_stream) for s in streams}
+    assert keys <= set(sa._WORKSPACES)
+    assert len({sa._WORKSPACES[k].data_ptr() for k in keys}) == 2
+    for results in got:
+        for g, w, a in zip(results, want, absv):
+            if isinstance(g, tuple):
+                assert torch.equal(g[1], w[1])
+                g, w, a = g[0], w[0], a[0]
+            _assert_equal_rows(g, w, a[..., 1])

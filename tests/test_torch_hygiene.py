@@ -97,3 +97,28 @@ def test_chip_smoke_fails_without_card_or_repo(tmp_path, alone):
                        cwd=tmp_path)
     assert p.returncode != 0
     assert '"ok"' not in p.stdout
+
+
+CORE_FILES = sorted((ROOT / "src" / "repro_torch" / "core").glob("*.py"))
+KERNEL_MODULES = ("segment_agg", "fused_select", "bin_agg", "window_agg")
+# helpers of the kernel modules that are no kernel's plain version: the
+# core may import them (the oracles, the axis-only counts, the split
+# ownership rule)
+SHARED_HELPERS = {"agg4", "window_bin_ids", "edge_cell_ids", "segment_ids"}
+
+
+@pytest.mark.parametrize("path", CORE_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_core_reaches_kernels_through_ops(path):
+    """No module of ``repro_torch/core`` imports a plain kernel version
+    (a name ending in ``_torch`` from a kernel module) or reaches one as
+    an attribute: the core reaches every kernel through ``ops`` with its
+    backend, so the card's path runs no plain version."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.ImportFrom) and node.module \
+                and node.module.split(".")[-1] in KERNEL_MODULES:
+            for a in node.names:
+                assert a.name in SHARED_HELPERS \
+                    or not a.name.endswith("_torch"), (path.name, a.name)
+        if isinstance(node, ast.Attribute):
+            assert not node.attr.endswith("_torch"), (path.name, node.attr)

@@ -806,3 +806,79 @@ def test_window_count_reads_no_values_and_ops_validate():
     with pytest.raises(ValueError):       # n past the planes
         pops.window_agg(t(xs), t(ys), t(vals), window, n=len(xs) + 1,
                         backend="torch")
+
+
+def test_split_kernel_edge_limit_raises_before_any_launch():
+    """The split kernel takes its edges in its launch parameters: past
+    ``EDGE_CAP`` interior edges the wrapper raises ``ValueError`` before
+    it looks at the planes; within the limit it goes on to them (and a
+    CPU tensor then raises ``TypeError``). No launch is counted."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import segment_agg as sa
+
+    before = sum(build.LAUNCHES.values())
+    xs = torch.zeros(16)
+    for n_seg, span, err in ((4, sa.EDGE_CAP // 4, TypeError),
+                             (4, sa.EDGE_CAP // 4 + 1, ValueError),
+                             (sa.MAX_SEGMENTS + 1, 2, ValueError)):
+        b = np.zeros(n_seg + 1, np.int64)
+        # gx + gy - 2 = span interior edges a segment
+        gx = span // 2 + 1
+        gy = span - gx + 2
+        xe = np.tile(np.linspace(0.0, 1.0, gx + 1), (n_seg, 1))
+        ye = np.tile(np.linspace(0.0, 1.0, gy + 1), (n_seg, 1))
+        assert n_seg * (gx + gy - 2) == n_seg * span
+        with pytest.raises(err):
+            sa.segment_bin_agg_edges_cuda(xs, xs, xs, b, xe, ye)
+    assert sum(build.LAUNCHES.values()) == before
+
+
+def test_one_launch_workspace_starts_in_identity_state():
+    """The one-launch kernels' workspace words decode, under the kernels'
+    float encoding (``csrc/agg_common.cuh`` ``o2f``), to empty cells —
+    count 0, sum 0, min +inf, max -inf — with the ticket at 0; a larger
+    table replaces it, a smaller one reuses it."""
+    from repro_torch.kernels import segment_agg as sa
+
+    def o2f(o):
+        u = (o & 0x7FFFFFFF) if o & 0x80000000 else (~o & 0xFFFFFFFF)
+        return float(np.array([u], np.uint32).view(np.float32)[0])
+
+    dev = torch.device("cpu")
+    ws = sa.workspace(dev, 12345, 5)
+    w = ws.numpy()
+    assert len(w) == 3 * 5 + 1 and w[-1] == 0
+    assert (w[0:15:3] == 0).all() and (w[1:15:3] == 0).all()
+    for word in w[2:15:3].astype(np.uint64):
+        assert o2f(int(word) & 0xFFFFFFFF) == np.inf
+        assert o2f(int(word) >> 32) == -np.inf
+    assert sa.workspace(dev, 12345, 3) is ws
+    assert sa.workspace(dev, 12345, 6).numel() == 3 * 6 + 1
+    assert sa.workspace(dev, 54321, 3) is not sa.workspace(dev, 12345, 3)
+    sa._WORKSPACES.clear()
+
+
+def test_select_pair_crosses_to_the_host_in_one_copy(monkeypatch):
+    """``read_batch_heatmap`` copies the select kernel's table and suffix
+    widths, adjacent views of one buffer, to the host in one copy; two
+    separate tensors (the plain version's) take one copy each."""
+    from repro_torch.core import index as index_mod
+
+    copies = []
+    real = index_mod._host
+
+    def spy(a):
+        copies.append(tuple(a.shape))
+        return real(a)
+
+    monkeypatch.setattr(index_mod, "_host", spy)
+    buf = torch.arange(2 * 3 * 4 + 3 * 3, dtype=torch.float64)
+    agg, suffix = buf[:24].view(2, 3, 4), buf[24:].view(3, 3)
+    a, s = index_mod._host_pair(agg, suffix)
+    assert copies == [(33,)]
+    np.testing.assert_array_equal(a, agg.numpy())
+    np.testing.assert_array_equal(s, suffix.numpy())
+    copies.clear()
+    a, s = index_mod._host_pair(agg.clone(), suffix.clone())
+    assert copies == [(2, 3, 4), (3, 3)]
+    np.testing.assert_array_equal(s, suffix.numpy())

@@ -21,8 +21,11 @@ import pytest
 from repro.core import AQPEngine as RefEngine, IndexConfig as RefConfig
 from repro.data import make_synthetic_dataset as ref_dataset
 from repro.data.synthetic import exploration_path as ref_path
+from repro.kernels import ref as ref_kernels
 from repro_torch.core import AQPEngine, IndexConfig, index_to_numpy
+from repro_torch.core import index as index_mod
 from repro_torch.data import exploration_path, make_synthetic_dataset
+from repro_torch.kernels.segment_agg import EVERYWHERE, MAX_SEGMENTS
 
 AGGS = ["count", "sum", "mean", "min", "max"]
 PHIS = [0.0, 0.01, 0.05]
@@ -179,3 +182,47 @@ def test_port_exact_equals_oracle(agg, backend):
         assert r.exact
         np.testing.assert_allclose(r.value, eng.oracle(w, agg, "a0"),
                                    rtol=1e-12, atol=1e-9)
+
+
+@pytest.mark.parametrize("infinite", [False, True],
+                         ids=["finite", "inf_values"])
+def test_segment_stats_runs_of_max_segments(monkeypatch, infinite):
+    """The index's whole-segment enrichment over 200 segments (some
+    empty) goes through ``ops.segment_window_agg`` in runs of at most
+    ``MAX_SEGMENTS`` (the kernel's boundary table) and equals the
+    reference's ``segment_window_agg_np`` under the ±inf window: counts
+    and extrema equal, sums within 1e-12·Σ|v|. ±inf values count, as
+    they do in the reference."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(7)
+    counts = rng.integers(0, 400, 200)
+    counts[[0, 63, 64, 65, 127, 199]] = 0
+    b = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    vals = rng.normal(5.0, 30.0, int(b[-1])).astype(np.float32)
+    if infinite:
+        vals[b[3]] = np.inf
+        vals[b[70] + 1] = -np.inf
+        vals[b[140]:b[141]] = np.inf
+    calls = []
+    real = ops.segment_window_agg
+
+    def spy(xs, ys, vs, boundaries, window, *, backend=None):
+        calls.append((len(boundaries) - 1, backend))
+        return real(xs, ys, vs, boundaries, window, backend=backend)
+
+    monkeypatch.setattr(ops, "segment_window_agg", spy)
+    got = index_mod._segment_stats(torch.from_numpy(vals), b, "torch")
+    assert calls == [(MAX_SEGMENTS, "torch")] * 3 + [(200 - 3 * MAX_SEGMENTS,
+                                                      "torch")]
+    want = ref_kernels.segment_window_agg_np(vals, vals, vals, b, EVERYWHERE)
+    absv = ref_kernels.segment_window_agg_np(vals, vals, np.abs(vals), b,
+                                             EVERYWHERE)
+    np.testing.assert_array_equal(got[:, 0], want[:, 0])
+    assert (got[:, 2] == want[:, 2]).all() and (got[:, 3] == want[:, 3]).all()
+    fin = np.isfinite(want[:, 1])
+    assert (got[~fin, 1] == want[~fin, 1]).all()
+    assert (np.abs(got[fin, 1] - want[fin, 1]) <= 1e-12 * absv[fin, 1]).all()
+    assert fin.all() != infinite
