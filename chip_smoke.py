@@ -11,10 +11,12 @@ Phases (each prints its own lines; any failure exits non-zero):
    kernels/csrc`` (one ``nvcc`` per source, in parallel).
 2. Kernels against their plain PyTorch versions, on the card: the main
    path's shapes (8 segments of ~4e5 objects, 2x2 split cells), a stress
-   shape (64 segments, 1.6e7 objects, 4x4 cells) and edge cases; counts
-   and extrema must be equal, float64 sums within 1e-12 * sum|v| per
-   cell; a host sample is also held against the float64 numpy mirrors.
-   Median times from CUDA events beside each kernel's bound.
+   shape (64 segments, 1.6e7 objects, 4x4 cells) and edge cases (NaN
+   values and planes at different offsets mod 16 among them), the
+   enrichment's all-covering ``segment_window_agg`` entry at the first
+   two as well; counts and extrema must be equal, float64 sums
+   within 1e-12 * sum|v| per cell, a NaN on both sides equal; a host
+   sample is also held against the float64 numpy mirrors.
 3. The main path at the paper's scale: a synthetic dataset of ``--rows``
    objects with 10 value columns resident on the card, an ``AQPEngine``
    with the default ``IndexConfig`` (16x16 initial grid, the "cuda"
@@ -49,31 +51,36 @@ Phases (each prints its own lines; any failure exits non-zero):
    publication and answers.
 
 Phase 2b holds the heatmap kernels (``segment_bin_agg_edges``,
-``segment_window_bin_agg``, ``segment_window_bin_select``: one launch a
-call) against their plain versions — the select op's suffix widths bit
-for bit — on edge cases (a table too large for shared memory, planes at
-different offsets mod 16, 64 segments, an empty stream, two calls back
-to back, tables of different sizes in turns), a host sample against the
-numpy mirrors, and at the heatmap path's shapes: 8 segments of ~3.9e5
+``segment_window_bin_agg``, ``segment_window_bin_select``) against their
+plain versions — the select op's suffix widths bit for bit — on edge
+cases (a table too large for shared memory, planes at different offsets
+mod 16, 64 segments, an empty stream, two calls back to back, tables of
+different sizes in turns, NaN values), a host sample against the numpy
+mirrors, and at the heatmap path's shapes: 8 segments of ~3.9e5
 objects, 8x8 bins, 4x4 split cells for the batched ops, and one tile of
 ~3.9e5 objects (1e8 / 256, the initial grid's mean tile) for
 ``segment_window_bin_agg``, which the path launches only from
-``process_heatmap`` with S = 1. There it times each on three clocks —
-(a) CUDA events around the call, L2 flushed (the kernels line's ms), (b)
-the device time of the call's kernels from ``torch.profiler``, (c) the
-wrapper's host microseconds — and fails unless the profiler sees one
-kernel a call. ``--clocks-of TREE`` builds the port under ``TREE/src``
-(a parent commit unpacked there) and prints only those clocks, so that
-parent and change can be timed in turns in one call. Phase 2c holds the
+``process_heatmap`` with S = 1. Then it times rows 1-8 on three clocks
+— rows 1 (one window, and the all-covering window of the index's
+enrichment), 2 and 3 at phase 2's shapes, 8 at phase 5's median scalar
+pass, 4, 6 and 7 at the heatmap path's, 5 at B3's: (a) CUDA events
+around the call, L2 flushed (the kernels line's ms), (b) the device
+time of the call's kernels from ``torch.profiler``, (c) the wrapper's
+host microseconds — and fails unless the profiler sees one kernel a call
+of every one-launch row (two of row 5).
+``--clocks-of TREE`` builds the port under ``TREE/src`` (a parent commit
+unpacked there) and prints only those clocks, so that parent and change
+can be timed in turns in one call. Phase 2c holds the
 serving tick's kernels (``segment_window_agg_multi``,
 ``segment_window_bin_agg_multi``, ``segment_window_bin_select_multi``:
 one window per segment, suffix widths per query span) against their
-plain versions on edge cases and a host sample; after phase 5 it checks
-and times them at the median shapes of phase 5's passes. Phase 2d holds
-``window_agg`` and ``window_count`` against their plain versions on edge
-cases (n = 0, 1, 3 and 4097; an unaligned view with n short of the
-planes; +-inf, empty and zero-area windows; objects on the window's
-edges and their float32 neighbours), checks that views cut at
+plain versions on edge cases (NaN values among them) and a host sample;
+after phase 5 it checks and times them at the median shapes of phase
+5's passes. Phase 2d holds ``window_agg`` and ``window_count`` against
+their plain versions on edge cases (n = 0, 1, 3 and 4097; an unaligned
+view with n short of the planes; +-inf, empty and zero-area windows;
+objects on the window's edges and their float32 neighbours; NaN
+values), checks that views cut at
 different offsets raise, holds a host sample against the numpy mirror,
 and times ``window_agg`` on one 390 625-object tile and on B3's data
 (n = 1e6, B3's window), the shape at which phase 6 launches it.
@@ -125,8 +132,10 @@ def log(*a):
 
 def compare(what, got, want, abs_sum):
     """Counts and extrema equal (``==``, so +-0 agree), float64 sums
-    within ``SUM_RTOL * sum|v|``. Returns the largest absolute
-    difference over all channels (equal infinities count 0)."""
+    within ``SUM_RTOL * sum|v|``; an extremum or a sum that is NaN on
+    both sides counts as equal (a NaN value's cell), and a NaN anywhere
+    else differs. Returns the largest absolute difference over all
+    channels (equal infinities and NaN pairs count 0)."""
     g = np.asarray(got, np.float64).reshape(-1, 4)
     w = np.asarray(want, np.float64).reshape(-1, 4)
     a = np.asarray(abs_sum, np.float64).reshape(-1)
@@ -134,14 +143,16 @@ def compare(what, got, want, abs_sum):
         raise Failed(f"{what}: shape {g.shape} != {w.shape}")
     if not np.array_equal(g[:, 0], w[:, 0]):
         raise Failed(f"{what}: counts differ")
-    if not ((g[:, 2] == w[:, 2]).all() and (g[:, 3] == w[:, 3]).all()):
+    both = np.isnan(g) & np.isnan(w)
+    both[:, 0] = False
+    if not ((g[:, 2:] == w[:, 2:]) | both[:, 2:]).all():
         raise Failed(f"{what}: extrema differ")
-    d = np.abs(g[:, 1] - w[:, 1])
-    if not (d <= SUM_RTOL * a).all():
-        raise Failed(f"{what}: sums differ by {d.max()} (tol "
-                     f"{SUM_RTOL} * sum|v|)")
     with np.errstate(invalid="ignore"):
-        diff = np.where(g == w, 0.0, np.abs(g - w))
+        d = np.abs(g[:, 1] - w[:, 1])
+        if not ((d <= SUM_RTOL * a) | both[:, 1]).all():
+            raise Failed(f"{what}: sums differ by {np.nanmax(d)} (tol "
+                         f"{SUM_RTOL} * sum|v|)")
+        diff = np.where((g == w) | both, 0.0, np.abs(g - w))
     return float(diff.max(initial=0.0))
 
 
@@ -226,9 +237,20 @@ def segments(torch, gen, n_seg, rows, lo=0.0, hi=1000.0):
 def edge_cases(torch, gen):
     """Small inputs at the rules' edges: empty segments, empty and
     all-covering windows, points on split lines and on the float32
-    neighbours of window edges, negative values."""
+    neighbours of window edges, negative values, NaN values, planes at
+    different offsets mod 16."""
     xs, ys, vals, b, bb = segments(torch, gen, 8, 3000)
     cases = []
+    # x, y and v as views 0, 1 and 2 floats into their buffers: the
+    # kernels' scalar walks (and, under the all-covering window, v's
+    # scalar head before its float4 body)
+    L = int(b[-1])
+    ax, ay, av = (torch.cat([p[:s], p, p[:3]])[s:s + L]
+                  for p, s in zip((xs, ys, vals), (0, 1, 2)))
+    cases.append(("planes_apart", ax, ay, av, b, bb,
+                  (100.0, 100.0, 600.0, 600.0)))
+    cases.append(("planes_apart_everywhere", ax, ay, av, b, bb,
+                  (-np.inf, -np.inf, np.inf, np.inf)))
     # empty segments between and at the ends
     b_empty = np.array([0, 0, 3000, 3000, 9000, 12000, 12000, 24000, 24000])
     cases.append(("empty_segments", xs, ys, vals, b_empty, bb,
@@ -257,18 +279,41 @@ def edge_cases(torch, gen):
     w = tuple(float(v) for v in (bb[0, 0], bb[0, 1], 0.5 * (bb[0, 0] + bb[
         0, 2]), 0.5 * (bb[0, 1] + bb[0, 3])))
     cases.append(("split_lines_and_edges", ex, ey, ev, eb, bb, w))
+    # NaN values: on the first in-window object of every segment, on the
+    # 8th object of every segment, and on all of segment 3; under a
+    # window, the all-covering window, and as the index's enrichment
+    # passes them (the value plane as x, y and v: NaN coordinates too)
+    win = (100.0, 100.0, 600.0, 600.0)
+    inside = ((xs >= win[0]) & (xs <= win[2]) & (ys >= win[1])
+              & (ys <= win[3])).cpu().numpy()
+    vn = vals.clone()
+    for s in range(8):
+        hit = np.flatnonzero(inside[b[s]:b[s + 1]])
+        if len(hit):
+            vn[int(b[s] + hit[0])] = float("nan")
+        vn[int(b[s]) + 7] = float("nan")
+    vn[int(b[3]):int(b[4])] = float("nan")
+    cases.append(("nan_values", xs, ys, vn, b, bb, win))
+    cases.append(("nan_everywhere", xs, ys, vn, b, bb,
+                  (-np.inf, -np.inf, np.inf, np.inf)))
+    cases.append(("nan_enrichment", vn, vn, vn, b, bb,
+                  (-np.inf, -np.inf, np.inf, np.inf)))
     return cases
 
 
 def phase_kernels(torch, timed, seed):
+    """Rows 1-3 against their plain versions (row 1 also under the
+    all-covering window, its enrichment entry); their largest differences
+    at the main path's shapes (the enrichment entry's also over the
+    stress shape)."""
     from repro_torch.kernels import bin_agg as ba
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ref
     from repro_torch.kernels import segment_agg as sa
 
     log("== phase 2: kernels against their plain versions")
+    everywhere = (-np.inf, -np.inf, np.inf, np.inf)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
-    rows = {}
 
     def check_swa(tag, xs, ys, vals, b, window):
         got = sa.segment_window_agg_cuda(xs, ys, vals, b, window)
@@ -312,12 +357,14 @@ def phase_kernels(torch, timed, seed):
     # --- the main path's shapes: 8 segments of ~3.9e5 objects, 2x2
     seg_rows = 390_625
     xs, ys, vals, b, bb = segments(torch, gen, 8, seg_rows)
-    L = int(b[-1])
     cx, cy = 0.5 * (bb[:, 0] + bb[:, 2]).mean(), 0.5 * (bb[:, 1] +
                                                         bb[:, 3]).mean()
     window = (float(cx - 150), float(cy - 150), float(cx + 150),
               float(cy + 150))
     err_swa = check_swa("main", xs, ys, vals, b, window)
+    # the all-covering entry as the index's enrichment calls it: the value
+    # plane as x, y and v
+    err_swe = check_swa("main,everywhere", vals, vals, vals, b, everywhere)
     err_sba = check_sba("main", xs, ys, vals, b, bb, 2)
     xs1, ys1, vals1 = xs[:seg_rows], ys[:seg_rows], vals[:seg_rows]
     err_ba = check_ba("main", xs1, ys1, vals1, bb[0], 2)
@@ -350,9 +397,19 @@ def phase_kernels(torch, timed, seed):
         raise Failed("bin_agg disagrees with the numpy mirror")
     log("host sample against the numpy mirrors: equal")
 
-    # --- stress: 64 segments, 1.6e7 objects, 4x4
+    # --- stress: 64 segments, 1.6e7 objects, 4x4; the all-covering entry
+    # over a 64-segment run as the enrichment meets it at init (several
+    # passes of a resident block's loop), also with NaN values strewn
     sx, sy, sv, sbnd, sbb = segments(torch, gen, 64, 250_000)
     check_swa("stress", sx, sy, sv, sbnd, (100.0, 100.0, 800.0, 800.0))
+    err_swe = max(err_swe, check_swa("stress,everywhere", sv, sv, sv, sbnd,
+                                     everywhere))
+    sn = sv.clone()
+    sn[::1_000_003] = float("nan")
+    sn[int(sbnd[40]):int(sbnd[41])] = float("nan")
+    err_swe = max(err_swe, check_swa("stress,nan_everywhere", sn, sn, sn,
+                                     sbnd, everywhere))
+    del sn
     check_sba("stress,4x4", sx, sy, sv, sbnd, sbb, 4)
     t_s = timed(lambda: sa.segment_bin_agg_cuda(sx, sy, sv, sbnd, sbb, 4, 4))
     t_p = timed(lambda: sa.segment_bin_agg_torch(sx, sy, sv, sbnd, sbb,
@@ -362,37 +419,9 @@ def phase_kernels(torch, timed, seed):
         f"{bound_ms(12 * int(sbnd[-1]), 0, 5 * int(sbnd[-1]))[0]:.4f} ms")
     del sx, sy, sv
 
-    # --- times at the main path's shapes
-    n_in = int(ops.window_mask(xs, ys, window).sum())
-    specs = {
-        "segment_window_agg": (
-            lambda: sa.segment_window_agg_cuda(xs, ys, vals, b, window),
-            lambda: sa.segment_window_agg_torch(xs, ys, vals, b, window),
-            bound_ms(8 * L + 4 * n_in + 32 * 8, 4 * L + 2 * n_in, n_in),
-            err_swa, "src/repro_torch/kernels/csrc/segment_window_agg.cu",
-            "src/repro/kernels/segment_agg.py:154"),
-        "segment_bin_agg": (
-            lambda: sa.segment_bin_agg_cuda(xs, ys, vals, b, bb, 2, 2),
-            lambda: sa.segment_bin_agg_torch(xs, ys, vals, b, bb, 2, 2),
-            bound_ms(12 * L + 32 * 8 * 4, 2 * L, 5 * L),
-            err_sba, "src/repro_torch/kernels/csrc/segment_bin_agg.cu",
-            "src/repro/kernels/segment_agg.py:524"),
-        "bin_agg": (
-            lambda: ba.bin_agg_cuda(xs1, ys1, vals1, bb[0], 2, 2),
-            lambda: ba.bin_agg_torch(xs1, ys1, vals1, bb[0], 2, 2),
-            bound_ms(12 * seg_rows + 32 * 4, 2 * seg_rows, 5 * seg_rows),
-            err_ba, "src/repro_torch/kernels/csrc/segment_bin_agg.cu",
-            "src/repro/kernels/bin_agg.py:89"),
-    }
-    for name, (kern, plain, (bms, by), err, src, rep) in specs.items():
-        ms, pms = timed(kern), timed(plain)
-        rows[name] = {"name": name, "route": "cuda", "source": src,
-                      "replaces": rep, "launches": 0, "max_abs_err": err,
-                      "ms": ms, "plain_ms": pms, "bound_ms": bms,
-                      "bound_by": by, "library_ms": None}
-        log(f"{name}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
-            f"{bms:.4f} ms ({by}), max_abs_err {err:.3e}")
-    return rows
+    return {"segment_window_agg": err_swa,
+            "segment_window_agg_everywhere": err_swe,
+            "segment_bin_agg": err_sba, "bin_agg": err_ba}
 
 
 # --------------------------------------------------------------------- #
@@ -423,7 +452,9 @@ def split_edges(bboxes, g):
     return xe, ye
 
 
-def phase_heatmap_kernels(torch, timed, seed):
+def phase_heatmap_kernels(torch, hs, seed):
+    """Rows 4, 6 and 7 against their plain versions; their largest
+    differences at the heatmap path's shapes (``hs``: kernel_shapes)."""
     from repro_torch.kernels import fused_select as fs
     from repro_torch.kernels import ref
     from repro_torch.kernels import segment_agg as sa
@@ -432,7 +463,6 @@ def phase_heatmap_kernels(torch, timed, seed):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed + 1)
     rng = np.random.default_rng(seed + 1)
-    rows = {}
 
     def check_edges(tag, xs, ys, vals, b, xe, ye):
         got = sa.segment_bin_agg_edges_cuda(xs, ys, vals, b, xe, ye)
@@ -504,6 +534,18 @@ def phase_heatmap_kernels(torch, timed, seed):
     check_wbin("zero_area", px, py, vals, b, zero, bins)
     check_select("zero_area", px, py, vals, b, zero, bins)
     check_all("negative", xs, ys, -vals.abs() - 1.0, b, bb, w, bins)
+    # NaN values on the first in-window object and the 6th object of
+    # every segment, and on all of segment 2
+    inside = ((xs >= w[0]) & (xs <= w[2]) & (ys >= w[1])
+              & (ys <= w[3])).cpu().numpy()
+    vn = vals.clone()
+    for s in range(8):
+        hit = np.flatnonzero(inside[b[s]:b[s + 1]])
+        if len(hit):
+            vn[int(b[s] + hit[0])] = float("nan")
+        vn[int(b[s]) + 5] = float("nan")
+    vn[int(b[2]):int(b[3])] = float("nan")
+    check_all("nan_values", xs, ys, vn, b, bb, w, bins)
     check_all("S=1", xs, ys, vals, b[[0, -1]], bb[:1], w, bins)
     xs, ys, vals, b, bb = segments(torch, gen, 32, 2000)
     w32 = (200.0, 200.0, 700.0, 700.0)
@@ -542,8 +584,7 @@ def phase_heatmap_kernels(torch, timed, seed):
     check_edges("S=64,8x8", xs, ys, vals, b, *split_edges(bb, 8))
     log("one-launch edge cases: equal")
 
-    # --- the heatmap path's shapes, checked; then the three clocks
-    hs = heatmap_shapes(torch, seed)
+    # --- the heatmap path's shapes (timed on three clocks afterwards)
     xs, ys, vals, b, xe, ye, window = (hs[k] for k in (
         "xs", "ys", "vals", "b", "xe", "ye", "window"))
     vmin, vmax = hs["vmin"], hs["vmax"]
@@ -587,28 +628,21 @@ def phase_heatmap_kernels(torch, timed, seed):
                      "numpy mirror")
     log("heatmap host sample against the numpy mirrors: equal")
 
-    clocks = heatmap_clocks(torch, timed, hs, enforce=True)
-    errs = {"segment_bin_agg_edges": err_e, "segment_window_bin_agg": err_w,
+    return {"segment_bin_agg_edges": err_e, "segment_window_bin_agg": err_w,
             "segment_window_bin_select": err_s}
-    for name, c in clocks.items():
-        pms = timed(c.pop("plain"))
-        rows[name] = {"name": name, "route": "cuda", "source": c["source"],
-                      "replaces": c["replaces"], "launches": 0,
-                      "max_abs_err": errs[name], "ms": c["a_ms"],
-                      "plain_ms": pms, "bound_ms": c["bound_ms"],
-                      "bound_by": c["bound_by"], "library_ms": None}
-        log(f"{name}: kernel {c['a_ms']:.4f} ms, plain {pms:.4f} ms, bound "
-            f"{c['bound_ms']:.4f} ms ({c['bound_by']}), max_abs_err "
-            f"{errs[name]:.3e}")
-    return rows
 
 
-def heatmap_shapes(torch, seed):
-    """The heatmap path's shapes, made alike for any tree being measured:
+def kernel_shapes(torch, seed):
+    """The main path's shapes, made alike for any tree being measured:
     8 segments of 390 625 objects (1e8 / 256, the initial grid's mean
-    tile) with a 300 x 300 window, 8x8 bins and 4x4 split cells (the
-    batched rounds of rows 4 and 7), and one such tile under a window
-    crossing it (process_heatmap's S = 1 launch of row 6)."""
+    tile) with a 300 x 300 window, 2x2 split cells (rows 1 and 2, and
+    the enrichment: row 1 under the all-covering window with the value
+    plane as x, y and v), 8x8 bins and 4x4 split cells (the batched
+    rounds of rows 4 and 7); one such tile (row 3's split; row 6's S = 1
+    launch under a window crossing it); phase 5's median scalar pass at
+    10^8 rows, 10 segments of 34 190 objects each under its own window
+    (row 8); and B3's data under B3's window (row 5, whose two launches a
+    call no redesign has touched yet)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed + 5)
     seg_rows = 390_625
@@ -617,7 +651,13 @@ def heatmap_shapes(torch, seed):
                                                         bb[:, 3]).mean()
     xe, ye = split_edges(bb, 4)
     x0, y0, x1, y1 = bb[0]
-    return {"xs": xs, "ys": ys, "vals": vals, "b": b,
+    mx, my, mv, mb, mwins = multi_case(
+        torch, np.random.default_rng(seed + 6), 10, 34_190, (4, 4),
+        zero_area=False)
+    from repro_torch.benchmarks import kernels_bench
+    wa = [torch.from_numpy(a).to("cuda")
+          for a in kernels_bench.data(1_000_000)]
+    return {"xs": xs, "ys": ys, "vals": vals, "b": b, "bb": bb,
             "xe": xe, "ye": ye, "bins": (8, 8),
             "window": (float(cx - 150), float(cy - 150), float(cx + 150),
                        float(cy + 150)),
@@ -627,7 +667,9 @@ def heatmap_shapes(torch, seed):
             "window1": (float(x0 + 0.2 * (x1 - x0)),
                         float(y0 + 0.2 * (y1 - y0)),
                         float(x0 + 0.7 * (x1 - x0)),
-                        float(y0 + 0.7 * (y1 - y0)))}
+                        float(y0 + 0.7 * (y1 - y0))),
+            "multi": (mx, my, mv, mb, mwins),
+            "wa": (*wa, kernels_bench.WINDOW)}
 
 
 def device_clock(torch, fn, flush, reps):
@@ -669,29 +711,88 @@ def host_clock(torch, fn, reps):
     return best * 1e6
 
 
-def heatmap_clocks(torch, timed, hs, enforce):
-    """Rows 4, 6 and 7 at the heatmap path's shapes (:func:`heatmap_shapes`)
-    on three clocks: (a) CUDA events around the call, L2 flushed, median
-    (the table's ms); (b) the device time of its kernels from
+def row_clocks(torch, timed, hs, enforce):
+    """Rows 1-8 at the main path's shapes (:func:`kernel_shapes`; row 1
+    also under the all-covering window, as the index's enrichment calls
+    it) on three clocks: (a) CUDA events around the call, L2 flushed,
+    median (the table's ms); (b) the device time of its kernels from
     ``torch.profiler``; (c) the wrapper's host microseconds. Also the
-    kernels a call launches, which must be 1 (``enforce``). Takes only the
-    op wrappers every tree of the port has, so it measures a parent tree
-    as well (``--clocks-of``)."""
+    kernels a call launches, which must be 1 (``enforce``; 2 for row 5).
+    Takes only the op wrappers every tree of the port has, so it
+    measures a parent tree as well (``--clocks-of``). Each row carries
+    its plain version for the kernels line, except the rows in
+    ``LINE_ELSEWHERE``, whose entries phases 2c and 2d write."""
+    from repro_torch.kernels import bin_agg as ba
     from repro_torch.kernels import fused_select as fs
     from repro_torch.kernels import segment_agg as sa
+    from repro_torch.kernels import window_agg as wa
 
-    xs, ys, vals, b, xe, ye, window, bins = (hs[k] for k in (
-        "xs", "ys", "vals", "b", "xe", "ye", "window", "bins"))
+    xs, ys, vals, b, bb, xe, ye, window, bins = (hs[k] for k in (
+        "xs", "ys", "vals", "b", "bb", "xe", "ye", "window", "bins"))
     xs1, ys1, vals1, b1, window1 = (hs[k] for k in (
         "xs1", "ys1", "vals1", "b1", "window1"))
+    mx, my, mv, mb, mwins = hs["multi"]
     vmin, vmax = hs["vmin"], hs["vmax"]
-    L, L1 = int(b[-1]), int(b1[-1])
-    n_seg, nb = len(b) - 1, bins[0] * bins[1]
+    everywhere = (-np.inf, -np.inf, np.inf, np.inf)
+    L, L1, Lm = int(b[-1]), int(b1[-1]), int(mb[-1])
+    n_seg, nb, ms = len(b) - 1, bins[0] * bins[1], len(mb) - 1
     n_in = int(sa.window_bin_ids(xs, ys, window, *bins)[0].sum())
     n_in1 = int(sa.window_bin_ids(xs1, ys1, window1, *bins)[0].sum())
+    wm = torch.from_numpy(sa.windows_f32(mwins, ms)).to("cuda")[
+        sa.segment_ids(mb, "cuda")]
+    n_inm = int(((mx >= wm[:, 0]) & (mx <= wm[:, 2]) & (my >= wm[:, 1])
+                 & (my <= wm[:, 3])).sum())
+    ax, ay, av, aw = hs["wa"]
+    La = len(ax)
+    n_ina = int(wa.window_agg_torch(ax, ay, None, aw)[0].item())
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     src = "src/repro_torch/kernels/csrc/"
     specs = {
+        "segment_window_agg": (
+            lambda: sa.segment_window_agg_cuda(xs, ys, vals, b, window),
+            lambda: sa.segment_window_agg_torch(xs, ys, vals, b, window),
+            # x, y read; v for in-window objects; 4 compares per object,
+            # the f64 sum and min/max per in-window object
+            bound_ms(8 * L + 4 * n_in + 32 * n_seg, 4 * L + 2 * n_in, n_in),
+            src + "segment_window_agg.cu",
+            "src/repro/kernels/segment_agg.py:154"),
+        "segment_window_agg_everywhere": (
+            lambda: sa.segment_window_agg_cuda(vals, vals, vals, b,
+                                               everywhere),
+            lambda: sa.segment_window_agg_torch(vals, vals, vals, b,
+                                                everywhere),
+            # v alone read; the f64 sum and min/max per object
+            bound_ms(4 * L + 32 * n_seg, 2 * L, L),
+            src + "segment_window_agg.cu",
+            "src/repro/kernels/segment_agg.py:154"),
+        "segment_bin_agg": (
+            lambda: sa.segment_bin_agg_cuda(xs, ys, vals, b, bb, 2, 2),
+            lambda: sa.segment_bin_agg_torch(xs, ys, vals, b, bb, 2, 2),
+            # x, y, v read; 2 f64 subtracts, 2 f64 divides and the f64
+            # sum per object, f32 min/max
+            bound_ms(12 * L + 32 * n_seg * 4, 2 * L, 5 * L),
+            src + "segment_bin_agg.cu",
+            "src/repro/kernels/segment_agg.py:524"),
+        "bin_agg": (
+            lambda: ba.bin_agg_cuda(xs1, ys1, vals1, bb[0], 2, 2),
+            lambda: ba.bin_agg_torch(xs1, ys1, vals1, bb[0], 2, 2),
+            bound_ms(12 * L1 + 32 * 4, 2 * L1, 5 * L1),
+            src + "segment_bin_agg.cu", "src/repro/kernels/bin_agg.py:89"),
+        "segment_window_agg_multi": (
+            lambda: sa.segment_window_agg_multi_cuda(mx, my, mv, mb, mwins),
+            None,
+            bound_ms(8 * Lm + 4 * n_inm + 32 * ms, 4 * Lm + 2 * n_inm,
+                     n_inm),
+            src + "segment_window_agg.cu",
+            "src/repro/kernels/segment_agg.py:219"),
+        "window_agg": (
+            lambda: wa.window_agg_cuda(ax, ay, av, aw),
+            None,
+            # x and y read once, v of the in-window objects, the f64 row
+            # out; 4 compares per object, the f64 sum and 2 extrema per
+            # in-window object
+            bound_ms(8 * La + 4 * n_ina + 32, 4 * La + 2 * n_ina, n_ina),
+            src + "window_agg.cu", "src/repro/kernels/window_agg.py:77"),
         "segment_bin_agg_edges": (
             lambda: sa.segment_bin_agg_edges_cuda(xs, ys, vals, b, xe, ye),
             lambda: sa.segment_bin_agg_edges_torch(xs, ys, vals, b, xe, ye),
@@ -736,13 +837,44 @@ def heatmap_clocks(torch, timed, hs, enforce):
         log(f"{name} clocks: (a) {c['a_ms']:.4f} ms, (b) {b_ms:.4f} ms "
             f"device, (c) {c['c_us']:.1f} us host; {per_call:g} kernels a "
             f"call {names}; bound {bms:.4f} ms")
-        if enforce and per_call != 1:
+        want = 2 if name == "window_agg" else 1
+        if enforce and per_call != want:
             raise Failed(f"{name} launched {per_call:g} kernels a call "
-                         "(profiler), not 1")
+                         f"(profiler), not {want}")
     log("clocks: " + json.dumps({k: {f: v for f, v in c.items()
                                      if f != "plain"}
                                  for k, c in out.items()}))
     return out
+
+
+# rows timed in phase 2b whose kernels-line entries phases 2c and 2d
+# write, at the shapes at which phases 5 and 6 launch them
+LINE_ELSEWHERE = ("segment_window_agg_multi", "window_agg")
+
+
+def phase_clocks(torch, timed, hs, errs):
+    """Phase 2b's three clocks of rows 1-8 (one kernel a call enforced on
+    the redesigned ones) and the kernels line's rows 1-4, 6 and 7 (row 1
+    twice: one window, and the all-covering entry): ms from clock (a),
+    the plain version timed alike, ``errs`` from phases 2 and 2b."""
+    log("== phase 2b clocks: rows 1-8 at the main path's shapes")
+    rows = {}
+    for name, c in row_clocks(torch, timed, hs, enforce=True).items():
+        if name in LINE_ELSEWHERE:
+            continue
+        if name not in errs:
+            raise Failed(f"{name} was timed but never held against its "
+                         "plain version")
+        pms = timed(c.pop("plain"))
+        rows[name] = {"name": name, "route": "cuda", "source": c["source"],
+                      "replaces": c["replaces"], "launches": 0,
+                      "max_abs_err": errs[name], "ms": c["a_ms"],
+                      "plain_ms": pms, "bound_ms": c["bound_ms"],
+                      "bound_by": c["bound_by"], "library_ms": None}
+        log(f"{name}: kernel {c['a_ms']:.4f} ms, plain {pms:.4f} ms, bound "
+            f"{c['bound_ms']:.4f} ms ({c['bound_by']}), max_abs_err "
+            f"{errs[name]:.3e}")
+    return rows
 
 
 # --------------------------------------------------------------------- #
@@ -805,6 +937,8 @@ def even_spans(n_seg, n_spans):
 
 
 def phase_serving_kernels(torch, seed):
+    """Rows 8-10 against their plain versions on edge cases (NaN values
+    among them) and a host sample."""
     from repro_torch.kernels import fused_select as fs
     from repro_torch.kernels import ref
     from repro_torch.kernels import segment_agg as sa
@@ -828,8 +962,28 @@ def phase_serving_kernels(torch, seed):
             checks["segment_window_bin_select_multi"](
                 t, xs, ys, vals, b, wins, bins, np.array(spans), rng)
             n_checks += 3
-    log(f"serving edge cases ({n_checks} checks): equal (suffix_w bit for "
-        "bit per span)")
+    # NaN values on the first in-window object of every segment and on
+    # all of segment 3
+    for bins in ((4, 4), (16, 16)):
+        xs, ys, vals, b, wins = multi_case(torch, rng, 16, 3000, bins)
+        w = torch.from_numpy(sa.windows_f32(wins, 16)).to("cuda")[
+            sa.segment_ids(b, "cuda")]
+        inside = ((xs >= w[:, 0]) & (xs <= w[:, 2]) & (ys >= w[:, 1])
+                  & (ys <= w[:, 3])).cpu().numpy()
+        for s in range(16):
+            hit = np.flatnonzero(inside[b[s]:b[s + 1]])
+            if len(hit):
+                vals[int(b[s] + hit[0])] = float("nan")
+        vals[int(b[3]):int(b[4])] = float("nan")
+        t = f"nan_values,{bins[0]}x{bins[1]}"
+        checks["segment_window_agg_multi"](t, xs, ys, vals, b, wins)
+        checks["segment_window_bin_agg_multi"](t, xs, ys, vals, b, wins,
+                                               bins)
+        checks["segment_window_bin_select_multi"](
+            t, xs, ys, vals, b, wins, bins, np.array([0, 1, 5, 6, 16]), rng)
+        n_checks += 3
+    log(f"serving edge cases ({n_checks} checks, NaN values among them): "
+        "equal (suffix_w bit for bit per span)")
 
     # a host sample against the float64 numpy mirrors, each segment's
     # window as the ticket gives it (Python floats: float32 compares)
@@ -1021,6 +1175,7 @@ def check_window_agg(torch, tag, xs, ys, vals, window, n=None):
 
 def phase_window_agg(torch, timed, build, seed):
     from repro_torch.kernels import ref
+    from repro_torch.kernels.ops import window_mask as ops_mask
     from repro_torch.kernels.window_agg import (window_agg_cuda,
                                                 window_agg_torch)
 
@@ -1085,7 +1240,15 @@ def phase_window_agg(torch, timed, build, seed):
     ex, ey = (torch.from_numpy(a).to("cuda") for a in (hx, hy))
     check_window_agg(torch, "edges", ex, ey, vals, w)
     check_window_agg(torch, "negative", ex, ey, -vals.abs() - 1.0, w)
-    n_cases += 6
+    # a NaN value inside the window, and one anywhere under +-inf
+    vn = vals.clone()
+    vn[int(torch.nonzero(ops_mask(xs, ys, w))[0, 0])] = float("nan")
+    check_window_agg(torch, "nan_values", xs, ys, vn, w)
+    vn = vals.clone()
+    vn[17] = float("nan")
+    check_window_agg(torch, "nan_everywhere", xs, ys, vn,
+                     (-np.inf, -np.inf, np.inf, np.inf))
+    n_cases += 8
     log(f"window_agg edge cases ({n_cases}, each with window_count): equal;"
         f" planes at different offsets raise")
 
@@ -1285,7 +1448,8 @@ def phase_main_path(torch, build, ds, windows):
     log(f"device memory: allocated {torch.cuda.memory_allocated()} B, "
         f"peak {torch.cuda.max_memory_allocated()} B")
     log(f"launches on the main path: {json.dumps(launches)}")
-    for k in ("segment_window_agg", "segment_bin_agg", "bin_agg"):
+    for k in ("segment_window_agg", "segment_window_agg_everywhere",
+              "segment_bin_agg", "bin_agg"):
         if launches.get(k, 0) <= 0:
             raise Failed(f"{k} was not launched on the main path")
     return launches
@@ -1748,7 +1912,7 @@ def main(argv=None) -> int:
     ap.add_argument("--ticks", type=int, default=10)
     ap.add_argument("--clocks-of", metavar="TREE",
                     help="only build the port under TREE/src and print "
-                    "phase 2b's three clocks of rows 4, 6 and 7 (to time "
+                    "phase 2b's three clocks of rows 1-8 (to time "
                     "a parent tree and this one in turns in one call)")
     args = ap.parse_args(argv)
 
@@ -1767,18 +1931,19 @@ def main(argv=None) -> int:
     try:
         phase_card_and_build(torch, build)
         timed = make_timer(torch, args.reps)
+        shapes = kernel_shapes(torch, args.seed)
         if args.clocks_of is not None:
             log(f"== phase 2b clocks of {tree}")
-            clocks = heatmap_clocks(torch, timed,
-                                    heatmap_shapes(torch, args.seed),
-                                    enforce=False)
+            clocks = row_clocks(torch, timed, shapes, enforce=False)
             print(json.dumps({"clocks_of": tree, "clocks": {
                 k: {f: v for f, v in c.items() if f != "plain"}
                 for k, c in clocks.items()}}))
             return 0
-        rows = phase_kernels(torch, timed, args.seed)
-        rows.update(phase_heatmap_kernels(torch, timed, args.seed))
+        errs = phase_kernels(torch, timed, args.seed)
+        errs.update(phase_heatmap_kernels(torch, shapes, args.seed))
         phase_serving_kernels(torch, args.seed)
+        rows = phase_clocks(torch, timed, shapes, errs)
+        del shapes
         rows.update(phase_window_agg(torch, timed, build, args.seed))
         torch.cuda.empty_cache()
         from repro_torch.data import exploration_path

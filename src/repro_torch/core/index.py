@@ -164,10 +164,10 @@ def _segment_stats(vals: torch.Tensor, bounds: np.ndarray,
     (the kernel's boundary table), the rows concatenated on the device
     and copied to the host once.
 
-    The window compares the values themselves (``x = y = v``) against
-    ±inf: ±inf values count, but the kernel would drop a NaN value, which
-    fails every compare (the plain version skips the compare under this
-    window). Synthetic and paper data hold no NaN."""
+    The ±inf window is recognised by every backend as the reference's
+    mirror recognises it: nothing is compared (the kernel reads ``vals``
+    alone), so every object counts, ±inf and NaN values included, and a
+    NaN value makes its tile's sum, min and max NaN, as in the mirror."""
     rows = [ops.segment_window_agg(vals, vals, vals,
                                    bounds[a:a + MAX_SEGMENTS + 1],
                                    EVERYWHERE, backend=backend)

@@ -12,8 +12,7 @@ import numpy as np
 import torch
 
 from . import build
-from .segment_agg import (agg4, bin_params, cell_keys, check_planes,
-                          launch_segment_bin_agg)
+from .segment_agg import agg4, bin_params, cell_keys, launch_segment_bin_agg
 
 MAX_CELLS = 64   # the reference's bound on one tile's split grid
 
@@ -33,11 +32,11 @@ def bin_agg_torch(xs, ys, vals, bbox, gx: int, gy: int):
 
 
 def bin_agg_cuda(xs, ys, vals, bbox, gx: int, gy: int):
-    """Launch ``bin_agg``: float64 ``(gx*gy, 4)`` on the device."""
+    """Launch ``bin_agg``, one kernel a call: float64 ``(gx*gy, 4)`` on
+    the device."""
     _check_grid(gx, gy)
-    b = np.array([0, len(xs)], np.int64)
-    check_planes(b, xs, ys, vals)
-    out = launch_segment_bin_agg(xs, ys, vals, b,
+    out = launch_segment_bin_agg(xs, ys, vals,
+                                 np.array([0, len(xs)], np.int64),
                                  bin_params(bbox, gx, gy), gx, gy)[0]
     build.LAUNCHES["bin_agg"] += 1
     return out

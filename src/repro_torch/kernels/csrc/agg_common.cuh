@@ -12,6 +12,14 @@
 // (native atomicAdd(double)), extrema float32 under the sign-flipped
 // unsigned ordering, so atomicMin/atomicMax on the encoding order the
 // floats. An empty cell decodes to (0, 0, +inf, -inf).
+//
+// NaN values, as numpy's min/max treat them: a NaN object counts, its
+// sum is NaN (float64 addition gives it), and its cell's min and max are
+// both NaN. The folds take NaN-propagating extrema (PTX min.NaN /
+// max.NaN), and the encoding puts a NaN below everything on the min
+// channel (0) and above everything on the max channel (0xffffffff), so
+// it wins both atomics; o2f decodes either word to NaN. No float but a
+// NaN encodes to 0 or 0xffffffff.
 #pragma once
 #include <cuda_runtime.h>
 #include <math.h>
@@ -47,6 +55,30 @@ __device__ __forceinline__ unsigned int f2o(float f) {
 __device__ __forceinline__ float o2f(unsigned int o) {
   unsigned int u = (o & 0x80000000u) ? (o & 0x7fffffffu) : ~o;
   return __uint_as_float(u);
+}
+
+// the min and max channels' encodings: f2o, a NaN at the channel's end
+__device__ __forceinline__ unsigned int f2o_min(float f) {
+  return isnan(f) ? 0u : f2o(f);
+}
+
+__device__ __forceinline__ unsigned int f2o_max(float f) {
+  return isnan(f) ? 0xffffffffu : f2o(f);
+}
+
+// NaN-propagating extrema: NaN if either operand is (fminf/fmaxf, which
+// compile to min.f32/max.f32, return the other operand); otherwise the
+// same instruction, so -0 and +0 keep the order they had
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 
 // last s in [0, S) with b[s] <= i, for b[0] <= i < b[S] (empty segments
@@ -114,15 +146,15 @@ __device__ __forceinline__ void run_reset(Run& r, int key) {
 __device__ __forceinline__ void sink_add(Table t, const Run& r) {
   atomicAdd(&t.cnt[r.key], r.cnt);
   atomicAdd(&t.sum[r.key], r.sum);
-  atomicMin(&t.mn[r.key], f2o(r.mn));
-  atomicMax(&t.mx[r.key], f2o(r.mx));
+  atomicMin(&t.mn[r.key], f2o_min(r.mn));
+  atomicMax(&t.mx[r.key], f2o_max(r.mx));
 }
 
 __device__ __forceinline__ void sink_add(Cell* ws, const Run& r) {
   atomicAdd(&ws[r.key].cnt, (unsigned long long)r.cnt);
   atomicAdd(&ws[r.key].sum, r.sum);
-  atomicMin(&ws[r.key].mn, f2o(r.mn));
-  atomicMax(&ws[r.key].mx, f2o(r.mx));
+  atomicMin(&ws[r.key].mn, f2o_min(r.mn));
+  atomicMax(&ws[r.key].mx, f2o_max(r.mx));
 }
 
 template <class Sink>
@@ -138,8 +170,8 @@ __device__ __forceinline__ void run_add(Run& r, int key, float v, Sink sink) {
   }
   r.cnt += 1u;
   r.sum += (double)v;
-  r.mn = fminf(r.mn, v);
-  r.mx = fmaxf(r.mx, v);
+  r.mn = min_nan(r.mn, v);
+  r.mx = max_nan(r.mx, v);
 }
 
 __device__ __forceinline__ void table_flush(Table t, int cells, Cell* ws) {

@@ -1,8 +1,10 @@
 // One-launch keyed reductions for Hopper: the device and launch pieces
-// shared by the single-window heatmap read (segment_window_bin_agg.cu's
-// one-launch entry) and the bin-aligned split (segment_bin_agg_edges.cu).
-// The tables, cells and encodings are agg_common.cuh's; what differs is how
-// a call reaches the card:
+// shared by the window read (segment_window_agg.cu: one window, the
+// all-covering window, a window per segment), the even split
+// (segment_bin_agg.cu), the single-window heatmap read
+// (segment_window_bin_agg.cu's one-launch entry) and the bin-aligned split
+// (segment_bin_agg_edges.cu). The tables, cells and encodings are
+// agg_common.cuh's; what differs is how a call reaches the card:
 //
 // - One launch a call. Every block flushes its shared table into the
 //   global workspace with atomics, fences and takes a ticket; the block
@@ -17,9 +19,10 @@
 //   span of the stream, so it meets few segments and touches few cells of
 //   its table; its threads take consecutive 16-byte float4 loads of x and y
 //   (and v), two in flight a thread, with a scalar head to the 16-byte
-//   boundary and a scalar tail. Planes at different offsets mod 16 take a
-//   scalar walk. Every loop is warp-uniform: a lane past the end still
-//   takes part, with nothing to fold.
+//   boundary and a scalar tail; a walk of v alone takes four in flight.
+//   Planes at different offsets mod 16 take a scalar walk. Every loop is
+//   warp-uniform: a lane past the end still takes part, with nothing to
+//   fold.
 // - Tables private to each warp where they fit in shared memory (no warp
 //   contends with another's atomics), merged cell by cell at the flush.
 //   On sm_90a a shared-memory float64 atomicAdd is a compare-and-swap
@@ -28,7 +31,10 @@
 // - Warp-combined folds (the heatmap read): a warp with nothing to fold
 //   skips; the lanes of a warp that share the first lane's key fold their
 //   values in registers (count by __popc, float64 sums, float32 extrema)
-//   and one of them does the four atomics; see warp_fold.
+//   and one of them does the four atomics; see warp_fold. Where keys are
+//   segments (the window read), each thread keeps a run of one key in
+//   registers instead and the warp folds its runs by key at the end; see
+//   warp_flush_runs.
 #pragma once
 #include <stdint.h>
 
@@ -44,16 +50,16 @@ __device__ __forceinline__ void cell_add(Table t, int key, unsigned int cnt,
                                          double sum, float mn, float mx) {
   atomicAdd(&t.cnt[key], cnt);
   atomicAdd(&t.sum[key], sum);
-  atomicMin(&t.mn[key], f2o(mn));
-  atomicMax(&t.mx[key], f2o(mx));
+  atomicMin(&t.mn[key], f2o_min(mn));
+  atomicMax(&t.mx[key], f2o_max(mx));
 }
 
 __device__ __forceinline__ void cell_add(Cell* ws, int key, unsigned int cnt,
                                          double sum, float mn, float mx) {
   atomicAdd(&ws[key].cnt, (unsigned long long)cnt);
   atomicAdd(&ws[key].sum, sum);
-  atomicMin(&ws[key].mn, f2o(mn));
-  atomicMax(&ws[key].mx, f2o(mx));
+  atomicMin(&ws[key].mn, f2o_min(mn));
+  atomicMax(&ws[key].mx, f2o_max(mx));
 }
 
 // Fold one value per lane into `sink`, called by all 32 lanes together;
@@ -61,7 +67,8 @@ __device__ __forceinline__ void cell_add(Cell* ws, int key, unsigned int cnt,
 // nothing to fold skips at once, and when at least OP_COMBINE lanes share
 // the key of the first lane that has one (a tile inside one bin), those
 // lanes fold in registers — a butterfly of shuffles, count by __popc,
-// float64 sums, float32 extrema — and the first does the four atomics.
+// float64 sums, NaN-propagating float32 extrema — and the first does the
+// four atomics.
 // Every other lane with a key does its own. (__match_any_sync would group
 // every key, but on the card it costs more than the atomics it saves on
 // keys that rarely repeat within a warp; the split kernel, whose keys
@@ -82,14 +89,44 @@ __device__ __forceinline__ void warp_fold(int key, float v, Sink sink) {
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) {
         sum += __shfl_xor_sync(OP_FULL, sum, off);
-        mn = fminf(mn, __shfl_xor_sync(OP_FULL, mn, off));
-        mx = fmaxf(mx, __shfl_xor_sync(OP_FULL, mx, off));
+        mn = min_nan(mn, __shfl_xor_sync(OP_FULL, mn, off));
+        mx = max_nan(mx, __shfl_xor_sync(OP_FULL, mx, off));
       }
       if ((int)(threadIdx.x & 31u) == lead)
         cell_add(sink, k0, __popc(peers), sum, mn, mx);
     }
   }
   if (key >= 0 && !mine) cell_add(sink, key, 1u, (double)v, v, v);
+}
+
+// Every lane's run (agg_common.cuh Run) folded into `sink`, called by all
+// 32 lanes together: the lanes whose runs share the key of the first lane
+// with one left fold them in registers (a butterfly of shuffles) and that
+// lane does the four atomics; one round a distinct key, so a warp whose
+// lanes all ended in one segment makes one set of atomics.
+template <class Sink>
+__device__ __forceinline__ void warp_flush_runs(const Run& r, Sink sink) {
+  bool left = r.cnt > 0u;
+  for (;;) {
+    const unsigned int act = __ballot_sync(OP_FULL, left);
+    if (act == 0u) return;
+    const int lead = __ffs(act) - 1;
+    const int k0 = __shfl_sync(OP_FULL, r.key, lead);
+    const bool mine = left && r.key == k0;
+    unsigned int cnt = mine ? r.cnt : 0u;
+    double sum = mine ? r.sum : 0.0;
+    float mn = mine ? r.mn : INFINITY, mx = mine ? r.mx : -INFINITY;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      cnt += __shfl_xor_sync(OP_FULL, cnt, off);
+      sum += __shfl_xor_sync(OP_FULL, sum, off);
+      mn = min_nan(mn, __shfl_xor_sync(OP_FULL, mn, off));
+      mx = max_nan(mx, __shfl_xor_sync(OP_FULL, mx, off));
+    }
+    if ((int)(threadIdx.x & 31u) == lead)
+      cell_add(sink, k0, cnt, sum, mn, mx);
+    left = left && !mine;
+  }
 }
 
 // This block's share [a, e) of `units` work units: contiguous, balanced.
@@ -103,8 +140,8 @@ __device__ __forceinline__ void block_span(long long units, long long& a,
 // every thread of the grid together: a call with ok false carries nothing
 // but keeps the warp whole for visit's warp-level folds. vi is v[i]: with
 // kV loaded beside x and y for every object; else loaded, one scalar load
-// each, only for the objects where want(x[i], y[i]) holds, and all of a
-// thread's loads of one step issued before its first visit (so a visit
+// each, only for the objects where want(i, x[i], y[i]) holds, and all of
+// a thread's loads of one step issued before its first visit (so a visit
 // never waits on its own value).
 template <bool kV, class Want, class Visit>
 __device__ __forceinline__ void walk(const float* __restrict__ x,
@@ -143,19 +180,19 @@ __device__ __forceinline__ void walk(const float* __restrict__ x,
       yb = __ldcs(y4 + u1);
       if (kV) vb = __ldcs(v4 + u1);
     }
+    const long long i0 = lo + head + 4 * u0, i1 = lo + head + 4 * u1;
     if (!kV) {
       const float* p0 = vb0 + 4 * u0;
       const float* p1 = vb0 + 4 * u1;
-      if (ok0 && want(xa.x, ya.x)) va.x = __ldcs(p0);
-      if (ok0 && want(xa.y, ya.y)) va.y = __ldcs(p0 + 1);
-      if (ok0 && want(xa.z, ya.z)) va.z = __ldcs(p0 + 2);
-      if (ok0 && want(xa.w, ya.w)) va.w = __ldcs(p0 + 3);
-      if (ok1 && want(xb.x, yb.x)) vb.x = __ldcs(p1);
-      if (ok1 && want(xb.y, yb.y)) vb.y = __ldcs(p1 + 1);
-      if (ok1 && want(xb.z, yb.z)) vb.z = __ldcs(p1 + 2);
-      if (ok1 && want(xb.w, yb.w)) vb.w = __ldcs(p1 + 3);
+      if (ok0 && want(i0, xa.x, ya.x)) va.x = __ldcs(p0);
+      if (ok0 && want(i0 + 1, xa.y, ya.y)) va.y = __ldcs(p0 + 1);
+      if (ok0 && want(i0 + 2, xa.z, ya.z)) va.z = __ldcs(p0 + 2);
+      if (ok0 && want(i0 + 3, xa.w, ya.w)) va.w = __ldcs(p0 + 3);
+      if (ok1 && want(i1, xb.x, yb.x)) vb.x = __ldcs(p1);
+      if (ok1 && want(i1 + 1, xb.y, yb.y)) vb.y = __ldcs(p1 + 1);
+      if (ok1 && want(i1 + 2, xb.z, yb.z)) vb.z = __ldcs(p1 + 2);
+      if (ok1 && want(i1 + 3, xb.w, yb.w)) vb.w = __ldcs(p1 + 3);
     }
-    const long long i0 = lo + head + 4 * u0, i1 = lo + head + 4 * u1;
     visit(i0, xa.x, ya.x, va.x, ok0);
     visit(i0 + 1, xa.y, ya.y, va.y, ok0);
     visit(i0 + 2, xa.z, ya.z, va.z, ok0);
@@ -177,9 +214,51 @@ __device__ __forceinline__ void walk(const float* __restrict__ x,
     if (ok) {
       xi = x[i];
       yi = y[i];
-      if (kV || want(xi, yi)) vi = v[i];
+      if (kV || want(i, xi, yi)) vi = v[i];
     }
     visit(i, xi, yi, vi, ok);
+  }
+}
+
+// visit(i, v[i], ok) once for every object i of [lo, hi), as walk does
+// for the one plane v: float4 loads, four in flight a thread, with a
+// scalar head to the 16-byte boundary and a scalar tail.
+template <class Visit>
+__device__ __forceinline__ void walk_plane(const float* __restrict__ v,
+                                           long long lo, long long hi,
+                                           Visit& visit) {
+  const long long n = hi - lo;
+  const uintptr_t off = (uintptr_t)(v + lo) & 15u;
+  long long head = (long long)(((16u - off) & 15u) >> 2);
+  if (head > n) head = n;
+  const long long nvec = (n - head) >> 2;
+  const float4* v4 = reinterpret_cast<const float4*>(v + lo + head);
+  long long a, e;
+  block_span(nvec, a, e);
+  for (long long base = a; base < e; base += 4 * OP_THREADS) {
+    float4 q[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const long long u = base + threadIdx.x + k * OP_THREADS;
+      q[k] = u < e ? __ldcs(v4 + u) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const long long u = base + threadIdx.x + k * OP_THREADS;
+      const bool ok = u < e;
+      const long long i = lo + head + 4 * u;
+      visit(i, q[k].x, ok);
+      visit(i + 1, q[k].y, ok);
+      visit(i + 2, q[k].z, ok);
+      visit(i + 3, q[k].w, ok);
+    }
+  }
+  block_span(n - 4 * nvec, a, e);
+  for (long long base = a; base < e; base += OP_THREADS) {
+    const long long k = base + threadIdx.x;
+    const bool ok = k < e;
+    const long long i = k < head ? lo + k : lo + 4 * nvec + k;
+    visit(i, ok ? v[i] : 0.f, ok);
   }
 }
 

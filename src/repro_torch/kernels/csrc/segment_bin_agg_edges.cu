@@ -78,7 +78,7 @@ __global__ void __launch_bounds__(OP_THREADS) segment_bin_agg_edges_one(
   const Table t = my_table(tables, kSink, cells);
   __syncthreads();
 
-  auto any = [](float, float) { return true; };
+  auto any = [](long long, float, float) { return true; };
   int seg = 0;
   auto visit = [&](long long i, float xi, float yi, float vi, bool ok) {
     int key = -1;

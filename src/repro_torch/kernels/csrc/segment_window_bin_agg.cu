@@ -187,13 +187,13 @@ __global__ void __launch_bounds__(OP_THREADS) segment_window_bin_agg_one(
   const Table t = my_table(tables, kSink, cells);
   __syncthreads();
 
-  auto inside = [&](float xi, float yi) {
+  auto inside = [&](long long, float xi, float yi) {
     return xi >= w.x0 && xi <= w.x1 && yi >= w.y0 && yi <= w.y1;
   };
   int seg = 0;
   auto visit = [&](long long i, float xi, float yi, float vi, bool ok) {
     int key = -1;
-    if (ok && inside(xi, yi)) {
+    if (ok && inside(i, xi, yi)) {
       if (i < b[seg] || i >= b[seg + 1]) seg = segment_of(b, S, i);
       const int cx = clip_cell(__fdiv_rn(__fsub_rn(xi, w.x0), w.cw), bx);
       const int cy = clip_cell(__fdiv_rn(__fsub_rn(yi, w.y0), w.ch), by);

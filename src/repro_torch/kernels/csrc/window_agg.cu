@@ -31,7 +31,8 @@
 //   scalar tail.
 //
 // Precision: the window is the float32 window (the wrapper rounds it),
-// compared with float32 coordinates; extrema by fminf/fmaxf (+-0 compare
+// compared with float32 coordinates; extrema NaN-propagating (a NaN value
+// counts and makes the sum, min and max NaN, as numpy's do; +-0 compare
 // equal); an empty selection, n = 0 included, is (0, 0, +inf, -inf).
 #include "agg_common.cuh"
 
@@ -56,8 +57,8 @@ __device__ __forceinline__ void acc_init(Partial& a) {
 __device__ __forceinline__ void acc_merge(Partial& a, const Partial& b) {
   a.cnt += b.cnt;
   a.sum += b.sum;
-  a.mn = fminf(a.mn, b.mn);
-  a.mx = fmaxf(a.mx, b.mx);
+  a.mn = min_nan(a.mn, b.mn);
+  a.mx = max_nan(a.mx, b.mx);
 }
 
 template <bool kVals>
@@ -67,8 +68,8 @@ __device__ __forceinline__ void acc_add(Partial& a, float x, float y,
     a.cnt += 1ull;
     if (kVals) {
       a.sum += (double)v;
-      a.mn = fminf(a.mn, v);
-      a.mx = fmaxf(a.mx, v);
+      a.mn = min_nan(a.mn, v);
+      a.mx = max_nan(a.mx, v);
     }
   }
 }

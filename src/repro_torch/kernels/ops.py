@@ -14,7 +14,10 @@ Backends, chosen per call (``backend=``, default ``"cuda"``):
 
 Every backend returns ``(count, sum, min, max)`` rows: counts exact,
 sums float64 (``"np"``'s ``bin_agg`` and ``window_agg`` keep the
-reference's float32 rows), extrema exact. ``segment_window_bin_select``
+reference's float32 rows), extrema exact. A NaN value counts and makes
+its cell's sum, min and max NaN on every backend, as numpy's reductions
+in the mirrors do (the kernels take NaN-propagating extrema); windows
+and bins compare coordinates only. ``segment_window_bin_select``
 also returns the suffix widths, bit for bit equal on every backend.
 
 Precision rules the port keeps, and where the reference states them:

@@ -300,13 +300,8 @@ def segment_window_bin_agg_multi_torch(xs, ys, vals, boundaries, windows,
 # --------------------------------------------------------------------- #
 
 _P = ctypes.c_void_p
-_SWA_ARGS = [_P, _P, _P, _P, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-             ctypes.c_float, ctypes.c_float, _P, _P, _P]
-_SBA_ARGS = [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             _P, _P, _P]
-_ONE_ARGS = [_P] * 9     # x, y, v, host args, ws, ticket, out, suffix, stream
-_EDGES_ARGS = [_P] * 8   # x, y, v, host args, ws, ticket, out, stream
-_SWAM_ARGS = [_P, _P, _P, _P, ctypes.c_int, _P, _P, _P, _P]
+_ONE_ARGS = [_P] * 9    # x, y, v, host args, ws, ticket, out, suffix, stream
+_ROWS_ARGS = [_P] * 8   # x, y, v, host args, ws, ticket, out, stream
 _SWBM_ARGS = [_P, _P, _P, _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int,
               _P, _P, ctypes.c_int, _P, _P, _P, _P]
 
@@ -330,72 +325,21 @@ def check_planes(b: np.ndarray, *planes: torch.Tensor) -> torch.device:
     return dev
 
 
-def segment_window_agg_cuda(xs, ys, vals, boundaries, window):
-    """Launch ``segment_window_agg`` (TPU original:
-    ``repro/kernels/segment_agg.py`` ``segment_window_agg_pallas``).
-    Returns float64 ``(S, 4)`` on the device; launches on the current
-    stream and does not synchronise."""
-    b = host_bounds(boundaries)
-    n_seg = len(b) - 1
-    if n_seg > MAX_SEGMENTS:
-        raise ValueError(f"{n_seg} segments > MAX_SEGMENTS={MAX_SEGMENTS}")
-    dev = check_planes(b, xs, ys, vals)
-    fn = build.load("segment_window_agg", "segment_window_agg_launch",
-                    _SWA_ARGS)
-    ws = torch.empty((n_seg, 3), dtype=torch.int64, device=dev)
-    out = torch.empty((n_seg, 4), dtype=torch.float64, device=dev)
-    with torch.cuda.device(dev):
-        rc = fn(xs.data_ptr(), ys.data_ptr(), vals.data_ptr(),
-                b.ctypes.data, n_seg, *window_f32(window), ws.data_ptr(),
-                out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    build.check("segment_window_agg", rc)
-    build.LAUNCHES["segment_window_agg"] += 1
-    return out
-
-
-def launch_segment_bin_agg(xs, ys, vals, b: np.ndarray, params: np.ndarray,
-                           gx: int, gy: int) -> torch.Tensor:
-    """One launch of the ``csrc/segment_bin_agg.cu`` kernel (shared by
-    ``segment_bin_agg`` and its S = 1 case ``bin_agg``; the callers
-    count their own launches)."""
-    n_seg = len(b) - 1
-    k = gx * gy
-    if n_seg > MAX_SEGMENTS or n_seg * k > MAX_TABLE_CELLS:
-        raise ValueError(f"{n_seg} segments x {k} cells exceeds the "
-                         f"kernel's table ({MAX_SEGMENTS} segments, "
-                         f"{MAX_TABLE_CELLS} cells)")
-    dev = check_planes(b, xs, ys, vals)
-    params = np.ascontiguousarray(params, np.float64)
-    fn = build.load("segment_bin_agg", "segment_bin_agg_launch", _SBA_ARGS)
-    ws = torch.empty((n_seg * k, 3), dtype=torch.int64, device=dev)
-    out = torch.empty((n_seg, k, 4), dtype=torch.float64, device=dev)
-    with torch.cuda.device(dev):
-        rc = fn(xs.data_ptr(), ys.data_ptr(), vals.data_ptr(),
-                b.ctypes.data, params.ctypes.data, n_seg, gx, gy,
-                ws.data_ptr(), out.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream)
-    build.check("segment_bin_agg", rc)
-    return out
-
-
-def segment_bin_agg_cuda(xs, ys, vals, boundaries, bboxes, gx: int,
-                         gy: int):
-    """Launch ``segment_bin_agg`` (TPU original:
-    ``repro/kernels/segment_agg.py`` ``segment_bin_agg_pallas``).
-    Returns float64 ``(S, gx*gy, 4)`` on the device."""
-    b = host_bounds(boundaries)
-    out = launch_segment_bin_agg(xs, ys, vals, b,
-                                 bin_params(bboxes, gx, gy), gx, gy)
-    build.LAUNCHES["segment_bin_agg"] += 1
-    return out
-
-
-# --- the one-launch kernels (rows 4, 6 and 7 of PERF.md's kernel table):
+# --- the one-launch kernels (rows 1-4 and 6-8 of PERF.md's kernel table):
 # a cached launch function, one workspace per (device, stream) that every
-# call leaves in its identity state, one output buffer a call
+# call leaves in its identity state, one output buffer a call. Each host
+# argument block is a numpy record laid out as its C struct (no padding).
 
-# the one-window entry's host arguments (csrc/segment_window_bin_agg.cu
-# WinArgs: numpy packs them without padding, as the C struct lies)
+# csrc/segment_window_agg.cu SwaArgs: boundaries, windows, (S, mode)
+_SWA_ARGS = np.dtype([("b", "<i8", MAX_SEGMENTS + 1),
+                      ("w", "<f4", (MAX_SEGMENTS, 4)), ("i", "<i4", 2)])
+# its entries' mode numbers (checked against ``segment_window_agg_modes``)
+_SWA_WINDOW, _SWA_EVERYWHERE, _SWA_MULTI = 0, 1, 2
+# csrc/segment_bin_agg.cu SbaArgs: boundaries, per-segment (x0, y0, cw,
+# ch), (S, gx, gy, 0)
+_SBA_ARGS = np.dtype([("b", "<i8", MAX_SEGMENTS + 1),
+                      ("p", "<f8", (MAX_SEGMENTS, 4)), ("i", "<i4", 4)])
+# csrc/segment_window_bin_agg.cu WinArgs, the one-window entry
 _WIN_ARGS = np.dtype([("b", "<i8", MAX_SEGMENTS + 1),
                       ("dv", "<f8", MAX_SEGMENTS), ("w", "<f4", 6),
                       ("i", "<i4", 4)])
@@ -405,6 +349,10 @@ _WIN_ARGS = np.dtype([("b", "<i8", MAX_SEGMENTS + 1),
 # most EDGE_CAP of them.
 EDGE_HEAD = (MAX_SEGMENTS + 1) + 2
 EDGE_CAP = 4022
+# the argument sizes each library reports (``<lib>_args_size``)
+_ARGS_SIZE = {"segment_window_agg": _SWA_ARGS.itemsize,
+              "segment_bin_agg": _SBA_ARGS.itemsize,
+              "segment_window_bin_agg": _WIN_ARGS.itemsize}
 # an empty cell's (min, max) word: the encodings of +inf and -inf
 _EMPTY_EXTREMA = (0x007FFFFF << 32) | 0xFF800000
 
@@ -419,8 +367,11 @@ def _one_launch(lib: str, fn: str, argtypes):
     if f is None:
         f = build.load(lib, fn, argtypes)
         dll = build.library(lib)
-        if lib == "segment_window_bin_agg":
-            ok = dll.segment_window_bin_agg_args_size() == _WIN_ARGS.itemsize
+        if lib in _ARGS_SIZE:
+            ok = getattr(dll, f"{lib}_args_size")() == _ARGS_SIZE[lib]
+            if lib == "segment_window_agg":
+                ok = ok and dll.segment_window_agg_modes() == (
+                    _SWA_WINDOW | _SWA_EVERYWHERE << 8 | _SWA_MULTI << 16)
         else:
             head, cap = ctypes.c_int(), ctypes.c_int()
             dll.segment_bin_agg_edges_limits(ctypes.byref(head),
@@ -428,7 +379,7 @@ def _one_launch(lib: str, fn: str, argtypes):
             ok = (head.value, cap.value) == (8 * EDGE_HEAD, EDGE_CAP)
         if not ok:
             raise RuntimeError(f"{lib}: the library's argument layout "
-                               "differs from the wrapper's")
+                               "or mode numbers differ from the wrapper's")
         _FNS[fn] = f
     return f
 
@@ -469,6 +420,88 @@ def _run_one(name: str, fn, dev: torch.device, cells: int, planes, args,
         build.check(name, rc)
 
 
+def _launch_segment_window(xs, ys, vals, b: np.ndarray, windows,
+                           mode: int) -> torch.Tensor:
+    """One launch of ``csrc/segment_window_agg.cu`` (rows 1 and 8; the
+    callers count their own launches). ``windows``: float32 ``(S, 4)``
+    for the multi entry, ``(1, 4)`` for one window, ``None`` for the
+    all-covering one. Returns float64 ``(S, 4)`` on the device."""
+    n_seg = len(b) - 1
+    if n_seg > MAX_SEGMENTS:
+        raise ValueError(f"{n_seg} segments > MAX_SEGMENTS={MAX_SEGMENTS}")
+    dev = check_planes(b, xs, ys, vals)
+    args = np.zeros(1, _SWA_ARGS)
+    args["b"][0, :n_seg + 1] = b
+    if windows is not None:
+        args["w"][0, :len(windows)] = windows
+    args["i"][0] = (n_seg, mode)
+    out = torch.empty((n_seg, 4), dtype=torch.float64, device=dev)
+    fn = _one_launch("segment_window_agg", "segment_window_agg_one_launch",
+                     _ROWS_ARGS)
+    _run_one("segment_window_agg", fn, dev, n_seg,
+             (xs.data_ptr(), ys.data_ptr(), vals.data_ptr()),
+             args.ctypes.data, (out.data_ptr(),))
+    return out
+
+
+def segment_window_agg_cuda(xs, ys, vals, boundaries, window):
+    """Launch ``segment_window_agg`` (TPU original:
+    ``repro/kernels/segment_agg.py`` ``segment_window_agg_pallas``), one
+    kernel a call. The all-covering window (all four edges ±inf, as the
+    host mirror recognises it) takes the entry that reads ``vals`` alone
+    and compares nothing: every object counts, NaN values too. Each entry
+    keeps its own launch count (``segment_window_agg`` and
+    ``segment_window_agg_everywhere``). Returns float64 ``(S, 4)`` on the
+    device; launches on the current stream and does not synchronise."""
+    b = host_bounds(boundaries)
+    if tuple(window) == EVERYWHERE:
+        out = _launch_segment_window(xs, ys, vals, b, None, _SWA_EVERYWHERE)
+        build.LAUNCHES["segment_window_agg_everywhere"] += 1
+    else:
+        out = _launch_segment_window(
+            xs, ys, vals, b, np.array([window_f32(window)], np.float32),
+            _SWA_WINDOW)
+        build.LAUNCHES["segment_window_agg"] += 1
+    return out
+
+
+def launch_segment_bin_agg(xs, ys, vals, b: np.ndarray, params: np.ndarray,
+                           gx: int, gy: int) -> torch.Tensor:
+    """One launch of the ``csrc/segment_bin_agg.cu`` kernel (shared by
+    ``segment_bin_agg`` and its S = 1 case ``bin_agg``; the callers
+    count their own launches)."""
+    n_seg = len(b) - 1
+    k = gx * gy
+    if n_seg > MAX_SEGMENTS or n_seg * k > MAX_TABLE_CELLS:
+        raise ValueError(f"{n_seg} segments x {k} cells exceeds the "
+                         f"kernel's table ({MAX_SEGMENTS} segments, "
+                         f"{MAX_TABLE_CELLS} cells)")
+    dev = check_planes(b, xs, ys, vals)
+    args = np.zeros(1, _SBA_ARGS)
+    args["b"][0, :n_seg + 1] = b
+    args["p"][0, :n_seg] = params
+    args["i"][0, :3] = (n_seg, gx, gy)
+    out = torch.empty((n_seg, k, 4), dtype=torch.float64, device=dev)
+    fn = _one_launch("segment_bin_agg", "segment_bin_agg_one_launch",
+                     _ROWS_ARGS)
+    _run_one("segment_bin_agg", fn, dev, n_seg * k,
+             (xs.data_ptr(), ys.data_ptr(), vals.data_ptr()),
+             args.ctypes.data, (out.data_ptr(),))
+    return out
+
+
+def segment_bin_agg_cuda(xs, ys, vals, boundaries, bboxes, gx: int,
+                         gy: int):
+    """Launch ``segment_bin_agg`` (TPU original:
+    ``repro/kernels/segment_agg.py`` ``segment_bin_agg_pallas``), one
+    kernel a call. Returns float64 ``(S, gx*gy, 4)`` on the device."""
+    b = host_bounds(boundaries)
+    out = launch_segment_bin_agg(xs, ys, vals, b,
+                                 bin_params(bboxes, gx, gy), gx, gy)
+    build.LAUNCHES["segment_bin_agg"] += 1
+    return out
+
+
 def segment_bin_agg_edges_cuda(xs, ys, vals, boundaries, x_edges,
                                y_edges):
     """Launch ``segment_bin_agg_edges`` (TPU original:
@@ -494,7 +527,7 @@ def segment_bin_agg_edges_cuda(xs, ys, vals, boundaries, x_edges,
     args[nx:] = np.asarray(y_edges, np.float64)[:, 1:-1].ravel()
     out = torch.empty((n_seg, k, 4), dtype=torch.float64, device=dev)
     fn = _one_launch("segment_bin_agg_edges",
-                     "segment_bin_agg_edges_one_launch", _EDGES_ARGS)
+                     "segment_bin_agg_edges_one_launch", _ROWS_ARGS)
     _run_one("segment_bin_agg_edges", fn, dev, n_seg * k,
              (xs.data_ptr(), ys.data_ptr(), vals.data_ptr()),
              args.ctypes.data, (out.data_ptr(),))
@@ -560,24 +593,13 @@ def segment_window_bin_agg_cuda(xs, ys, vals, boundaries, window, bx: int,
 
 def segment_window_agg_multi_cuda(xs, ys, vals, boundaries, windows):
     """Launch ``segment_window_agg_multi`` (TPU original:
-    ``repro/kernels/segment_agg.py`` ``segment_window_agg_multi_pallas``):
-    segment s under its own ``windows[s]``, rounded to float32. Returns
-    float64 ``(S, 4)`` on the device."""
+    ``repro/kernels/segment_agg.py`` ``segment_window_agg_multi_pallas``),
+    one kernel a call: segment s under its own ``windows[s]``, rounded to
+    float32. Returns float64 ``(S, 4)`` on the device."""
     b = host_bounds(boundaries)
-    n_seg = len(b) - 1
-    if n_seg > MAX_SEGMENTS:
-        raise ValueError(f"{n_seg} segments > MAX_SEGMENTS={MAX_SEGMENTS}")
-    dev = check_planes(b, xs, ys, vals)
-    w = windows_f32(windows, n_seg)
-    fn = build.load("segment_window_agg", "segment_window_agg_multi_launch",
-                    _SWAM_ARGS)
-    ws = torch.empty((n_seg, 3), dtype=torch.int64, device=dev)
-    out = torch.empty((n_seg, 4), dtype=torch.float64, device=dev)
-    with torch.cuda.device(dev):
-        rc = fn(xs.data_ptr(), ys.data_ptr(), vals.data_ptr(),
-                b.ctypes.data, n_seg, w.ctypes.data, ws.data_ptr(),
-                out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    build.check("segment_window_agg", rc)
+    out = _launch_segment_window(xs, ys, vals, b,
+                                 windows_f32(windows, len(b) - 1),
+                                 _SWA_MULTI)
     build.LAUNCHES["segment_window_agg_multi"] += 1
     return out
 

@@ -17,6 +17,7 @@ import torch
 from repro_torch.core import AQPEngine, IndexConfig
 from repro_torch.data import exploration_path, make_synthetic_dataset
 from repro_torch.kernels import build, ops
+from repro_torch.kernels.segment_agg import EVERYWHERE
 
 pytestmark = pytest.mark.cuda
 
@@ -235,21 +236,55 @@ def test_serving_tick_cuda_matches_torch(card):
         assert build.LAUNCHES[k] > before.get(k, 0), k
 
 
-# --- the one-launch kernels (rows 4, 6 and 7 of PERF.md's kernel table)
+# --- the one-launch kernels (rows 1-4 and 6-8 of PERF.md's kernel table;
+# segment_window_agg twice: one window, and the all-covering window the
+# index's enrichment passes with the value plane as x, y and v; the even
+# split of rows 2 and 3 twice: 2x2 cells, kept in registers, as the main
+# path splits, and 4x4, folded per lane)
 
-ONE_LAUNCH = ("segment_bin_agg_edges", "segment_window_bin_agg",
+ONE_LAUNCH = ("segment_window_agg", "segment_window_agg_everywhere",
+              "segment_window_agg_multi", "segment_bin_agg",
+              "segment_bin_agg_2x2", "bin_agg", "bin_agg_2x2",
+              "segment_bin_agg_edges", "segment_window_bin_agg",
               "segment_window_bin_select")
 
 
-def _one_launch_call(op, xs, ys, vals, b, bb, bins=(8, 8), g=4):
-    """``(call(v, backend), counter)`` for one of the one-launch ops on
-    these planes: a 300 x 300 window, ``bins``, ``g x g`` split cells."""
+def _counter(op):
+    """The launch counter of a ``ONE_LAUNCH`` entry."""
+    return op.removesuffix("_2x2")
+
+
+def _one_launch_call(op, xs, ys, vals, b, bb, bins=(8, 8), g=None):
+    """``call(v, backend)`` for one of the one-launch ops on these
+    planes: a 300 x 300 window (one per segment, crossing its bbox, for
+    the multi op), ``bins``, ``g x g`` split cells (by default 2 for the
+    ``_2x2`` entries, else 4)."""
+    if g is None:
+        g = 2 if op.endswith("_2x2") else 4
+    op = _counter(op)
     n_seg = len(b) - 1
     w = (100.3, 100.7, 400.1, 400.9)
+    wins = [tuple(float(v) + 0.3 for v in (
+        r[0] + 0.25 * (r[2] - r[0]), r[1] + 0.25 * (r[3] - r[1]),
+        r[0] + 0.75 * (r[2] - r[0]), r[1] + 0.75 * (r[3] - r[1])))
+        for r in bb[:n_seg]]
     xe, ye = _edges(bb, g, 2)
     vmin = np.full(n_seg, -200.0)
     vmax = np.linspace(50.0, 300.0, n_seg)
+    n0 = int(b[1])
     calls = {
+        "segment_window_agg": lambda v, be: ops.segment_window_agg(
+            xs, ys, v, b, w, backend=be),
+        "segment_window_agg_everywhere":
+            lambda v, be: ops.segment_window_agg(v, v, v, b, EVERYWHERE,
+                                                 backend=be),
+        "segment_window_agg_multi":
+            lambda v, be: ops.segment_window_agg_multi(xs, ys, v, b, wins,
+                                                       backend=be),
+        "segment_bin_agg": lambda v, be: ops.segment_bin_agg(
+            xs, ys, v, b, bb[:n_seg], gx=g, gy=g, backend=be),
+        "bin_agg": lambda v, be: ops.bin_agg(
+            xs[:n0], ys[:n0], v[:n0], bb[0], gx=g, gy=g, backend=be),
         "segment_bin_agg_edges": lambda v, be: ops.segment_bin_agg_edges(
             xs, ys, v, b, xe, ye, backend=be),
         "segment_window_bin_agg": lambda v, be: ops.segment_window_bin_agg(
@@ -327,9 +362,10 @@ def test_one_launch_planes_at_any_offset(card, op, shift):
 @pytest.mark.parametrize("case", ["S=64", "empty_stream", "past_2048"])
 def test_one_launch_edge_shapes(card, op, case):
     """64 segments; a stream whose segments are all empty (the last
-    block still writes the empty rows); a table past the 2048 shared
-    cells (32 segments x 16x16 bins, 32 segments x 8x8 split cells),
-    which folds into the global workspace."""
+    block still writes the empty rows); 32 segments with 16x16 bins and
+    8x8 split cells: the heatmap ops' tables past the 2048 shared cells
+    fold into the global workspace, and the even split's 2048 cells (its
+    limit) take one table a block."""
     if case == "S=64":
         xs, ys, vals, b, bb = _planes(card, 14, n_seg=64, rows=2000)
         kw = {}
@@ -373,19 +409,28 @@ def test_one_launch_refused_launch_leaves_next_call_correct(card, op,
     from repro_torch.kernels import fused_select as fs
     from repro_torch.kernels import segment_agg as sa
 
+    from repro_torch.kernels import bin_agg as ba
+
     xs, ys, vals, b, bb = _planes(card, 18)
     call = _one_launch_call(op, xs, ys, vals, b, bb)
     _check_one_launch(call, vals)
     bad = b.copy()
     bad[3], bad[4] = bad[4], bad[3]
-    before = build.LAUNCHES[op]
+    before = build.LAUNCHES[_counter(op)]
     with monkeypatch.context() as m:
         for mod in (sa, fs):
             m.setattr(mod, "host_bounds",
                       lambda bnd: np.asarray(bnd, np.int64))
+        refused = _one_launch_call(op, xs, ys, vals, bad, bb)
+        if _counter(op) == "bin_agg":
+            # one segment, so no boundaries to break: a 64 x 64 grid,
+            # past the table the library takes, let past the wrappers
+            m.setattr(ba, "_check_grid", lambda gx, gy: None)
+            m.setattr(sa, "MAX_TABLE_CELLS", 1 << 30)
+            refused = _one_launch_call(op, xs, ys, vals, b, bb, g=64)
         with pytest.raises(RuntimeError, match="launch failed"):
-            _one_launch_call(op, xs, ys, vals, bad, bb)(vals, "cuda")
-    assert build.LAUNCHES[op] == before
+            refused(vals, "cuda")
+    assert build.LAUNCHES[_counter(op)] == before
     stream = torch.cuda.current_stream(card).cuda_stream
     assert (card.index or 0, stream) not in sa._WORKSPACES \
         and (card.index, stream) not in sa._WORKSPACES
@@ -418,3 +463,202 @@ def test_one_launch_streams_keep_their_own_workspace(card):
                 assert torch.equal(g[1], w[1])
                 g, w, a = g[0], w[0], a[0]
             _assert_equal_rows(g, w, a[..., 1])
+
+
+# --- NaN values (PERF.md's NaN rule): every CUDA op against "np"
+
+NAN_OPS = ("segment_window_agg", "segment_window_agg_everywhere",
+           "segment_bin_agg", "bin_agg", "segment_bin_agg_edges",
+           "window_agg", "segment_window_bin_agg",
+           "segment_window_bin_select", "segment_window_agg_multi",
+           "segment_window_bin_agg_multi", "segment_window_bin_select_multi")
+
+
+@pytest.mark.parametrize("op", NAN_OPS)
+def test_nan_values_on_the_card(card, op):
+    """One NaN value on a folded object (inside the window, or the
+    segment's own window, or any object of the split ops' first segment)
+    and a whole segment of NaN values: under "cuda" each counts, and
+    makes its cell's sum, min and max NaN, as the "np" mirror gives
+    them. Counts and extrema equal (NaN equal to NaN); sums NaN where the
+    mirror's are, elsewhere within 1e-12 · Σ|v| (the float32 rows of
+    ``bin_agg`` and ``window_agg``: within float32 rounding)."""
+    xs, ys, vals, b, bb = _case(21)
+    n_seg = len(b) - 1
+    w = (100.0, 100.0, 400.0, 400.5)
+    wins = [tuple(float(np.float32(v)) for v in (
+        r[0] + 0.25 * (r[2] - r[0]), r[1] + 0.25 * (r[3] - r[1]),
+        r[0] + 0.75 * (r[2] - r[0]), r[1] + 0.75 * (r[3] - r[1])))
+        for r in bb]
+    xe, ye = _edges(bb, 4, 2)
+    vmin = np.full(n_seg, -200.0)
+    vmax = np.linspace(50.0, 300.0, n_seg)
+    qb = np.array([0, 1, 4, n_seg], np.int64)
+    n0 = int(b[1])
+    if op.endswith("_multi"):
+        sid = np.repeat(np.arange(n_seg), np.diff(b))
+        r = np.asarray(wins)[sid]
+        fold = (xs >= r[:, 0]) & (xs <= r[:, 2]) & (ys >= r[:, 1]) \
+            & (ys <= r[:, 3])
+    elif op in ("bin_agg", "segment_bin_agg", "segment_bin_agg_edges",
+                "segment_window_agg_everywhere"):
+        fold = np.arange(len(xs)) < n0
+    else:
+        fold = ops.window_mask_np(xs, ys, w)
+    idx = np.flatnonzero(fold)
+    vals[idx[len(idx) // 2]] = np.nan
+    vals[b[5]:b[6]] = np.nan
+    calls = {
+        "segment_window_agg": lambda x, y, v, be: ops.segment_window_agg(
+            x, y, v, b, w, backend=be),
+        "segment_window_agg_everywhere":
+            lambda x, y, v, be: ops.segment_window_agg(
+                v, v, v, b, EVERYWHERE, backend=be),
+        "segment_bin_agg": lambda x, y, v, be: ops.segment_bin_agg(
+            x, y, v, b, bb, gx=2, gy=2, backend=be),
+        "bin_agg": lambda x, y, v, be: ops.bin_agg(
+            x[:n0], y[:n0], v[:n0], bb[0], gx=2, gy=2, backend=be),
+        "segment_bin_agg_edges": lambda x, y, v, be:
+            ops.segment_bin_agg_edges(x, y, v, b, xe, ye, backend=be),
+        "window_agg": lambda x, y, v, be: ops.window_agg(
+            x, y, v, w, backend=be),
+        "segment_window_bin_agg": lambda x, y, v, be:
+            ops.segment_window_bin_agg(x, y, v, b, w, bx=8, by=8,
+                                       backend=be),
+        "segment_window_bin_select": lambda x, y, v, be:
+            ops.segment_window_bin_select(x, y, v, b, w, vmin, vmax, bx=8,
+                                          by=8, backend=be),
+        "segment_window_agg_multi": lambda x, y, v, be:
+            ops.segment_window_agg_multi(x, y, v, b, wins, backend=be),
+        "segment_window_bin_agg_multi": lambda x, y, v, be:
+            ops.segment_window_bin_agg_multi(x, y, v, b, wins, bx=4, by=4,
+                                             backend=be),
+        "segment_window_bin_select_multi": lambda x, y, v, be:
+            ops.segment_window_bin_select_multi(x, y, v, b, wins, vmin,
+                                                vmax, qb, bx=4, by=4,
+                                                backend=be),
+    }
+    call = calls[op]
+    dx, dy, dv = (torch.from_numpy(a).to(card) for a in (xs, ys, vals))
+    before = build.LAUNCHES[_counter(op)]
+    got = call(dx, dy, dv, "cuda")
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[_counter(op)] == before + 1
+    want = call(xs, ys, vals, "np")
+    absv = call(xs, ys, np.abs(np.nan_to_num(vals)), "np")
+    if isinstance(got, tuple):
+        np.testing.assert_array_equal(got[1].cpu().numpy(), want[1])
+        got, want, absv = got[0], want[0], absv[0]
+    g = got.cpu().numpy().reshape(-1, 4)
+    w_ = np.asarray(want, np.float64).reshape(-1, 4)
+    a = np.asarray(absv, np.float64).reshape(-1, 4)[:, 1]
+    assert np.isnan(w_[:, 2]).any()
+    np.testing.assert_array_equal(g[:, 0], w_[:, 0])
+    np.testing.assert_array_equal(g[:, 2:], w_[:, 2:])
+    nan = np.isnan(w_[:, 1])
+    np.testing.assert_array_equal(np.isnan(g[:, 1]), nan)
+    rtol = 2.0 ** -22 if op in ("bin_agg", "window_agg") else 1e-12
+    assert (np.abs(g[~nan, 1] - w_[~nan, 1]) <= rtol * a[~nan]).all()
+
+
+@pytest.mark.parametrize("op", ["bin_agg", "segment_bin_agg"])
+def test_split_ownership_is_float64_on_the_card(card, op):
+    """Objects within a few float32 ulps of a split line, where binning
+    in float32 (the Pallas split kernels' rule) and in float64 (the
+    host's rule) disagree: the kernels of rows 2 and 3 own each one by
+    the float64 rule, cell for cell the "np" mirror's."""
+    rng = np.random.default_rng(0)
+    for _ in range(200):
+        x0, y0 = rng.uniform(0, 700, 2)
+        wd = rng.uniform(10, 300)
+        bbox = np.array([x0, y0, x0 + wd, y0 + wd])
+        near = [np.float32(x0 + wd / 2)]
+        for _ in range(3):
+            near = ([np.nextafter(near[0], np.float32(-np.inf))] + near
+                    + [np.nextafter(near[-1], np.float32(np.inf))])
+        xs = np.array(near, np.float32)
+        c64 = np.floor((xs.astype(np.float64) - x0) / (wd / 2))
+        c32 = np.floor((xs - np.float32(x0)) / np.float32(wd / 2))
+        if (c64 != c32).any():
+            break
+    else:
+        pytest.fail("no float32/float64 disagreement found")
+    # the line objects in the first segment, a plain second segment
+    xs = np.concatenate([xs, rng.uniform(x0, x0 + wd, 50).astype(
+        np.float32)])
+    ys = np.full(len(xs), np.float32(y0 + wd / 4))
+    vals = np.arange(len(xs), dtype=np.float32) - 3
+    b = np.array([0, len(near), len(xs)], np.int64)
+    bbs = np.stack([bbox, bbox])
+    dx, dy, dv = (torch.from_numpy(a).to(card) for a in (xs, ys, vals))
+    if op == "bin_agg":
+        n = len(near)
+        got = ops.bin_agg(dx[:n], dy[:n], dv[:n], bbox, gx=2, gy=2,
+                          backend="cuda").cpu().numpy()
+        want = ops.segment_bin_agg(xs[:n], ys[:n], vals[:n], b[:2], bbs[:1],
+                                   gx=2, gy=2, backend="np")[0]
+    else:
+        got = ops.segment_bin_agg(dx, dy, dv, b, bbs, gx=2, gy=2,
+                                  backend="cuda").cpu().numpy()
+        want = ops.segment_bin_agg(xs, ys, vals, b, bbs, gx=2, gy=2,
+                                   backend="np")
+    got, want = got.reshape(-1, 4), np.asarray(want).reshape(-1, 4)
+    assert got[0, 0] == (c64 == 0).sum()       # the float64 rule's split
+    np.testing.assert_array_equal(got[:, [0, 2, 3]], want[:, [0, 2, 3]])
+    np.testing.assert_array_equal(got[:, 1], want[:, 1])   # small integers
+
+
+def test_nan_value_tile_metadata_on_the_card(card):
+    """A NaN in the attribute column: under "cuda" the init enrichment
+    and one ``read_batch`` round over the NaN's tile (its contribution,
+    then ``apply_batch``'s enrichment and split) give the "np" index's
+    tile metadata: NaN sum, min and max on every tile that holds the
+    object; counts and extrema equal, float64 sums within 1e-12
+    relative."""
+    from repro_torch.core import TileIndex
+    from repro_torch.data import RawDataset
+
+    rng = np.random.default_rng(12)
+    n, k = 200_000, 12_345
+    x = rng.uniform(0, 1000, n).astype(np.float32)
+    y = rng.uniform(0, 1000, n).astype(np.float32)
+    a0 = rng.normal(5.0, 30.0, n).astype(np.float32)
+    a0[k] = np.nan
+    cfg = dict(grid0=(4, 4), min_split_count=64, init_metadata_attrs=("a0",))
+    host = TileIndex(RawDataset(x, y, {"a0": a0.copy()}, device=None),
+                     IndexConfig(backend="np", **cfg))
+    dev = TileIndex(RawDataset(x, y, {"a0": a0.copy()}, device=card),
+                    IndexConfig(backend="cuda", **cfg))
+    slot = int(np.flatnonzero(host.perm == k)[0])
+    nt = host.n_tiles
+    tile = int(np.flatnonzero(
+        host.active[:nt] & (host.offset[:nt] <= slot)
+        & (slot < host.offset[:nt] + host.count[:nt]))[0])
+    window = tuple(float(v) for v in host.bbox[tile])
+    counters = ("segment_window_agg", "segment_window_agg_everywhere")
+    before = {c: build.LAUNCHES[c] for c in counters}
+    contribs = []
+    for ix in (host, dev):
+        c, payload = ix.read_batch(np.array([tile], np.int64), window, "a0")
+        ix.apply_batch(payload, 1, [True])
+        contribs.append(np.array(c, np.float64))
+    for c in counters:
+        assert build.LAUNCHES[c] > before[c], c
+    nt = host.n_tiles
+    assert dev.n_tiles == nt
+    np.testing.assert_array_equal(dev.count[:nt], host.count[:nt])
+    slot = int(np.flatnonzero(host.perm == k)[0])   # after the split
+    holds = np.flatnonzero((host.offset[:nt] <= slot)
+                           & (slot < host.offset[:nt] + host.count[:nt]))
+    assert len(holds) >= 2
+    for meta in ("meta_sum", "meta_min", "meta_max"):
+        assert np.isnan(getattr(host, meta)["a0"][holds]).all()
+    for meta in ("meta_min", "meta_max", "meta_valid"):
+        np.testing.assert_array_equal(getattr(dev, meta)["a0"][:nt],
+                                      getattr(host, meta)["a0"][:nt])
+    np.testing.assert_allclose(dev.meta_sum["a0"][:nt],
+                               host.meta_sum["a0"][:nt], rtol=1e-12,
+                               equal_nan=True)
+    np.testing.assert_array_equal(contribs[1][:, [0, 2, 3]],
+                                  contribs[0][:, [0, 2, 3]])
+    assert np.isnan(contribs[1][0, 1]) and np.isnan(contribs[0][0, 1])

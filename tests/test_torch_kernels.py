@@ -882,3 +882,113 @@ def test_select_pair_crosses_to_the_host_in_one_copy(monkeypatch):
     a, s = index_mod._host_pair(agg.clone(), suffix.clone())
     assert copies == [(2, 3, 4), (3, 3)]
     np.testing.assert_array_equal(s, suffix.numpy())
+
+
+# --------------------------------------------------------------------- #
+# NaN values, in every op
+# --------------------------------------------------------------------- #
+
+NAN_OPS = ["segment_window_agg", "segment_bin_agg", "bin_agg",
+           "segment_bin_agg_edges", "window_agg", "segment_window_bin_agg",
+           "segment_window_bin_select", "segment_window_agg_multi",
+           "segment_window_bin_agg_multi", "segment_window_bin_select_multi"]
+# float32 values, so that the reference's float64 multi compare (ROADMAP
+# C.6) and the ticket's float32 rule agree
+NAN_WINDOW = (150.0, 120.0, 520.0, 610.5)
+
+
+def nan_case(op, seed=43):
+    """``(call(module, xs, ys, vals, backend), (xs, ys, vals))``: the
+    op's inputs with one NaN value on an object inside the window (or
+    the segment's own window; any object of the split ops' first
+    segment)."""
+    xs, ys, vals, b, bb = make_segments(seed, n_seg=8, rows=1500)
+    n_seg = len(b) - 1
+    rng = np.random.default_rng(seed)
+    wins = [tuple(float(np.float32(v)) for v in (
+        r[0] + 0.25 * (r[2] - r[0]), r[1] + 0.25 * (r[3] - r[1]),
+        r[0] + 0.75 * (r[2] - r[0]), r[1] + 0.75 * (r[3] - r[1])))
+        for r in bb]
+    xe, ye = split_edges(bb, (4, 3), rng)
+    vmin = np.full(n_seg, -150.0)
+    vmax = np.full(n_seg, 160.0)
+    qb = np.array([0, 3, n_seg], np.int64)
+    n0 = int(b[1])
+    calls = {
+        "segment_window_agg": lambda m, x, y, v, be: m.segment_window_agg(
+            x, y, v, b, NAN_WINDOW, backend=be),
+        "segment_bin_agg": lambda m, x, y, v, be: m.segment_bin_agg(
+            x, y, v, b, bb, gx=2, gy=2, backend=be),
+        "bin_agg": lambda m, x, y, v, be: m.bin_agg(
+            x[:n0], y[:n0], v[:n0], bb[0], gx=2, gy=2, backend=be),
+        "segment_bin_agg_edges": lambda m, x, y, v, be:
+            m.segment_bin_agg_edges(x, y, v, b, xe, ye, backend=be),
+        "window_agg": lambda m, x, y, v, be: m.window_agg(
+            x, y, v, NAN_WINDOW, backend=be),
+        "segment_window_bin_agg": lambda m, x, y, v, be:
+            m.segment_window_bin_agg(x, y, v, b, NAN_WINDOW, bx=4, by=4,
+                                     backend=be),
+        "segment_window_bin_select": lambda m, x, y, v, be:
+            m.segment_window_bin_select(x, y, v, b, NAN_WINDOW, vmin, vmax,
+                                        bx=4, by=4, backend=be),
+        "segment_window_agg_multi": lambda m, x, y, v, be:
+            m.segment_window_agg_multi(x, y, v, b, wins, backend=be),
+        "segment_window_bin_agg_multi": lambda m, x, y, v, be:
+            m.segment_window_bin_agg_multi(x, y, v, b, wins, bx=4, by=4,
+                                           backend=be),
+        "segment_window_bin_select_multi": lambda m, x, y, v, be:
+            m.segment_window_bin_select_multi(x, y, v, b, wins, vmin, vmax,
+                                              qb, bx=4, by=4, backend=be),
+    }
+    if op.endswith("_multi"):
+        sid = np.repeat(np.arange(n_seg), np.diff(b))
+        w = np.asarray(wins)[sid]
+        inside = ((xs >= w[:, 0]) & (xs <= w[:, 2]) & (ys >= w[:, 1])
+                  & (ys <= w[:, 3]))
+    elif op in ("bin_agg", "segment_bin_agg", "segment_bin_agg_edges"):
+        inside = np.arange(len(xs)) < n0
+    else:
+        inside = rops.window_mask_np(xs, ys, NAN_WINDOW)
+    idx = np.flatnonzero(inside)
+    vals[idx[len(idx) // 2]] = np.nan
+    return calls[op], (xs, ys, vals)
+
+
+def assert_matches_nan(got, want, abs_sum, rtol=SUM_RTOL):
+    """:func:`assert_matches` where NaN equals NaN: counts equal, extrema
+    equal, sums NaN where the mirror's are and within ``rtol * sum|v|``
+    elsewhere."""
+    g = np.asarray(got, np.float64).reshape(-1, 4)
+    w = np.asarray(want, np.float64).reshape(-1, 4)
+    np.testing.assert_array_equal(g[:, 0], w[:, 0])
+    np.testing.assert_array_equal(g[:, 2:], w[:, 2:])
+    nan = np.isnan(w[:, 1])
+    np.testing.assert_array_equal(np.isnan(g[:, 1]), nan)
+    a = np.asarray(abs_sum, np.float64).reshape(-1)[~nan]
+    assert (np.abs(g[~nan, 1] - w[~nan, 1]) <= rtol * a).all(), "sums"
+
+
+@pytest.mark.parametrize("op", NAN_OPS)
+def test_nan_values_follow_the_mirror(op):
+    """One NaN value on an object the op folds: the NaN object counts,
+    and its cell's sum, min and max are NaN, as numpy's reductions give
+    them. Port "np" ≡ reference "np" bit for bit (NaN equal to NaN);
+    port "torch" equals it under the usual tolerances (the float32 rows
+    of ``bin_agg`` and ``window_agg``: sums within float32 rounding)."""
+    call, (xs, ys, vals) = nan_case(op)
+    want = call(rops, xs, ys, vals, "np")
+    got_np = call(pops, t(xs), t(ys), t(vals), "np")
+    got = call(pops, t(xs), t(ys), t(vals), "torch")
+    absv = call(rops, xs, ys, np.abs(np.nan_to_num(vals)), "np")
+    if isinstance(want, tuple):                   # the select ops
+        np.testing.assert_array_equal(got_np[1], want[1])
+        np.testing.assert_array_equal(got[1].numpy(), want[1])
+        want, got_np, got, absv = want[0], got_np[0], got[0], absv[0]
+    np.testing.assert_array_equal(got_np, want)
+    w = np.asarray(want, np.float64).reshape(-1, 4)
+    hit = np.isnan(w[:, 2])
+    assert hit.sum() == 1 and np.isnan(w[hit, 1:]).all() and w[hit, 0] > 0
+    f32 = op in ("bin_agg", "window_agg")
+    assert_matches_nan(got.numpy(), want,
+                       np.asarray(absv, np.float64).reshape(-1, 4)[:, 1],
+                       rtol=2.0 ** -22 if f32 else SUM_RTOL)

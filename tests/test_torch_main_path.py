@@ -184,15 +184,15 @@ def test_port_exact_equals_oracle(agg, backend):
                                    rtol=1e-12, atol=1e-9)
 
 
-@pytest.mark.parametrize("infinite", [False, True],
-                         ids=["finite", "inf_values"])
-def test_segment_stats_runs_of_max_segments(monkeypatch, infinite):
+@pytest.mark.parametrize("case", ["finite", "inf_values", "nan_values"])
+def test_segment_stats_runs_of_max_segments(monkeypatch, case):
     """The index's whole-segment enrichment over 200 segments (some
     empty) goes through ``ops.segment_window_agg`` in runs of at most
     ``MAX_SEGMENTS`` (the kernel's boundary table) and equals the
     reference's ``segment_window_agg_np`` under the ±inf window: counts
     and extrema equal, sums within 1e-12·Σ|v|. ±inf values count, as
-    they do in the reference."""
+    they do in the reference; so do NaN values, which make their
+    segment's sum, min and max NaN."""
     import torch
 
     from repro_torch.kernels import ops
@@ -202,10 +202,14 @@ def test_segment_stats_runs_of_max_segments(monkeypatch, infinite):
     counts[[0, 63, 64, 65, 127, 199]] = 0
     b = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
     vals = rng.normal(5.0, 30.0, int(b[-1])).astype(np.float32)
-    if infinite:
+    if case == "inf_values":
         vals[b[3]] = np.inf
         vals[b[70] + 1] = -np.inf
         vals[b[140]:b[141]] = np.inf
+    elif case == "nan_values":
+        vals[b[3]] = np.nan
+        vals[b[70] + 1] = np.nan
+        vals[b[140]:b[141]] = np.nan
     calls = []
     real = ops.segment_window_agg
 
@@ -218,11 +222,79 @@ def test_segment_stats_runs_of_max_segments(monkeypatch, infinite):
     assert calls == [(MAX_SEGMENTS, "torch")] * 3 + [(200 - 3 * MAX_SEGMENTS,
                                                       "torch")]
     want = ref_kernels.segment_window_agg_np(vals, vals, vals, b, EVERYWHERE)
-    absv = ref_kernels.segment_window_agg_np(vals, vals, np.abs(vals), b,
-                                             EVERYWHERE)
+    absv = ref_kernels.segment_window_agg_np(
+        vals, vals, np.abs(np.nan_to_num(vals)), b, EVERYWHERE)
     np.testing.assert_array_equal(got[:, 0], want[:, 0])
-    assert (got[:, 2] == want[:, 2]).all() and (got[:, 3] == want[:, 3]).all()
+    np.testing.assert_array_equal(got[:, 2:], want[:, 2:])   # NaN = NaN
     fin = np.isfinite(want[:, 1])
-    assert (got[~fin, 1] == want[~fin, 1]).all()
+    np.testing.assert_array_equal(got[~fin, 1], want[~fin, 1])
     assert (np.abs(got[fin, 1] - want[fin, 1]) <= 1e-12 * absv[fin, 1]).all()
-    assert fin.all() != infinite
+    assert fin.all() == (case == "finite")
+    if case == "nan_values":
+        assert np.isnan(want[[3, 70, 140], 1:]).all()
+
+
+@pytest.mark.parametrize("backend", ["np", "torch"])
+def test_nan_value_tile_metadata_matches_reference(backend):
+    """A NaN in the attribute column of a ``RawDataset``: the init
+    enrichment and one ``read_batch`` round over the NaN's tile (its
+    in-window contribution, then ``apply_batch``'s enrichment and split)
+    give the reference's tile metadata — NaN sum, min and max on every
+    tile that holds the object. Port "np" ≡ reference bit for bit; port
+    "torch" with equal counts and extrema (NaN equal to NaN) and float64
+    sums within 1e-12 relative."""
+    from repro.core import TileIndex as RefIndex
+    from repro.data import RawDataset as RefRaw
+    from repro_torch.core import TileIndex
+    from repro_torch.data import RawDataset
+
+    rng = np.random.default_rng(12)
+    n, k = 20_000, 1234
+    x = rng.uniform(0, 1000, n).astype(np.float32)
+    y = rng.uniform(0, 1000, n).astype(np.float32)
+    a0 = rng.normal(5.0, 30.0, n).astype(np.float32)
+    a0[k] = np.nan
+    cfg = dict(grid0=(4, 4), min_split_count=64, init_metadata_attrs=("a0",))
+    ref = RefIndex(RefRaw(x, y, {"a0": a0.copy()}), RefConfig(**cfg))
+    port = TileIndex(RawDataset(x, y, {"a0": a0.copy()},
+                                device=None if backend == "np" else "cpu"),
+                     IndexConfig(backend=backend, **cfg))
+    slot = int(np.flatnonzero(ref.perm == k)[0])
+    nt = ref.n_tiles
+    tile = int(np.flatnonzero(
+        ref.active[:nt] & (ref.offset[:nt] <= slot)
+        & (slot < ref.offset[:nt] + ref.count[:nt]))[0])
+    window = tuple(float(v) for v in ref.bbox[tile])
+    contribs = []
+    for ix in (ref, port):
+        c, payload = ix.read_batch(np.array([tile], np.int64), window, "a0")
+        ix.apply_batch(payload, 1, [True])
+        contribs.append(np.array(c, np.float64))
+    assert port.n_tiles == ref.n_tiles > nt          # the tile split
+    nt = ref.n_tiles
+    np.testing.assert_array_equal(port.count[:nt], ref.count[:nt])
+    np.testing.assert_array_equal(port.active[:nt], ref.active[:nt])
+    slot = int(np.flatnonzero(ref.perm == k)[0])   # after the split
+    holds = np.flatnonzero((ref.offset[:nt] <= slot)
+                           & (slot < ref.offset[:nt] + ref.count[:nt]))
+    assert len(holds) >= 2                    # the tile and its child
+    assert np.isnan(ref.meta_sum["a0"][holds]).all()
+    assert np.isnan(ref.meta_min["a0"][holds]).all()
+    assert np.isnan(ref.meta_max["a0"][holds]).all()
+    assert np.isnan(contribs[0][0, 1:]).all()
+    got = (port.meta_sum["a0"][:nt], port.meta_min["a0"][:nt],
+           port.meta_max["a0"][:nt], port.meta_valid["a0"][:nt])
+    want = (ref.meta_sum["a0"][:nt], ref.meta_min["a0"][:nt],
+            ref.meta_max["a0"][:nt], ref.meta_valid["a0"][:nt])
+    if backend == "np":
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(contribs[1], contribs[0])
+        return
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-12, equal_nan=True)
+    np.testing.assert_array_equal(contribs[1][:, [0, 2, 3]],
+                                  contribs[0][:, [0, 2, 3]])
+    np.testing.assert_array_equal(np.isnan(contribs[1][:, 1]),
+                                  np.isnan(contribs[0][:, 1]))
