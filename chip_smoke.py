@@ -60,24 +60,28 @@ mirrors, and at the heatmap path's shapes: 8 segments of ~3.9e5
 objects, 8x8 bins, 4x4 split cells for the batched ops, and one tile of
 ~3.9e5 objects (1e8 / 256, the initial grid's mean tile) for
 ``segment_window_bin_agg``, which the path launches only from
-``process_heatmap`` with S = 1. Then it times rows 1-8 on three clocks
+``process_heatmap`` with S = 1. Then it times rows 1-10 on three clocks
 — rows 1 (one window, and the all-covering window of the index's
-enrichment), 2 and 3 at phase 2's shapes, 8 at phase 5's median scalar
-pass, 4, 6 and 7 at the heatmap path's, 5 at B3's: (a) CUDA events
-around the call, L2 flushed (the kernels line's ms), (b) the device
-time of the call's kernels from ``torch.profiler``, (c) the wrapper's
-host microseconds — and fails unless the profiler sees one kernel a call
-of every one-launch row (two of row 5).
+enrichment), 2 and 3 at phase 2's shapes, 8, 9 and 10 at phase 5's
+median scalar pass (10 segments of 34 190 objects, a window each; rows
+9 and 10 with 4x4 bins, row 10 cut into ``HEATMAP_SPANS`` query spans),
+4, 6 and 7 at the heatmap path's, 5 at B3's: (a) CUDA events around the
+call, L2 flushed (the kernels line's ms), (b) the device time of the
+call's kernels from ``torch.profiler``, (c) the wrapper's host
+microseconds — and fails unless the profiler sees one kernel a call of
+every one-launch row (two of row 5).
 ``--clocks-of TREE`` builds the port under ``TREE/src`` (a parent commit
 unpacked there) and prints only those clocks, so that parent and change
 can be timed in turns in one call. Phase 2c holds the
 serving tick's kernels (``segment_window_agg_multi``,
 ``segment_window_bin_agg_multi``, ``segment_window_bin_select_multi``:
 one window per segment, suffix widths per query span) against their
-plain versions on edge cases (NaN values among them) and a host sample;
-after phase 5 it checks and times them at the median shapes of phase
-5's passes. Phase 2d holds ``window_agg`` and ``window_count`` against
-their plain versions on edge cases (n = 0, 1, 3 and 4097; an unaligned
+plain versions on edge cases (NaN values and empty query spans among
+them) and a host sample, and times row 10 where its table of 16 384
+cells folds into the global workspace; after phase 5 it checks and
+times them at the median shapes of phase 5's passes. Phase 2d holds
+``window_agg`` and ``window_count`` against their plain versions on edge
+cases (n = 0, 1, 3 and 4097; an unaligned
 view with n short of the planes; +-inf, empty and zero-area windows;
 objects on the window's edges and their float32 neighbours; NaN
 values), checks that views cut at
@@ -641,8 +645,9 @@ def kernel_shapes(torch, seed):
     rounds of rows 4 and 7); one such tile (row 3's split; row 6's S = 1
     launch under a window crossing it); phase 5's median scalar pass at
     10^8 rows, 10 segments of 34 190 objects each under its own window
-    (row 8); and B3's data under B3's window (row 5, whose two launches a
-    call no redesign has touched yet)."""
+    (row 8; with 4x4 bins, rows 9 and 10); and B3's data under B3's
+    window (row 5, whose two launches a call no redesign has touched
+    yet)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed + 5)
     seg_rows = 390_625
@@ -712,12 +717,14 @@ def host_clock(torch, fn, reps):
 
 
 def row_clocks(torch, timed, hs, enforce):
-    """Rows 1-8 at the main path's shapes (:func:`kernel_shapes`; row 1
+    """Rows 1-10 at the main path's shapes (:func:`kernel_shapes`; row 1
     also under the all-covering window, as the index's enrichment calls
     it) on three clocks: (a) CUDA events around the call, L2 flushed,
     median (the table's ms); (b) the device time of its kernels from
     ``torch.profiler``; (c) the wrapper's host microseconds. Also the
     kernels a call launches, which must be 1 (``enforce``; 2 for row 5).
+    Rows 9 and 10 take the multi planes with 4x4 bins, the widths of
+    phase 2c's timings and ``HEATMAP_SPANS`` even query spans.
     Takes only the op wrappers every tree of the port has, so it
     measures a parent tree as well (``--clocks-of``). Each row carries
     its plain version for the kernels line, except the rows in
@@ -742,6 +749,9 @@ def row_clocks(torch, timed, hs, enforce):
         sa.segment_ids(mb, "cuda")]
     n_inm = int(((mx >= wm[:, 0]) & (mx <= wm[:, 2]) & (my >= wm[:, 1])
                  & (my <= wm[:, 3])).sum())
+    nbm = 16
+    qbm = even_spans(ms, HEATMAP_SPANS)
+    vminm, vmaxm = np.full(ms, -150.0), np.full(ms, 160.0)
     ax, ay, av, aw = hs["wa"]
     La = len(ax)
     n_ina = int(wa.window_agg_torch(ax, ay, None, aw)[0].item())
@@ -785,6 +795,23 @@ def row_clocks(torch, timed, hs, enforce):
                      n_inm),
             src + "segment_window_agg.cu",
             "src/repro/kernels/segment_agg.py:219"),
+        # rows 9 and 10: the bound of time_serving_kernels
+        "segment_window_bin_agg_multi": (
+            lambda: sa.segment_window_bin_agg_multi_cuda(mx, my, mv, mb,
+                                                         mwins, 4, 4),
+            None,
+            bound_ms(8 * Lm + 4 * n_inm + 32 * ms * nbm, 4 * Lm + 6 * n_inm,
+                     n_inm),
+            src + "segment_window_bin_agg.cu",
+            "src/repro/kernels/segment_agg.py:372"),
+        "segment_window_bin_select_multi": (
+            lambda: fs.segment_window_bin_select_multi_cuda(
+                mx, my, mv, mb, mwins, 4, 4, vminm, vmaxm, qbm),
+            None,
+            bound_ms(8 * Lm + 4 * n_inm + 40 * ms * nbm, 4 * Lm + 6 * n_inm,
+                     n_inm + 2 * ms * nbm),
+            src + "segment_window_bin_agg.cu",
+            "src/repro/kernels/fused_select.py:498"),
         "window_agg": (
             lambda: wa.window_agg_cuda(ax, ay, av, aw),
             None,
@@ -849,15 +876,19 @@ def row_clocks(torch, timed, hs, enforce):
 
 # rows timed in phase 2b whose kernels-line entries phases 2c and 2d
 # write, at the shapes at which phases 5 and 6 launch them
-LINE_ELSEWHERE = ("segment_window_agg_multi", "window_agg")
+LINE_ELSEWHERE = ("segment_window_agg_multi", "segment_window_bin_agg_multi",
+                  "segment_window_bin_select_multi", "window_agg")
+# query spans of a serving heatmap pass at its median (phase 5, 10^8 rows,
+# seed 0): rows 9 and 10's clock shape in phase 2b
+HEATMAP_SPANS = 3
 
 
 def phase_clocks(torch, timed, hs, errs):
-    """Phase 2b's three clocks of rows 1-8 (one kernel a call enforced on
-    the redesigned ones) and the kernels line's rows 1-4, 6 and 7 (row 1
+    """Phase 2b's three clocks of rows 1-10 (one kernel a call enforced on
+    all but row 5) and the kernels line's rows 1-4, 6 and 7 (row 1
     twice: one window, and the all-covering entry): ms from clock (a),
     the plain version timed alike, ``errs`` from phases 2 and 2b."""
-    log("== phase 2b clocks: rows 1-8 at the main path's shapes")
+    log("== phase 2b clocks: rows 1-10 at the main path's shapes")
     rows = {}
     for name, c in row_clocks(torch, timed, hs, enforce=True).items():
         if name in LINE_ELSEWHERE:
@@ -936,9 +967,12 @@ def even_spans(n_seg, n_spans):
         np.int64)
 
 
-def phase_serving_kernels(torch, seed):
+def phase_serving_kernels(torch, timed, seed):
     """Rows 8-10 against their plain versions on edge cases (NaN values
-    among them) and a host sample."""
+    and empty query spans among them) and a host sample; then row 10's
+    clocks (a) and (b) where its table is past the shared memory (64
+    segments of 16x16 bins, 16 384 cells: one block runs the rows, the
+    suffix and the reset over the global workspace)."""
     from repro_torch.kernels import fused_select as fs
     from repro_torch.kernels import ref
     from repro_torch.kernels import segment_agg as sa
@@ -948,10 +982,10 @@ def phase_serving_kernels(torch, seed):
     checks = make_multi_checks(torch)
     n_checks = 0
     for tag, n_seg, rows, empty, spans in (
-            ("S=1", 1, 3000, (), [0, 1]),
-            ("S=16", 16, 3000, (), [0, 1, 5, 6, 16]),
-            ("S=16,empty", 16, 3000, (0, 5, 15), [0, 1, 5, 6, 16]),
-            ("S=64", 64, 500, (), [0, 8, 9, 30, 31, 64])):
+            ("S=1", 1, 3000, (), [0, 0, 1, 1]),
+            ("S=16", 16, 3000, (), [0, 1, 5, 5, 6, 16]),
+            ("S=16,empty", 16, 3000, (0, 5, 15), [0, 1, 5, 6, 6, 16]),
+            ("S=64", 64, 500, (), [0, 8, 9, 9, 30, 31, 64])):
         for bins in ((4, 4), (16, 16)):
             xs, ys, vals, b, wins = multi_case(torch, rng, n_seg, rows, bins,
                                                empty)
@@ -1014,6 +1048,26 @@ def phase_serving_kernels(torch, seed):
         raise Failed("segment_window_bin_select_multi: suffix_w differs "
                       "from the numpy mirror")
     log("serving host sample against the numpy mirrors: equal")
+
+    xs, ys, vals, b, wins = multi_case(torch, rng, 64, 500, (16, 16))
+    vmin, vmax = np.full(64, -150.0), np.full(64, 160.0)
+    qb = even_spans(64, 8)
+    checks["segment_window_bin_select_multi"]("global_sink", xs, ys, vals,
+                                              b, wins, (16, 16), qb, rng)
+
+    def kern():
+        return fs.segment_window_bin_select_multi_cuda(
+            xs, ys, vals, b, wins, 16, 16, vmin, vmax, qb)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    a_ms = timed(kern)
+    b_ms, per_call, names = device_clock(torch, kern, flush, 20)
+    log(f"segment_window_bin_select_multi, global sink (64 segments, "
+        f"{int(b[-1])} objects, 16x16 bins, 16 384 cells, 8 spans): (a) "
+        f"{a_ms:.4f} ms, (b) {b_ms:.4f} ms device; {per_call:g} kernels a "
+        f"call {names}")
+    if per_call != 1:
+        raise Failed(f"segment_window_bin_select_multi launched {per_call:g} "
+                     "kernels a call (profiler) on the global sink, not 1")
 
 
 def make_multi_checks(torch):
@@ -1912,7 +1966,7 @@ def main(argv=None) -> int:
     ap.add_argument("--ticks", type=int, default=10)
     ap.add_argument("--clocks-of", metavar="TREE",
                     help="only build the port under TREE/src and print "
-                    "phase 2b's three clocks of rows 1-8 (to time "
+                    "phase 2b's three clocks of rows 1-10 (to time "
                     "a parent tree and this one in turns in one call)")
     args = ap.parse_args(argv)
 
@@ -1941,7 +1995,7 @@ def main(argv=None) -> int:
             return 0
         errs = phase_kernels(torch, timed, args.seed)
         errs.update(phase_heatmap_kernels(torch, shapes, args.seed))
-        phase_serving_kernels(torch, args.seed)
+        phase_serving_kernels(torch, timed, args.seed)
         rows = phase_clocks(torch, timed, shapes, errs)
         del shapes
         rows.update(phase_window_agg(torch, timed, build, args.seed))

@@ -142,13 +142,18 @@ def _host(a) -> np.ndarray:
     return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
+def _adjacent(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """``b`` lies right behind ``a`` in one buffer, both contiguous (the
+    select kernels' table and suffix widths)."""
+    return (a.untyped_storage().data_ptr() == b.untyped_storage().data_ptr()
+            and a.is_contiguous() and b.is_contiguous()
+            and b.storage_offset() == a.storage_offset() + a.numel())
+
+
 def _host_pair(a: torch.Tensor, b: torch.Tensor):
-    """Two device results on the host, in one device→host copy when ``b``
-    lies right behind ``a`` in one buffer (the select kernel's table and
-    suffix widths)."""
-    same = a.untyped_storage().data_ptr() == b.untyped_storage().data_ptr()
-    if (same and a.is_contiguous() and b.is_contiguous()
-            and b.storage_offset() == a.storage_offset() + a.numel()):
+    """Two device results on the host, in one device→host copy when they
+    are :func:`_adjacent`."""
+    if _adjacent(a, b):
         both = _host(torch.as_strided(a, (a.numel() + b.numel(),), (1,)))
         return (both[:a.numel()].reshape(a.shape),
                 both[a.numel():].reshape(b.shape))

@@ -56,7 +56,7 @@ from ..kernels.segment_agg import MAX_SEGMENTS, MAX_UNROLL
 from . import query as query_mod
 from .bounds import AccuracyPolicy, HeatmapResult, QueryResult
 from .engine import AQPEngine, EngineTrace
-from .index import EpochStage, _host
+from .index import EpochStage, _adjacent, _host, _host_pair
 from .predict import TrajectoryStep
 from .refine import (HeatmapQueryAdapter, ScalarQueryAdapter, met,
                      round_residual)
@@ -608,7 +608,9 @@ class ServingEngine:
         QUERY-SPAN boundaries (suffix widths are per-span quantities, so
         a span never straddles a chunk; every span is ≤ batch_k ≤
         MAX_SEGMENTS segments). A device pass moves its table and
-        suffix widths to the host in one copy."""
+        suffix widths to the host in one copy: the kernel's, adjacent
+        views of one buffer, as they lie; any other joined on the
+        device first."""
         n_seg = len(bounds) - 1
         if ti._backend == "np" or n_seg <= MAX_SEGMENTS:
             ti.adapt_stats.kernel_calls += 1
@@ -617,6 +619,8 @@ class ServingEngine:
                 bx=bx, by=by, backend=ti._backend)
             if ti._backend == "np":
                 return np.asarray(agg), np.asarray(suffix_w)
+            if _adjacent(agg, suffix_w):
+                return _host_pair(agg, suffix_w)
             aggs, sufs = [agg], [suffix_w]
         else:
             qb = np.asarray(qbounds, np.int64)

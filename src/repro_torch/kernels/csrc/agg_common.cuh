@@ -1,12 +1,11 @@
 // Shared pieces of the keyed (count, sum, min, max) reductions.
 //
 // Every kernel of this family is a keyed reduction: each object gets a
-// key = segment * k + cell, folds into a block-private table in shared
-// memory, and each block flushes its table to a global workspace with
-// atomics. A table of more than AGG_MAX_CELLS cells does not fit in
-// shared memory: its kernels fold every run straight into the global
-// workspace instead. An epilogue turns the workspace into the f64
-// (count, sum, min, max) rows the host control plane reads.
+// key = segment * k + cell and folds into a table of (count, sum, min,
+// max) cells. This header holds the cells and their encodings, the
+// shared-memory tables, the register runs and the binning rule;
+// agg_onepass.cuh holds how a call reaches the card (one launch, the
+// last block's epilogue, the workspace each stream keeps).
 //
 // Channels: counts are integers (exact at any size), sums float64
 // (native atomicAdd(double)), extrema float32 under the sign-flipped
@@ -27,16 +26,9 @@
 #define AGG_MAX_SEGMENTS 64
 #define AGG_MAX_CELLS 2048
 #define AGG_SMEM 49152  // dynamic shared memory without an opt-in
-#define AGG_THREADS 256
-#define AGG_ITEMS 16  // objects per thread per block chunk
-#define AGG_CHUNK (AGG_THREADS * AGG_ITEMS)
 
 #define ENC_POS_INF 0xff800000u
 #define ENC_NEG_INF 0x007fffffu
-
-struct Bounds {
-  long long b[AGG_MAX_SEGMENTS + 1];
-};
 
 // global workspace cell (24 bytes; the wrapper hands an int64 (cells, 3)
 // tensor)
@@ -124,8 +116,8 @@ __device__ __forceinline__ void table_init(Table t, int cells) {
 }
 
 // one thread's run of consecutive same-key objects, kept in registers:
-// objects of one chunk mostly share a key, so most folds touch no
-// shared memory at all
+// a block's span meets few segments, so most folds touch no shared
+// memory at all
 struct Run {
   int key;
   unsigned int cnt;
@@ -141,69 +133,25 @@ __device__ __forceinline__ void run_reset(Run& r, int key) {
   r.mx = -INFINITY;
 }
 
-// A run lands in a sink: the block-private shared table, or — when the
-// table is too large for shared memory — the global workspace directly.
-__device__ __forceinline__ void sink_add(Table t, const Run& r) {
-  atomicAdd(&t.cnt[r.key], r.cnt);
-  atomicAdd(&t.sum[r.key], r.sum);
-  atomicMin(&t.mn[r.key], f2o_min(r.mn));
-  atomicMax(&t.mx[r.key], f2o_max(r.mx));
+// a run lands in a shared table when its key changes
+__device__ __forceinline__ void run_flush(Run& r, Table t) {
+  if (r.cnt) {
+    atomicAdd(&t.cnt[r.key], r.cnt);
+    atomicAdd(&t.sum[r.key], r.sum);
+    atomicMin(&t.mn[r.key], f2o_min(r.mn));
+    atomicMax(&t.mx[r.key], f2o_max(r.mx));
+  }
 }
 
-__device__ __forceinline__ void sink_add(Cell* ws, const Run& r) {
-  atomicAdd(&ws[r.key].cnt, (unsigned long long)r.cnt);
-  atomicAdd(&ws[r.key].sum, r.sum);
-  atomicMin(&ws[r.key].mn, f2o_min(r.mn));
-  atomicMax(&ws[r.key].mx, f2o_max(r.mx));
-}
-
-template <class Sink>
-__device__ __forceinline__ void run_flush(Run& r, Sink sink) {
-  if (r.cnt) sink_add(sink, r);
-}
-
-template <class Sink>
-__device__ __forceinline__ void run_add(Run& r, int key, float v, Sink sink) {
+__device__ __forceinline__ void run_add(Run& r, int key, float v, Table t) {
   if (key != r.key) {
-    run_flush(r, sink);
+    run_flush(r, t);
     run_reset(r, key);
   }
   r.cnt += 1u;
   r.sum += (double)v;
   r.mn = min_nan(r.mn, v);
   r.mx = max_nan(r.mx, v);
-}
-
-__device__ __forceinline__ void table_flush(Table t, int cells, Cell* ws) {
-  for (int c = threadIdx.x; c < cells; c += blockDim.x) {
-    if (t.cnt[c]) {
-      atomicAdd(&ws[c].cnt, (unsigned long long)t.cnt[c]);
-      atomicAdd(&ws[c].sum, t.sum[c]);
-      atomicMin(&ws[c].mn, t.mn[c]);
-      atomicMax(&ws[c].mx, t.mx[c]);
-    }
-  }
-}
-
-__global__ void workspace_init(Cell* ws, int cells) {
-  int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c < cells) {
-    ws[c].cnt = 0ull;
-    ws[c].sum = 0.0;
-    ws[c].mn = ENC_POS_INF;
-    ws[c].mx = ENC_NEG_INF;
-  }
-}
-
-// (cells, 4) float64 rows: count, sum, min, max
-__global__ void workspace_finalize(const Cell* ws, double* out, int cells) {
-  int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c < cells) {
-    out[4 * c + 0] = (double)ws[c].cnt;
-    out[4 * c + 1] = ws[c].sum;
-    out[4 * c + 2] = (double)o2f(ws[c].mn);
-    out[4 * c + 3] = (double)o2f(ws[c].mx);
-  }
 }
 
 // numpy's clip(floor(q).astype(int64), 0, g - 1): an out-of-range

@@ -1,8 +1,8 @@
 // One-launch keyed reductions for Hopper: the device and launch pieces
 // shared by the window read (segment_window_agg.cu: one window, the
 // all-covering window, a window per segment), the even split
-// (segment_bin_agg.cu), the single-window heatmap read
-// (segment_window_bin_agg.cu's one-launch entry) and the bin-aligned split
+// (segment_bin_agg.cu), the heatmap read under one window or a window
+// per segment (segment_window_bin_agg.cu) and the bin-aligned split
 // (segment_bin_agg_edges.cu). The tables, cells and encodings are
 // agg_common.cuh's; what differs is how a call reaches the card:
 //
@@ -127,6 +127,28 @@ __device__ __forceinline__ void warp_flush_runs(const Run& r, Sink sink) {
       cell_add(sink, k0, cnt, sum, mn, mx);
     left = left && !mine;
   }
+}
+
+// The segment of object i, found by binary search only when i leaves the
+// last segment found (a thread meets few segments).
+struct SegCache {
+  int s = 0;
+  long long lo = 0, hi = -1;
+  // true when the segment changed
+  __device__ __forceinline__ bool at(const long long* b, int S,
+                                     long long i) {
+    if (i >= lo && i < hi) return false;
+    s = segment_of(b, S, i);
+    lo = b[s];
+    hi = b[s + 1];
+    return true;
+  }
+};
+
+// the closed window (x0, y0, x1, y1) in float32
+__device__ __forceinline__ bool in_window(const float4& w, float x,
+                                          float y) {
+  return x >= w.x && x <= w.z && y >= w.y && y <= w.w;
 }
 
 // This block's share [a, e) of `units` work units: contiguous, balanced.

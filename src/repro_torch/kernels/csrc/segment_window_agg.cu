@@ -56,27 +56,6 @@ struct SwaArgs {
 };
 static_assert(sizeof(SwaArgs) == 1552, "SwaArgs layout");
 
-// The segment of object i, found by binary search only when i leaves the
-// last segment found (a thread meets few segments).
-struct SegCache {
-  int s = 0;
-  long long lo = 0, hi = -1;
-  // true when the segment changed
-  __device__ __forceinline__ bool at(const long long* b, int S,
-                                     long long i) {
-    if (i >= lo && i < hi) return false;
-    s = segment_of(b, S, i);
-    lo = b[s];
-    hi = b[s + 1];
-    return true;
-  }
-};
-
-__device__ __forceinline__ bool in_window(const float4& w, float x,
-                                          float y) {
-  return x >= w.x && x <= w.z && y >= w.y && y <= w.w;
-}
-
 template <int kMode>
 __global__ void __launch_bounds__(OP_THREADS) segment_window_agg_one(
     const float* __restrict__ x, const float* __restrict__ y,

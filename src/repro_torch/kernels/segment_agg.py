@@ -183,10 +183,11 @@ def windows_f32(windows, n_seg: int) -> np.ndarray:
 def bin_params_multi(windows, n_seg: int, bx: int, by: int) -> np.ndarray:
     """Per-segment contract params, float32 ``(S, 6)``
     (``ref.window_bin_params`` of each segment's own window)."""
+    if bx < 1 or by < 1:
+        raise ValueError(f"an empty bin grid {bx}x{by}")
     p = window_bin_params(windows, bx, by)
-    if len(p) != n_seg or bx < 1 or by < 1:
-        raise ValueError(f"{len(p)} windows for {n_seg} segments, or an "
-                         f"empty bin grid {bx}x{by}")
+    if len(p) != n_seg:
+        raise ValueError(f"{len(p)} windows for {n_seg} segments")
     return np.ascontiguousarray(p)
 
 
@@ -302,8 +303,6 @@ def segment_window_bin_agg_multi_torch(xs, ys, vals, boundaries, windows,
 _P = ctypes.c_void_p
 _ONE_ARGS = [_P] * 9    # x, y, v, host args, ws, ticket, out, suffix, stream
 _ROWS_ARGS = [_P] * 8   # x, y, v, host args, ws, ticket, out, stream
-_SWBM_ARGS = [_P, _P, _P, _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int,
-              _P, _P, ctypes.c_int, _P, _P, _P, _P]
 
 
 def check_planes(b: np.ndarray, *planes: torch.Tensor) -> torch.device:
@@ -325,7 +324,7 @@ def check_planes(b: np.ndarray, *planes: torch.Tensor) -> torch.device:
     return dev
 
 
-# --- the one-launch kernels (rows 1-4 and 6-8 of PERF.md's kernel table):
+# --- the one-launch kernels (rows 1-4 and 6-10 of PERF.md's kernel table):
 # a cached launch function, one workspace per (device, stream) that every
 # call leaves in its identity state, one output buffer a call. Each host
 # argument block is a numpy record laid out as its C struct (no padding).
@@ -343,16 +342,29 @@ _SBA_ARGS = np.dtype([("b", "<i8", MAX_SEGMENTS + 1),
 _WIN_ARGS = np.dtype([("b", "<i8", MAX_SEGMENTS + 1),
                       ("dv", "<f8", MAX_SEGMENTS), ("w", "<f4", 6),
                       ("i", "<i4", 4)])
+# its MultiArgs, the multi entry: per-segment contract rows, the query
+# spans, (S, bx, by, select, spans)
+_MULTI_ARGS = np.dtype([("b", "<i8", MAX_SEGMENTS + 1),
+                        ("dv", "<f8", MAX_SEGMENTS),
+                        ("w", "<f4", (MAX_SEGMENTS, 6)),
+                        ("qb", "<i4", MAX_SEGMENTS + 1), ("i", "<i4", 5)])
 # the split kernel's host arguments (csrc/segment_bin_agg_edges.cu
 # EdgeHead, then the edges): the boundaries and (S, gx, gy, ne) in
 # EDGE_HEAD float64 words, then the ne interior edges. Its launch takes at
 # most EDGE_CAP of them.
 EDGE_HEAD = (MAX_SEGMENTS + 1) + 2
 EDGE_CAP = 4022
-# the argument sizes each library reports (``<lib>_args_size``)
-_ARGS_SIZE = {"segment_window_agg": _SWA_ARGS.itemsize,
-              "segment_bin_agg": _SBA_ARGS.itemsize,
-              "segment_window_bin_agg": _WIN_ARGS.itemsize}
+# per launch function, the export that reports its argument record's
+# size, and that size
+_ARGS_SIZE = {
+    "segment_window_agg_one_launch": ("segment_window_agg_args_size",
+                                      _SWA_ARGS.itemsize),
+    "segment_bin_agg_one_launch": ("segment_bin_agg_args_size",
+                                   _SBA_ARGS.itemsize),
+    "segment_window_bin_agg_one_launch": ("segment_window_bin_agg_args_size",
+                                          _WIN_ARGS.itemsize),
+    "segment_window_bin_agg_multi_launch": (
+        "segment_window_bin_agg_multi_args_size", _MULTI_ARGS.itemsize)}
 # an empty cell's (min, max) word: the encodings of +inf and -inf
 _EMPTY_EXTREMA = (0x007FFFFF << 32) | 0xFF800000
 
@@ -367,8 +379,9 @@ def _one_launch(lib: str, fn: str, argtypes):
     if f is None:
         f = build.load(lib, fn, argtypes)
         dll = build.library(lib)
-        if lib in _ARGS_SIZE:
-            ok = getattr(dll, f"{lib}_args_size")() == _ARGS_SIZE[lib]
+        if fn in _ARGS_SIZE:
+            size_fn, size = _ARGS_SIZE[fn]
+            ok = getattr(dll, size_fn)() == size
             if lib == "segment_window_agg":
                 ok = ok and dll.segment_window_agg_modes() == (
                     _SWA_WINDOW | _SWA_EVERYWHERE << 8 | _SWA_MULTI << 16)
@@ -623,36 +636,44 @@ def launch_segment_window_bin_multi(xs, ys, vals, b: np.ndarray, windows,
     ``csrc/segment_window_bin_agg.cu`` (shared by
     ``segment_window_bin_agg_multi`` and, with the per-segment float64
     widths ``dv`` and the query spans, ``segment_window_bin_select_multi``;
-    the callers count their own launches). Returns ``(agg (S, bx*by, 4),
-    suffix_w (S, bx*by) or None)``."""
+    the callers count their own launches). Arguments are checked before
+    the planes. Returns ``(agg (S, bx*by, 4), suffix_w (S, bx*by) or
+    None)``: views of one float64 buffer, the suffix rows behind the
+    table's."""
     n_seg = len(b) - 1
     nb = bx * by
     if n_seg > MAX_SEGMENTS:
         raise ValueError(f"{n_seg} segments > MAX_SEGMENTS={MAX_SEGMENTS}")
-    params = bin_params_multi(windows, n_seg, bx, by)
-    dev = check_planes(b, xs, ys, vals)
-    fn = build.load("segment_window_bin_agg",
-                    "segment_window_bin_agg_multi_launch", _SWBM_ARGS)
-    ws = torch.empty((n_seg * nb, 3), dtype=torch.int64, device=dev)
-    out = torch.empty((n_seg, nb, 4), dtype=torch.float64, device=dev)
-    suffix = qb = None
+    args = np.zeros(1, _MULTI_ARGS)
+    args["w"][0, :n_seg] = bin_params_multi(windows, n_seg, bx, by)
+    n_q = 0
     if dv is not None:
         dv = np.ascontiguousarray(dv, np.float64)
         if dv.shape != (n_seg,):
             raise ValueError(f"widths of shape {dv.shape}, want "
                              f"({n_seg},)")
         qb = check_spans(qbounds, n_seg)
-        suffix = torch.empty((n_seg, nb), dtype=torch.float64, device=dev)
-    with torch.cuda.device(dev):
-        rc = fn(xs.data_ptr(), ys.data_ptr(), vals.data_ptr(),
-                b.ctypes.data, n_seg, params.ctypes.data, bx, by,
-                None if dv is None else dv.ctypes.data,
-                None if qb is None else qb.ctypes.data,
-                0 if qb is None else len(qb) - 1, ws.data_ptr(),
-                out.data_ptr(), None if suffix is None else suffix.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream)
-    build.check("segment_window_bin_agg", rc)
-    return out, suffix
+        n_q = len(qb) - 1
+        if n_q > MAX_SEGMENTS:
+            raise ValueError(f"{n_q} query spans > "
+                             f"MAX_SEGMENTS={MAX_SEGMENTS}")
+        args["dv"][0, :n_seg] = dv
+        args["qb"][0, :n_q + 1] = qb
+    dev = check_planes(b, xs, ys, vals)
+    args["b"][0, :n_seg + 1] = b
+    args["i"][0] = (n_seg, bx, by, dv is not None, n_q)
+    rows = 4 * n_seg * nb
+    buf = torch.empty(rows + (0 if dv is None else n_seg * nb),
+                      dtype=torch.float64, device=dev)
+    fn = _one_launch("segment_window_bin_agg",
+                     "segment_window_bin_agg_multi_launch", _ONE_ARGS)
+    _run_one("segment_window_bin_agg", fn, dev, n_seg * nb,
+             (xs.data_ptr(), ys.data_ptr(), vals.data_ptr()),
+             args.ctypes.data,
+             (buf.data_ptr(),
+              None if dv is None else buf.data_ptr() + 8 * rows))
+    agg = buf[:rows].view(n_seg, nb, 4)
+    return agg, (None if dv is None else buf[rows:].view(n_seg, nb))
 
 
 def segment_window_bin_agg_multi_cuda(xs, ys, vals, boundaries, windows,

@@ -236,31 +236,46 @@ def test_serving_tick_cuda_matches_torch(card):
         assert build.LAUNCHES[k] > before.get(k, 0), k
 
 
-# --- the one-launch kernels (rows 1-4 and 6-8 of PERF.md's kernel table;
-# segment_window_agg twice: one window, and the all-covering window the
-# index's enrichment passes with the value plane as x, y and v; the even
-# split of rows 2 and 3 twice: 2x2 cells, kept in registers, as the main
-# path splits, and 4x4, folded per lane)
+# --- the one-launch kernels (rows 1-4 and 6-10 of PERF.md's kernel
+# table; segment_window_agg twice: one window, and the all-covering window
+# the index's enrichment passes with the value plane as x, y and v; the
+# even split of rows 2 and 3 twice: 2x2 cells, kept in registers, as the
+# main path splits, and 4x4, folded per lane; the multi-window heatmap
+# ops of rows 9 and 10 twice: as given, and as 64 segments of 16x16 bins,
+# 16 384 cells that fold into the global workspace)
 
 ONE_LAUNCH = ("segment_window_agg", "segment_window_agg_everywhere",
               "segment_window_agg_multi", "segment_bin_agg",
               "segment_bin_agg_2x2", "bin_agg", "bin_agg_2x2",
               "segment_bin_agg_edges", "segment_window_bin_agg",
-              "segment_window_bin_select")
+              "segment_window_bin_select", "segment_window_bin_agg_multi",
+              "segment_window_bin_select_multi",
+              "segment_window_bin_agg_multi_s64",
+              "segment_window_bin_select_multi_s64")
 
 
 def _counter(op):
     """The launch counter of a ``ONE_LAUNCH`` entry."""
-    return op.removesuffix("_2x2")
+    return op.removesuffix("_2x2").removesuffix("_s64")
 
 
 def _one_launch_call(op, xs, ys, vals, b, bb, bins=(8, 8), g=None):
     """``call(v, backend)`` for one of the one-launch ops on these
     planes: a 300 x 300 window (one per segment, crossing its bbox, for
-    the multi op), ``bins``, ``g x g`` split cells (by default 2 for the
-    ``_2x2`` entries, else 4)."""
+    the multi ops), ``bins``, ``g x g`` split cells (by default 2 for the
+    ``_2x2`` entries, else 4); query spans with an empty one for the
+    multi select. The ``_s64`` entries cut each segment into 64 // S
+    pieces (decreasing boundaries stay decreasing) and take 16x16
+    bins."""
     if g is None:
         g = 2 if op.endswith("_2x2") else 4
+    if op.endswith("_s64"):
+        k = max(1, 64 // (len(b) - 1))
+        bb = np.repeat(bb[:len(b) - 1], k, axis=0)
+        b = np.append(np.concatenate(
+            [np.linspace(lo, hi, k, endpoint=False)
+             for lo, hi in zip(b[:-1], b[1:])]), b[-1]).astype(np.int64)
+        bins = (16, 16)
     op = _counter(op)
     n_seg = len(b) - 1
     w = (100.3, 100.7, 400.1, 400.9)
@@ -271,6 +286,7 @@ def _one_launch_call(op, xs, ys, vals, b, bb, bins=(8, 8), g=None):
     xe, ye = _edges(bb, g, 2)
     vmin = np.full(n_seg, -200.0)
     vmax = np.linspace(50.0, 300.0, n_seg)
+    qb = np.array([0, n_seg // 4, n_seg // 4, n_seg // 2, n_seg])
     n0 = int(b[1])
     calls = {
         "segment_window_agg": lambda v, be: ops.segment_window_agg(
@@ -293,6 +309,13 @@ def _one_launch_call(op, xs, ys, vals, b, bb, bins=(8, 8), g=None):
             lambda v, be: ops.segment_window_bin_select(
                 xs, ys, v, b, w, vmin, vmax, bx=bins[0], by=bins[1],
                 backend=be),
+        "segment_window_bin_agg_multi":
+            lambda v, be: ops.segment_window_bin_agg_multi(
+                xs, ys, v, b, wins, bx=bins[0], by=bins[1], backend=be),
+        "segment_window_bin_select_multi":
+            lambda v, be: ops.segment_window_bin_select_multi(
+                xs, ys, v, b, wins, vmin, vmax, qb, bx=bins[0], by=bins[1],
+                backend=be),
     }
     return calls[op]
 
@@ -304,7 +327,10 @@ def _check_one_launch(call, vals):
     absv = call(vals.abs(), "torch")
     if isinstance(got, tuple):
         assert torch.equal(got[1], want[1])       # suffix_w, bit for bit
-        assert (got[1][-1] == 0).all()
+        if len(got[1]) == len(got[0]) + 1:
+            # the one-window select's zero row S (the multi select's
+            # suffix has one row a segment, and no zero row)
+            assert (got[1][-1] == 0).all()
         got, want, absv = got[0], want[0], absv[0]
     _assert_equal_rows(got, want, absv[..., 1])
 

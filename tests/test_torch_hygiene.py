@@ -122,3 +122,31 @@ def test_core_reaches_kernels_through_ops(path):
                     or not a.name.endswith("_torch"), (path.name, a.name)
         if isinstance(node, ast.Attribute):
             assert not node.attr.endswith("_torch"), (path.name, node.attr)
+
+
+KERNEL_PY = sorted((ROOT / "src" / "repro_torch" / "kernels").glob("*.py"))
+
+
+def test_kernel_libraries_load_only_in_the_cached_launchers():
+    """``build.load`` (which sets a launch function's ctypes ``argtypes``)
+    is reached only from the launch-function caches: ``_one_launch``,
+    which every keyed kernel's wrapper goes through, and ``window_agg``'s
+    own. No wrapper loads its function on every call."""
+    found = set()
+    for path in KERNEL_PY:
+        tree = ast.parse(path.read_text())
+        calls = {id(n) for n in ast.walk(tree) if isinstance(n, ast.Call)
+                 and isinstance(n.func, ast.Attribute)
+                 and n.func.attr == "load"
+                 and isinstance(n.func.value, ast.Name)
+                 and n.func.value.id == "build"}
+        inside = set()
+        for fn in ast.walk(tree):
+            if isinstance(fn, ast.FunctionDef):
+                for n in ast.walk(fn):
+                    if id(n) in calls:
+                        found.add((path.name, fn.name))
+                        inside.add(id(n))
+        assert inside == calls, f"{path.name}: build.load at module level"
+    assert found == {("segment_agg.py", "_one_launch"),
+                     ("window_agg.py", "window_agg_cuda")}

@@ -833,6 +833,86 @@ def test_split_kernel_edge_limit_raises_before_any_launch():
     assert sum(build.LAUNCHES.values()) == before
 
 
+MULTI_BAD = {
+    # case: (ops it applies to, error)
+    "segments": (("agg", "select"), ValueError),      # S = 65
+    "bins": (("agg", "select"), ValueError),          # a 0 x 2 bin grid
+    "windows": (("agg", "select"), ValueError),       # S - 1 windows
+    "widths": (("select",), ValueError),              # S - 1 widths
+    "spans_start": (("select",), ValueError),         # qb[0] = 1
+    "spans_end": (("select",), ValueError),           # qb[-1] = S - 1
+    "spans_order": (("select",), ValueError),         # decreasing
+    "spans_count": (("select",), ValueError),         # 65 spans
+    "cpu_tensors": (("agg", "select"), TypeError),    # all else right
+}
+
+
+@pytest.mark.parametrize("case", list(MULTI_BAD))
+def test_multi_bin_kernel_raises_before_any_launch(case):
+    """The multi-window heatmap kernel's wrappers (rows 9 and 10) check
+    every argument before the planes, and the planes before any launch:
+    bad spans, too many segments, an empty bin grid and a count of
+    windows or widths that is not S raise ``ValueError`` even for CPU
+    tensors; right arguments on CPU tensors raise ``TypeError``. No
+    launch is counted."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import fused_select as fs
+    from repro_torch.kernels import segment_agg as sa
+
+    ops_of, err = MULTI_BAD[case]
+    n_seg = sa.MAX_SEGMENTS + 1 if case == "segments" else 4
+    b = np.arange(n_seg + 1, dtype=np.int64) * 4
+    xs = torch.zeros(int(b[-1]))
+    wins = [(0.0, 0.0, 1.0, 1.0)] * (n_seg - (case == "windows"))
+    bx = 0 if case == "bins" else 2
+    vmin = np.zeros(n_seg - (case == "widths"))
+    qb = {"spans_start": [1, n_seg], "spans_end": [0, n_seg - 1],
+          "spans_order": [0, 3, 2, n_seg],
+          "spans_count": [0] * (sa.MAX_SEGMENTS + 1) + [n_seg]}.get(
+              case, [0, 1, 1, n_seg])
+    calls = {
+        "agg": lambda: sa.segment_window_bin_agg_multi_cuda(
+            xs, xs, xs, b, wins, bx, 2),
+        "select": lambda: fs.segment_window_bin_select_multi_cuda(
+            xs, xs, xs, b, wins, bx, 2, vmin, vmin + 1.0, np.array(qb))}
+    before = dict(build.LAUNCHES)
+    for op in ops_of:
+        with pytest.raises(err):
+            calls[op]()
+    assert dict(build.LAUNCHES) == before
+
+
+# (numpy record of the wrapper, its C struct, the source declaring it)
+ARG_RECORDS = [("_SWA_ARGS", "SwaArgs", "segment_window_agg.cu"),
+               ("_SBA_ARGS", "SbaArgs", "segment_bin_agg.cu"),
+               ("_WIN_ARGS", "WinArgs", "segment_window_bin_agg.cu"),
+               ("_MULTI_ARGS", "MultiArgs", "segment_window_bin_agg.cu")]
+
+
+@pytest.mark.parametrize("record,struct,source", ARG_RECORDS,
+                         ids=[r[1] for r in ARG_RECORDS])
+def test_argument_records_have_their_c_struct_sizes(record, struct, source):
+    """Each host argument record has the size its C struct asserts, and
+    the wrapper checks that size against the library's export for the
+    launch function that takes it (the check a library runs at first
+    use)."""
+    import re
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import segment_agg as sa
+
+    text = (build.CSRC / source).read_text()
+    size = re.search(rf"static_assert\(sizeof\({struct}\) == (\d+)", text)
+    assert size and getattr(sa, record).itemsize == int(size.group(1))
+    checked = [(fn, export) for fn, (export, n) in sa._ARGS_SIZE.items()
+               if n == int(size.group(1))]
+    assert len(checked) == 1
+    fn, export = checked[0]
+    assert f'extern "C" int {export}()' in text
+    assert f"return (int)sizeof({struct});" in text.split(export)[1][:80]
+    assert f'extern "C" int {fn}(' in text
+
+
 def test_one_launch_workspace_starts_in_identity_state():
     """The one-launch kernels' workspace words decode, under the kernels'
     float encoding (``csrc/agg_common.cuh`` ``o2f``), to empty cells —

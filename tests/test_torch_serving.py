@@ -584,3 +584,60 @@ def test_torch_tick_copies_one_table_per_pass(monkeypatch):
     assert p[0][4]["batch_rounds"] > 0
     assert len(copies) == len(passes) > 0
     assert [c[0] for c in copies] == passes
+
+
+def test_kernel_heatmap_pass_crosses_to_the_host_in_one_copy(monkeypatch):
+    """The multi select kernel returns its table and suffix widths as
+    adjacent views of one buffer: a single-chunk heatmap pass copies that
+    buffer to the host as it lies, in one copy and with no join on the
+    device, and the tick answers as with the plain version's separate
+    tensors."""
+    import repro_torch.core.index as index_mod
+    import repro_torch.core.serving as serving_mod
+
+    script = two_session_script()[:1]
+    plain, _ = play(port_server(columns(), "torch"), 2, script)
+    real = serving_mod.ops.segment_window_bin_select_multi
+    real_cat = torch.cat
+
+    def kernel_like(*a, **k):
+        agg, suf = real(*a, **k)
+        buf = real_cat([agg.reshape(-1), suf.reshape(-1)])
+        return (buf[:agg.numel()].view(agg.shape),
+                buf[agg.numel():].view(suf.shape))
+
+    copies, passes, cats = [], [], []
+    in_pass = [False]
+    for mod in (index_mod, serving_mod):
+        def counted(a, _orig=mod._host):
+            if in_pass[0] and isinstance(a, torch.Tensor):
+                copies.append(tuple(a.shape))
+            return _orig(a)
+        monkeypatch.setattr(mod, "_host", counted)
+    orig_pass = ServingEngine._heatmap_multi
+
+    def wrapped(self, *a, **k):
+        in_pass[0] = True
+        try:
+            agg, suf = orig_pass(self, *a, **k)
+        finally:
+            in_pass[0] = False
+        passes.append(agg.size + suf.size)
+        return agg, suf
+
+    def counted_cat(*a, **k):
+        if in_pass[0]:
+            cats.append(1)
+        return real_cat(*a, **k)
+
+    monkeypatch.setattr(serving_mod.ops, "segment_window_bin_select_multi",
+                        kernel_like)
+    monkeypatch.setattr(ServingEngine, "_heatmap_multi", wrapped)
+    monkeypatch.setattr(serving_mod.torch, "cat", counted_cat)
+    got, _ = play(port_server(columns(), "torch"), 2, script)
+    assert passes and copies == [(n,) for n in passes] and not cats
+    for (rg, *sg), (rp, *sp) in zip(got, plain):
+        assert sg == sp
+        for x, y in zip(rg, rp):
+            for f, v in fields(x).items():
+                assert_same(v, fields(y)[f], what=f)
