@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port's main path on one NVIDIA H100 and check it.
 
     python3 chip_smoke.py [--seed 0] [--rows 100000000] [--queries 50]
-                          [--ticks 10] [--reps 20] [--clocks-of TREE]
+                          [--ticks 10] [--reps 20] [--chunk-rows 3333334]
+                          [--clocks-of TREE]
 
 Phases (each prints its own lines; any failure exits non-zero):
 
@@ -98,8 +99,35 @@ plain version and timed beside its byte bound.
    B3) at its full size on the card, its rows printed; launch counts are
    reset before it, and ``window_agg`` must have launched in it.
 
-Phases 3 to 5 run with every plain ``*_torch`` kernel version wrapped in
-a counter: the card's path must call none of them.
+7. Chunked storage on the card (run after phase 5; launch counts reset
+   before 7a and read after 7c, where rows 1, 2, 4, 7, 8 and 10 must all
+   have launched).
+   7a: ``ChunkedDataset.from_dataset`` over phase 3's dataset (its planes,
+   not a copy) against a fresh legacy engine, both "cuda", on the first
+   10 windows as ``mean(a0)`` queries and 8x8 heatmaps at phi = 0.05:
+   equal reads, read calls, rounds, tiles, tile table and permutation;
+   float64 values within 1e-12. Phase 3's dataset is then freed.
+   7b: B8's streaming session (``benchmarks/streaming_exploration.py``)
+   at ``--chunk-rows`` rows a chunk: 30 x-slab chunks of (x, y, a0, a1)
+   resident on the card, 3 live (the oldest retired), 2 windows over the
+   recent slabs after each ingest, each a ``mean(a0)`` query and a 4x4
+   ``sum(a0)`` heatmap at phi = 0.05. B8's gates: every answer contains
+   its float64 oracle, no pruned chunk reads, a chunk's index is built on
+   its first overlapping query and only while live; and after each
+   query's ``prepare`` the device memory allocated since the phase began
+   stays within the live chunks' planes and forests plus a fixed 64 MiB.
+   The last ingest step runs under ``torch.profiler``, and the host
+   seconds of a query's layers (``prepare``, the accumulator build, the
+   rounds' reads and applies) are summed over the session.
+   7c: the serving tick over 7b's live chunks on fresh engines, batched
+   and sequential: 4 sessions x 3 ticks of a ``mean(a0)`` query and a 4x4
+   heatmap each, windows across chunk edges (composite rounds), the
+   oldest chunk's storage closed before the last tick (its reads degrade,
+   ``retired_during_query``); both modes give the same answers, index
+   and publication.
+
+Phases 3 to 5 and 7 run with every plain ``*_torch`` kernel version
+wrapped in a counter: the card's path must call none of them.
 
 The line before the last is a JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -107,6 +135,7 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -193,11 +222,16 @@ def bound_ms(nbytes, f32_ops, f64_ops):
 # phase 1
 # --------------------------------------------------------------------- #
 
-def phase_card_and_build(torch, build):
-    smi = subprocess.run(
+def card_line():
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def phase_card_and_build(torch, build):
+    smi = card_line()
     log("== phase 1: card and build")
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1909,18 +1943,461 @@ def serving_parity(torch, a, b, budget):
             if getattr(x, f) != getattr(y, f):
                 raise Failed(f"budget {budget}, answer {i}: {f} differs")
         for f in ("values", "lo", "hi", "bin_bound", "value", "bound"):
-            if not hasattr(x, f):
-                continue
-            u = np.atleast_1d(np.asarray(getattr(x, f), np.float64))
-            v = np.atleast_1d(np.asarray(getattr(y, f), np.float64))
-            fin = np.isfinite(u)
-            if not (np.array_equal(fin, np.isfinite(v))
-                    and (u[~fin] == v[~fin]).all()
-                    and (np.abs(u[fin] - v[fin])
-                         <= 1e-12 * np.abs(v[fin])).all()):
+            if hasattr(x, f) and not close_rel(getattr(x, f), getattr(y, f)):
                 raise Failed(f"budget {budget}, answer {i}: {f} differs")
     log(f"batched == sequential (crack_budget={budget}): {len(ra)} answers, "
         f"{ia[0]} tiles, publication {pa[-1]}")
+
+
+# --------------------------------------------------------------------- #
+# phase 7, chunked storage
+# --------------------------------------------------------------------- #
+
+# rows 1, 2, 4, 7, 8 and 10: the kernels the chunked path must launch
+CHUNK_KERNELS = ("segment_window_agg", "segment_bin_agg",
+                 "segment_bin_agg_edges", "segment_window_bin_select",
+                 "segment_window_agg_multi", "segment_window_bin_select_multi")
+# B8's workload (benchmarks/streaming_exploration.py:49-137)
+N_CHUNKS = 30
+LIVE_CAP = 3
+QUERIES_PER_STEP = 2
+MEM_MARGIN = 64 << 20       # fixed allowance over planes and forests, B
+
+
+def b8_config():
+    from repro_torch.core import IndexConfig
+    return IndexConfig(grid0=(8, 8), min_split_count=512,
+                       init_metadata_attrs=("a0",))
+
+
+def recent_window(rng, hi_slab_edge, width_slabs=2.0):
+    """B8's query window over the most recent ``width_slabs`` slabs."""
+    slab = DOMAIN / N_CHUNKS
+    x1 = rng.uniform(hi_slab_edge - 0.3 * slab, hi_slab_edge)
+    x0 = max(0.0, x1 - rng.uniform(0.8, width_slabs) * slab)
+    y0 = rng.uniform(0.0, 0.5) * DOMAIN
+    y1 = y0 + rng.uniform(0.3, 0.5) * DOMAIN
+    return (float(x0), float(y0), float(x1), float(y1))
+
+
+def close_rel(u, v):
+    """Equal infinities and NaN positions; finite values within 1e-12
+    relative (float64 sums in another atomic order)."""
+    u = np.atleast_1d(np.asarray(u, np.float64))
+    v = np.atleast_1d(np.asarray(v, np.float64))
+    fin = np.isfinite(u)
+    return bool(u.shape == v.shape and np.array_equal(fin, np.isfinite(v))
+                and np.array_equal(np.isnan(u), np.isnan(v))
+                and (u[~fin & ~np.isnan(u)] == v[~fin & ~np.isnan(v)]).all()
+                and (np.abs(u[fin] - v[fin]) <= 1e-12 * np.abs(v[fin])).all())
+
+
+def same_answer(x, y):
+    """Exact count-like fields; float64 values within 1e-12 relative."""
+    for f in ("exact", "tiles_full", "tiles_partial", "tiles_processed",
+              "objects_read", "read_calls", "batch_rounds",
+              "speculative_rows", "retired_during_query"):
+        if getattr(x, f) != getattr(y, f):
+            return f
+    for f in ("value", "lo", "hi", "bound", "values", "bin_bound"):
+        if hasattr(x, f) and not close_rel(getattr(x, f), getattr(y, f)):
+            return f
+    return None
+
+
+def same_tile_index(torch, a, b):
+    """Tile table, permutation and extrema equal; sums within 1e-12."""
+    n = a.n_tiles
+    if b.n_tiles != n or not torch.equal(a.perm, b.perm):
+        return "n_tiles or perm"
+    for k in ("bbox", "offset", "count", "active", "level", "parent"):
+        if not np.array_equal(getattr(a, k)[:n], getattr(b, k)[:n]):
+            return k
+    for k in ("meta_min", "meta_max", "meta_valid"):
+        if not np.array_equal(getattr(a, k)["a0"][:n],
+                              getattr(b, k)["a0"][:n]):
+            return k
+    if not close_rel(a.meta_sum["a0"][:n], b.meta_sum["a0"][:n]):
+        return "meta_sum"
+    return None
+
+
+class Counting:
+    """While active, wraps ``owner.name`` (a method or a module function):
+    counts its calls, through ``composite(args)`` the composite ones
+    among them, and its host seconds (outermost calls only)."""
+
+    def __init__(self, owner, name, composite=lambda a: False):
+        self.owner, self.name, self.composite = owner, name, composite
+        self.calls = self.composites = 0
+        self.seconds = 0.0
+        self._depth = 0
+
+    def __enter__(self):
+        self.orig = getattr(self.owner, self.name)
+
+        def f(first, *a, **kw):
+            self.calls += 1
+            self.composites += bool(self.composite(a))
+            self._depth += 1
+            t = time.perf_counter()
+            try:
+                return self.orig(first, *a, **kw)
+            finally:
+                self._depth -= 1
+                if not self._depth:
+                    self.seconds += time.perf_counter() - t
+        setattr(self.owner, self.name, f)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.orig)
+
+
+def phase_chunked_legacy(torch, ds, windows):
+    """7a: a single chunk wrapping phase 3's dataset (its planes, not a
+    copy) against a fresh legacy engine, both "cuda"."""
+    from repro_torch.core import AQPEngine, IndexConfig
+    from repro_torch.data import ChunkedDataset
+
+    wins = windows[:10]
+    log(f"== phase 7a: one chunk over phase 3's {ds.n} rows against the "
+        f"legacy engine, {len(wins)} windows")
+    t0 = time.perf_counter()
+    cds = ChunkedDataset.from_dataset(ds)
+    if cds.chunk(0).data is not ds:
+        raise Failed("from_dataset copied the dataset")
+    legacy = AQPEngine(ds, IndexConfig(init_metadata_attrs=("a0",)))
+    chunked = AQPEngine(cds, IndexConfig(init_metadata_attrs=("a0",)))
+    n = 0
+    for q, w in enumerate(wins):
+        for kind, call in (
+                ("query", lambda e: e.query(w, "mean", "a0", phi=0.05)),
+                ("heatmap", lambda e: e.heatmap(w, "mean", "a0",
+                                                bins=(8, 8), phi=0.05))):
+            a, b = call(legacy), call(chunked)
+            bad = same_answer(a, b)
+            if bad is not None or b.pruned_chunks != 0:
+                raise Failed(f"7a {kind} {q}: {bad} differs from the "
+                             "legacy engine")
+            n += 1
+    bad = same_tile_index(torch, legacy.index, chunked.index._indexes[0])
+    if bad is not None:
+        raise Failed(f"7a: the chunk's index differs from the legacy "
+                     f"one: {bad}")
+    chunked.index.check_invariants("a0")
+    log(f"7a: {n} answers equal the legacy engine's (reads, read calls, "
+        f"rounds, tiles; values within 1e-12), same index "
+        f"({legacy.index.n_tiles} tiles, perm equal) in "
+        f"{time.perf_counter() - t0:.3f} s")
+
+
+def chunk_bytes(cds, forests):
+    """Device bytes the live chunks' planes (x, y and the value columns,
+    float32) and the built forests (perm int64, x_s and y_s float32)
+    hold."""
+    planes = sum(c.n * 4 * (2 + len(c.data.attributes))
+                 for c in cds.chunks())
+    return planes + sum(ti.ds.n * 16 for ti in forests)
+
+
+def phase_streaming(torch, src):
+    """7b: B8's streaming session over device chunks, with its gates
+    and the device memory bound; the last ingest step runs under
+    ``torch.profiler``. Returns the numbers and the live chunks' source
+    arrays."""
+    from repro_torch.core import AQPEngine, ChunkIndexSet
+    from repro_torch.core import query as query_mod
+    from repro_torch.core.index import _chunk_overlaps
+    from repro_torch.data import ChunkedDataset
+    from torch.profiler import ProfilerActivity, profile
+
+    log(f"== phase 7b: B8's streaming session, {len(src)} chunks of "
+        f"{len(src[0][0])} rows, {LIVE_CAP} live")
+    slab = DOMAIN / N_CHUNKS
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cds = ChunkedDataset(device="cuda")
+    eng = AQPEngine(cds, b8_config())
+    rng = np.random.default_rng(5)
+    peak_live_rows = violations = prune_leaks = lazy_faults = 0
+    ever = set()                  # chunk ids some query's window overlapped
+    mem = []                      # (allocated - base, bound) per query
+
+    def step(i, x, y, cols):
+        """Ingest, retire down to LIVE_CAP, and B8's queries of one step
+        (the oracles come after)."""
+        nonlocal peak_live_rows
+        cds.ingest(x, y, cols)
+        while cds.n_chunks > LIVE_CAP:
+            cds.retire(cds.live_ids[0])
+        peak_live_rows = max(peak_live_rows, cds.n)
+        out = []
+        for _ in range(QUERIES_PER_STEP):
+            w = recent_window(rng, (i + 1) * slab)
+            snaps = {c.chunk_id: c.stats.snapshot() for c in cds.chunks()}
+            r = eng.query(w, "mean", "a0", phi=PHI)
+            # after the query's prepare: retired forests are dropped
+            mem.append((torch.cuda.memory_allocated() - base,
+                        chunk_bytes(cds, eng.index._indexes.values())
+                        + MEM_MARGIN))
+            gates(w, snaps)
+            out.append((w, r, eng.heatmap(w, "sum", "a0", bins=(4, 4),
+                                          phi=PHI)))
+        return out
+
+    def gates(w, snaps):
+        """B8's prune purity across one query, and lazy building: the
+        init pass paid once, on the first overlapping query, and by no
+        other chunk."""
+        nonlocal prune_leaks, lazy_faults
+        for c in cds.chunks():
+            d = c.stats.delta(snaps[c.chunk_id])
+            if d.pruned_calls > 0 and (d.rows_read or d.read_calls
+                                       or d.init_rows):
+                prune_leaks += 1
+            if _chunk_overlaps(c.bbox, w):
+                ever.add(c.chunk_id)
+            if c.stats.init_rows != (c.n if c.chunk_id in ever else 0):
+                lazy_faults += 1
+        built = eng.index.built_ids()
+        if len(built) > cds.n_chunks or not set(built) <= set(
+                cds.live_ids):
+            lazy_faults += 1
+
+    q_times, h_times = [], []
+    runs = Counting(ChunkIndexSet, "_read_batch_runs", lambda a: len(
+        np.unique(np.asarray(a[0]) // eng.index._stride)) > 1)
+    # the host's layers of a query: the forest's housekeeping and lazy
+    # builds, the accumulator build (classification, axis counts), the
+    # rounds' reads with their kernel passes and copies, their applies
+    layers = {"prepare": Counting(ChunkIndexSet, "prepare"),
+              "build": Counting(query_mod, "_build_accumulator"),
+              "build_grouped": Counting(query_mod,
+                                        "_build_grouped_accumulator"),
+              "read": runs, "apply": Counting(ChunkIndexSet, "apply_batch")}
+    with contextlib.ExitStack() as stack:
+        for c in layers.values():
+            stack.enter_context(c)
+        for i, (x, y, cols) in enumerate(src):
+            if i < len(src) - 1:
+                done = step(i, x, y, cols)
+            else:
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t = time.perf_counter()
+                    done = step(i, x, y, cols)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t
+            for w, r, h in done:
+                truth = eng.oracle(w, "mean", "a0")
+                if np.isfinite(truth) and not (r.lo - 1e-3 <= truth
+                                               <= r.hi + 1e-3):
+                    violations += 1
+                ht = eng.heatmap_oracle(w, "sum", "a0", bins=(4, 4))
+                fin = np.isfinite(ht)
+                if not ((h.lo[fin] - 1e-2 <= ht[fin]).all()
+                        and (ht[fin] <= h.hi[fin] + 1e-2).all()):
+                    violations += 1
+                q_times.append(r.eval_time_s)
+                h_times.append(h.eval_time_s)
+    eng.index.check_invariants("a0")
+    tot = eng.trace.totals()
+    dev = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0.0)
+        if us > 0:
+            dev[e.key] = us * 1e-6
+    busy = sum(dev.values())
+    used = np.array(mem, np.int64)
+    worst = int(np.argmax(used[:, 0] - used[:, 1]))
+    out = {"steps": len(src), "chunk_rows": len(src[0][0]),
+           "rows_streamed": sum(len(s[0]) for s in src),
+           "peak_live_rows": peak_live_rows,
+           "live": cds.n_chunks, "built": len(eng.index.built_ids()),
+           "violations": violations, "prune_leaks": prune_leaks,
+           "lazy_faults": lazy_faults,
+           "queries": len(q_times), "heatmaps": len(h_times),
+           "query_eval_s_median": float(np.median(q_times)),
+           "heatmap_eval_s_median": float(np.median(h_times)),
+           "query_eval_s_sum": float(np.sum(q_times)),
+           "heatmap_eval_s_sum": float(np.sum(h_times)),
+           "rounds": tot["total_batch_rounds"],
+           "read_calls": tot["total_read_calls"],
+           "read_calls_per_round": tot["total_read_calls"]
+           / max(tot["total_batch_rounds"], 1),
+           "host_s": {k: c.seconds for k, c in layers.items()},
+           "driver_rounds": runs.calls,
+           "composite_rounds": runs.composites,
+           "composite_share": runs.composites / max(runs.calls, 1),
+           "objects_read": tot["total_objects_read"],
+           "pruned_chunks": tot["total_pruned_chunks"],
+           "init_rows": cds.stats.init_rows,
+           "mem_allocated_peak_B": int(used[:, 0].max()),
+           "mem_bound_at_peak_B": int(used[np.argmax(used[:, 0]), 1]),
+           "mem_closest_B": [int(used[worst, 0]), int(used[worst, 1])],
+           "mem_margin_B": MEM_MARGIN,
+           "max_allocated_B": torch.cuda.max_memory_allocated() - base,
+           "profiled_step": {
+               "wall_s": wall, "device_busy_s": busy if dev else None,
+               "device_idle_share": 1.0 - busy / wall if dev else None,
+               "top_device_s": [(k[:60], v) for k, v in sorted(
+                   dev.items(), key=lambda kv: -kv[1])[:6]]}}
+    log(f"7b: {json.dumps(out)}")
+    if violations or prune_leaks or lazy_faults:
+        raise Failed(f"7b gates: violations={violations} prune_leaks="
+                     f"{prune_leaks} lazy_faults={lazy_faults}")
+    if (used[:, 0] > used[:, 1]).any():
+        raise Failed(f"7b: device memory over its bound at query {worst}: "
+                     f"{used[worst].tolist()}")
+    log(f"7b gates: violations == 0, prune_leaks == 0, built "
+        f"{out['built']} <= live {out['live']}, every chunk's init pass on "
+        f"its first overlapping query; device memory after each query's "
+        f"prepare at most {out['mem_allocated_peak_B']} B over the phase's "
+        f"start, within live planes + forests + {MEM_MARGIN} B (closest: "
+        f"{out['mem_closest_B']})")
+    live = [src[cid] for cid in cds.live_ids]
+    return out, live
+
+
+def straddling(rng, edges, ticks, n_sessions=4):
+    """Per tick, per session: a mean(a0) query and a 4x4 heatmap over a
+    window across one of ``edges`` (the x where one live chunk ends and
+    the next begins); sessions 0 and 1 across the first edge. The last
+    tick asks phi = 0, so every pending tile is read."""
+    slab = DOMAIN / N_CHUNKS
+    out = []
+    for t in range(ticks):
+        subs = []
+        for s in range(n_sessions):
+            e = edges[0 if s < 2 else -1]
+            x0 = e - rng.uniform(0.1, 0.5) * slab
+            x1 = e + rng.uniform(0.1, 0.5) * slab
+            y0 = rng.uniform(0.0, 0.6) * DOMAIN
+            win = (float(x0), float(y0), float(x1),
+                   float(y0 + rng.uniform(0.2, 0.4) * DOMAIN))
+            subs.append((win, PHI if t < ticks - 1 else 0.0))
+        out.append(subs)
+    return out
+
+
+def forest_state(torch, ix):
+    """The forest's built indexes joined, in build order, as phase 5's
+    equivalence check reads one index."""
+    tis = list(ix._indexes.values())
+    cat = lambda k: np.concatenate(  # noqa: E731
+        [getattr(t, k)[:t.n_tiles] for t in tis])
+    return (sum(t.n_tiles for t in tis),
+            int(sum(t.active[:t.n_tiles].sum() for t in tis)),
+            cat("count"), torch.cat([t.perm for t in tis]),
+            np.concatenate([t.meta_min["a0"][:t.n_tiles] for t in tis]),
+            np.concatenate([t.meta_max["a0"][:t.n_tiles] for t in tis]))
+
+
+def phase_chunked_serving(torch, live, n_ticks=3, n_sessions=4):
+    """7c: the serving tick over 7b's live chunks, batched against
+    sequential, each on a fresh engine over fresh device chunks; the
+    oldest chunk's storage goes before the last tick (retired during the
+    query)."""
+    from repro_torch.core import AQPEngine, ServingEngine
+    from repro_torch.core import serving as serving_mod
+    from repro_torch.data import ChunkedDataset
+
+    log(f"== phase 7c: serving tick over {len(live)} chunks, {n_sessions} "
+        f"sessions x {n_ticks} ticks across chunk edges")
+    got, stats, script = {}, {}, None
+    for mode in ("batched", "sequential"):
+        cds = ChunkedDataset(device="cuda")
+        for x, y, cols in live:
+            cds.ingest(x, y, cols)
+        if script is None:
+            edges = [c.bbox[0] for c in cds.chunks()[1:]]
+            script = straddling(np.random.default_rng(77), edges, n_ticks,
+                                n_sessions)
+        sv = ServingEngine(AQPEngine(cds, b8_config()), mode=mode)
+        ses = [sv.open_session() for _ in range(n_sessions)]
+        res, pubs, tick_s = [], [], []
+        folds = Counting(serving_mod._QueryRun, "fold",
+                         lambda a: len(a[2].get("runs") or ()) > 1)
+        with folds:
+            for t, subs in enumerate(script):
+                if t == n_ticks - 1:
+                    # the oldest chunk's storage goes while its forest is
+                    # still listed: the tick's reads of it degrade
+                    cds.chunk(cds.live_ids[0]).data.close()
+                for s, (win, phi) in zip(ses, subs):
+                    s.query(win, "mean", "a0", phi=phi)
+                    s.heatmap(win, "mean", "a0", bins=(4, 4), phi=phi)
+                t0 = time.perf_counter()
+                rs = sv.tick()
+                torch.cuda.synchronize()
+                tick_s.append(time.perf_counter() - t0)
+                res.extend(rs)
+                pubs.append(dict(sv.last_publish))
+                if t == n_ticks - 1:
+                    continue
+                for i, r in enumerate(rs):
+                    win, phi = subs[i // 2]
+                    truth = (sv.engine.heatmap_oracle(win, "mean", "a0",
+                                                      bins=(4, 4))
+                             if hasattr(r, "values") else
+                             sv.engine.oracle(win, "mean", "a0"))
+                    if not ((r.exact or r.bound <= phi + 1e-12)
+                            and serving_ok(r, truth, phi)):
+                        raise Failed(f"7c {mode} tick {t}: answer {i} "
+                                     "misses its oracle")
+        degraded = [r.retired_during_query for r in rs]
+        want = [True] * 4 + [False] * (2 * n_sessions - 4)
+        if degraded != want:
+            raise Failed(f"7c {mode}: retired_during_query {degraded}")
+        ix = sv.engine.index
+        ix.check_invariants("a0")
+        got[mode] = (res, pubs) + forest_state(torch, ix)
+        n_rounds = sum(r.batch_rounds for r in res)
+        stats[mode] = {"tickets": len(res), "wall_s": float(np.sum(tick_s)),
+                       "queries_per_s": len(res) / float(np.sum(tick_s)),
+                       "tick_s": tick_s, "query_rounds": folds.calls,
+                       "composite_rounds": folds.composites,
+                       "composite_share": folds.composites
+                       / max(folds.calls, 1),
+                       "read_calls": int(sum(r.read_calls for r in res)),
+                       "read_calls_per_round": sum(r.read_calls for r in res)
+                       / max(n_rounds, 1),
+                       "degraded": int(sum(degraded))}
+        cds.retire(cds.live_ids[0])
+        del sv, ses, ix, cds
+        torch.cuda.empty_cache()
+    log(f"7c: {json.dumps(stats)}")
+    if stats["batched"]["composite_rounds"] <= 0:
+        raise Failed("7c: no composite round in the batched tick")
+    serving_parity(torch, got["batched"], got["sequential"], None)
+    return stats
+
+
+def phase_chunked(torch, build, chunk_rows, t_phase):
+    """Phase 7 after 7a: B8's chunks at ``chunk_rows`` rows each, 7b and
+    7c; the launches of the whole phase (counted since 7a)."""
+    from repro_torch.data import make_streaming_chunks
+
+    t0 = time.perf_counter()
+    src = make_streaming_chunks(n_chunks=N_CHUNKS, rows_per_chunk=chunk_rows,
+                                n_columns=2, domain=DOMAIN, seed=31)
+    log(f"7b data: {N_CHUNKS} chunks x {chunk_rows} rows x (x, y, a0, a1) "
+        f"made on the host in {time.perf_counter() - t0:.3f} s")
+    stream, live = phase_streaming(torch, src)
+    del src
+    serving = phase_chunked_serving(torch, live)
+    launches = dict(build.LAUNCHES)
+    log(f"launches in phase 7: {json.dumps(launches)}")
+    for k in CHUNK_KERNELS:
+        if launches.get(k, 0) <= 0:
+            raise Failed(f"{k} was not launched in phase 7")
+    wall = time.perf_counter() - t_phase
+    log(f"phase 7 took {wall:.3f} s on {card_line()}")
+    return {"streaming": stream, "serving": serving, "launches": launches,
+            "wall_s": wall}
 
 
 class PlainGuard:
@@ -1964,6 +2441,9 @@ def main(argv=None) -> int:
     ap.add_argument("--queries", type=int, default=50)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--ticks", type=int, default=10)
+    ap.add_argument("--chunk-rows", type=int, default=3_333_334,
+                    help="rows per chunk of phase 7b (B8's 30 chunks: "
+                    "10^8 rows at the default)")
     ap.add_argument("--clocks-of", metavar="TREE",
                     help="only build the port under TREE/src and print "
                     "phase 2b's three clocks of rows 1-10 (to time "
@@ -2014,7 +2494,13 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
             serving_launches, stats = phase_serving(torch, build, ds,
                                                     args.ticks)
-        log(f"plain kernel versions called in phases 3-5: "
+            t7 = time.perf_counter()
+            build.reset_launches()
+            phase_chunked_legacy(torch, ds, windows)
+            del ds
+            torch.cuda.empty_cache()
+            phase_chunked(torch, build, args.chunk_rows, t7)
+        log(f"plain kernel versions called in phases 3-5 and 7: "
             f"{json.dumps(guard.calls)}")
         if guard.calls:
             raise Failed("the card's path called a plain kernel version: "

@@ -9,7 +9,9 @@
 >>> h = eng.heatmap((100, 100, 300, 300), "mean", "a0", bins=(8, 8),
 ...                 phi=0.05)
 
-The engine owns one adaptive tile index per dataset and evaluates window
+The engine owns one adaptive tile index per dataset — a ``TileIndex``
+over a ``RawDataset``, or a lazy per-chunk ``ChunkIndexSet`` over a
+``ChunkedDataset`` — and evaluates window
 aggregate and heatmap (2-D group-by) queries under a per-query accuracy
 constraint φ (φ=0 ⇒ exact), recording a per-query trace (time, objects
 read, tiles processed) and the session's viewport trajectory. Both query
@@ -24,10 +26,11 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional, Tuple, Union
 
+from ..data.chunked import ChunkedDataset
 from ..data.rawfile import RawDataset
 from . import query as query_mod
 from .bounds import AccuracyPolicy, HeatmapResult, QueryResult
-from .index import IndexConfig, TileIndex
+from .index import ChunkIndexSet, IndexConfig, TileIndex
 from .predict import TrajectoryStep
 
 
@@ -78,15 +81,18 @@ class EngineTrace:
 
 
 class AQPEngine:
-    def __init__(self, dataset: RawDataset,
+    def __init__(self, dataset: Union[RawDataset, ChunkedDataset],
                  config: Optional[IndexConfig] = None,
                  alpha: float = 1.0):
-        if not isinstance(dataset, RawDataset):
-            raise NotImplementedError(
-                "chunked storage is not ported yet (ROADMAP.md queue A, "
-                "item 6)")
         self.dataset = dataset
-        self.index = TileIndex(dataset, config)
+        if isinstance(dataset, ChunkedDataset):
+            # chunk-local forest: per-chunk TileIndexes are built lazily
+            # on the first overlapping query, so construction touches no
+            # data; a single chunk reproduces the legacy engine
+            config = IndexConfig() if config is None else config
+            self.index = ChunkIndexSet(dataset, config)
+        else:
+            self.index = TileIndex(dataset, config)
         self.alpha = alpha
         self.trace = EngineTrace()
 

@@ -38,7 +38,9 @@ reference path (:meth:`TileIndex.process`,
 then :meth:`TileIndex.apply_batch`). Heatmap splits cut along bin-aligned
 edges (``IndexConfig.bin_aligned_splits``). :class:`EpochStage` defers a
 serving tick's applies to one publication between ticks.
-``ChunkIndexSet`` comes with a later slice of the port.
+:class:`ChunkIndexSet` is the lazy per-chunk forest over a
+:class:`~repro_torch.data.chunked.ChunkedDataset`: one ``TileIndex`` a
+chunk, each with its own planes on the chunk's device.
 """
 from __future__ import annotations
 
@@ -1136,15 +1138,21 @@ class EpochStage:
 
     def stage_apply(self, index, payload, n_used: int, split_flags):
         """Driver seam: called where the driver would call
-        ``index.apply_batch``. A chunk forest's composite payload
-        (``payload["runs"]``) comes with chunked storage."""
-        if payload.get("runs") is not None:
-            raise NotImplementedError(
-                "chunked storage is not ported yet (ROADMAP.md queue A, "
-                "item 6)")
-        self._entries.append((self._owner, self._seq, index, payload,
-                              int(n_used), list(split_flags[:n_used])))
-        self._seq += 1
+        ``index.apply_batch``. Composite (chunk-forest) payloads are
+        decomposed into their per-chunk runs here, with the driver's
+        global folded prefix routed per run exactly as
+        :meth:`ChunkIndexSet.apply_batch` would."""
+        runs = payload.get("runs")
+        if runs is None:
+            self._entries.append((self._owner, self._seq, index, payload,
+                                  int(n_used), list(split_flags[:n_used])))
+            self._seq += 1
+            return
+        for ti, p, s, e in runs:
+            used = min(max(n_used - s, 0), e - s)
+            self._entries.append((self._owner, self._seq, ti, p, used,
+                                  list(split_flags[s:s + used])))
+            self._seq += 1
 
     def publish(self) -> Dict[str, int]:
         """Apply every staged round atomically (no concurrent readers by
@@ -1172,3 +1180,229 @@ class EpochStage:
             ti.apply_batch(payload, used, eff)
             applied += 1
         return {"rounds_published": applied, "splits_masked": masked}
+
+
+def _chunk_overlaps(bbox, window) -> bool:
+    """Closed-interval bbox/window overlap — the same edge semantics as
+    :func:`geometry.classify_tiles` (a shared edge is NOT disjoint)."""
+    x0, y0, x1, y1 = bbox
+    qx0, qy0, qx1, qy1 = window
+    return not (x1 < qx0 or x0 > qx1 or y1 < qy0 or y0 > qy1)
+
+
+def composite_payload(tile_ids, runs, attr: str):
+    """A chunk forest's round payload: its same-chunk runs ``(TileIndex,
+    payload, s, e)``, in order, under GLOBAL segment bounds (the
+    driver's speculative accounting reads them)."""
+    g_bounds, base = [np.zeros(1, np.int64)], 0
+    for _, p, _, _ in runs:
+        g_bounds.append(base + p["bounds"][1:])
+        base += int(p["bounds"][-1])
+    return {"tile_ids": tile_ids, "bounds": np.concatenate(g_bounds),
+            "runs": runs, "attr": attr}
+
+
+class ChunkIndexSet:
+    """A chunk-local tile forest over a ``ChunkedDataset``.
+
+    Each live chunk gets its own :class:`TileIndex`, materialized LAZILY
+    on the first query whose window overlaps the chunk's axis bounding
+    box: until then the chunk costs zero I/O, not even the axis
+    initialization pass. A chunk whose bbox is disjoint from the window
+    is pruned wholesale (``IOStats.pruned_calls``), again with zero read
+    calls. Retiring a chunk drops its forest at the next :meth:`prepare`,
+    and with it the forest's device planes (``perm``, ``x_s``, ``y_s``).
+
+    Global tile ids are ``gid = chunk_id * capacity + local_tile_id``
+    (chunk ids are never reused, so gids are unique for the session).
+    Chunk 0's gids equal its local ids, so a single chunk scores, folds
+    and refines like a plain ``TileIndex``.
+
+    The forest presents the driver surface of ``TileIndex`` (``cfg``,
+    ``adapt_stats``, ``ensure_attr``, ``resolve``, ``read_batch`` /
+    ``read_batch_heatmap`` / ``apply_batch``): a batched round's tile ids
+    are grouped into consecutive same-chunk runs, one gathered read and
+    one kernel pass per run, refolded under the driver's global prefix
+    rule — the ``RefinementDriver`` itself is chunk-agnostic.
+
+    ``check_invariants``, ``n_tiles`` and ``n_active`` cover the live
+    chunks' forests only: a forest of a chunk retired since the last
+    ``prepare`` is dead (its dataset's columns are gone).
+    """
+
+    def __init__(self, dataset, config: Optional[IndexConfig] = None):
+        config = IndexConfig() if config is None else config
+        self.ds = dataset
+        self.cfg = config
+        self.adapt_stats = AdaptStats()
+        self._stride = config.capacity
+        self._indexes: Dict[int, TileIndex] = {}
+
+    # -- forest lifecycle --------------------------------------------
+
+    def index_for(self, chunk) -> TileIndex:
+        """The chunk's TileIndex, built on first touch (accounted as the
+        chunk's own init pass + init-metadata reads)."""
+        ti = self._indexes.get(chunk.chunk_id)
+        if ti is None:
+            ti = TileIndex(chunk.data, self.cfg)
+            # one shared adaptation ledger across the forest
+            ti.adapt_stats = self.adapt_stats
+            self._indexes[chunk.chunk_id] = ti
+        return ti
+
+    def built_ids(self) -> Tuple[int, ...]:
+        """Chunk ids whose index has been materialized."""
+        return tuple(self._indexes.keys())
+
+    def prepare(self, window, attr: str) -> None:
+        """Pre-query housekeeping: drop forests of retired chunks and
+        lazily build indexes for live chunks overlapping the window. The
+        engine calls this BEFORE its per-query I/O snapshot, so build
+        cost is accounted like legacy index construction — at build
+        time, not inside a query's delta."""
+        live = set(self.ds.live_ids)
+        for cid in list(self._indexes):
+            if cid not in live:
+                del self._indexes[cid]
+        for chunk in self.ds.chunks():
+            if _chunk_overlaps(chunk.bbox, window):
+                self.index_for(chunk).ensure_attr(attr)
+
+    # -- driver / query surface --------------------------------------
+
+    def parts(self, window, attr=None, agg=None):
+        """Yield ``(gid_base, TileIndex)`` per live, non-pruned chunk in
+        ingest order; pruned chunks are accounted (``pruned_calls``) and
+        cost nothing else. Two pruning stages, both zero file I/O: the
+        axis bbox, then — for ``agg in ("min", "max")`` with a known
+        ``attr`` — the value zone map (:meth:`_value_pruned`)."""
+        cand = []
+        for chunk in self.ds.chunks():
+            if _chunk_overlaps(chunk.bbox, window):
+                cand.append(chunk)
+            else:
+                chunk.stats.pruned_calls += 1
+        drop = self._value_pruned(cand, window, attr, agg)
+        for chunk in cand:
+            if chunk.chunk_id in drop:
+                chunk.stats.pruned_calls += 1
+            else:
+                yield chunk.chunk_id * self._stride, self.index_for(chunk)
+
+    def _occupied(self, chunk, window) -> bool:
+        """Does the chunk have at least one row inside the window?
+        Answered from the chunk index's resident axis planes — zero file
+        I/O (``prepare`` has built overlapping indexes). Reached only by
+        min/max queries over two or more candidate chunks."""
+        ti = self.index_for(chunk)
+        full, partial = ti.classify(window)
+        if full.size and int(ti.count[full].sum()) > 0:
+            return True
+        if partial.size == 0:
+            return False
+        return int(ti.count_in_window_batch(partial, window).sum()) > 0
+
+    def _value_pruned(self, cand, window, attr, agg):
+        """Chunk ids value-pruned by the ingest-time zone maps.
+
+        Only ``min``/``max`` admit sound whole-chunk value pruning. Rule
+        for ``min``: any chunk with a row in the window bounds the
+        answer above by its zone-map high, so ``U = min(hi_c over
+        occupied chunks)`` and a chunk with ``lo_c > U`` (strict) cannot
+        contain the window minimum. Symmetric for ``max``."""
+        if agg not in ("min", "max") or attr is None or len(cand) < 2:
+            return set()
+        ranges = [c.val_range.get(attr) for c in cand]
+        if any(r is None for r in ranges):
+            return set()          # zone map unavailable: prune nothing
+        occ = [c for c in cand if self._occupied(c, window)]
+        if not occ:
+            return set()
+        if agg == "min":
+            u = min(c.val_range[attr][1] for c in occ)
+            return {c.chunk_id for c in cand if c.val_range[attr][0] > u}
+        u = max(c.val_range[attr][0] for c in occ)
+        return {c.chunk_id for c in cand if c.val_range[attr][1] < u}
+
+    def resolve(self, gid: int):
+        """Map a global tile id to ``(TileIndex, local_tile_id)``."""
+        cid, local = divmod(int(gid), self._stride)
+        return self._indexes[cid], local
+
+    def ensure_attr(self, attr: str) -> None:
+        for ti in self._indexes.values():
+            ti.ensure_attr(attr)
+
+    def _chunk_runs(self, tile_ids: np.ndarray):
+        """Split a round's gid list into maximal consecutive same-chunk
+        runs ``(s, e)`` (preserving the driver's score order)."""
+        if len(tile_ids) == 0:
+            return []
+        cids = tile_ids // self._stride
+        cut = np.flatnonzero(cids[1:] != cids[:-1]) + 1
+        starts = np.concatenate([[0], cut, [len(tile_ids)]])
+        return [(int(starts[i]), int(starts[i + 1]))
+                for i in range(len(starts) - 1)]
+
+    def _read_batch_runs(self, tile_ids, window, attr: str, bins=None):
+        """One gathered read and one kernel pass per same-chunk run; a
+        composite payload with GLOBAL segment bounds for the driver's
+        speculative accounting. A driver round is ONE round however many
+        chunks it straddles — each per-chunk read bumps the shared
+        ``batch_rounds``, so the overcount is corrected here, counting
+        only the runs that read: a retired chunk's run reads nothing and
+        bumps nothing, and a round of such runs alone is no round, as
+        under one ``TileIndex`` (the reference subtracts a round for
+        every run past the first, dead or not, ROADMAP C.9).
+        ``read_calls`` keeps counting per gathered read."""
+        tile_ids = np.asarray(tile_ids, np.int64)
+        runs = []
+        contribs = []
+        for s, e in self._chunk_runs(tile_ids):
+            ti, _ = self.resolve(tile_ids[s])
+            local = tile_ids[s:e] % self._stride
+            if bins is None:
+                c, p = ti.read_batch(local, window, attr)
+            else:
+                c, p = ti.read_batch_heatmap(local, window, attr, bins)
+            contribs.extend(c)
+            runs.append((ti, p, s, e))
+        read = sum(not p.get("dead") for _, p, _, _ in runs)
+        self.adapt_stats.batch_rounds -= read - min(read, 1)
+        return contribs, composite_payload(tile_ids, runs, attr)
+
+    def read_batch(self, tile_ids, window, attr: str):
+        return self._read_batch_runs(tile_ids, window, attr)
+
+    def read_batch_heatmap(self, tile_ids, window, attr: str, bins):
+        return self._read_batch_runs(tile_ids, window, attr, bins)
+
+    def apply_batch(self, payload, n_used: int, split_flags) -> None:
+        """Route the driver's global folded prefix to each run's own
+        ``TileIndex.apply_batch``: a run entirely past the fold point
+        gets ``n_used=0`` (its speculative reads leave the chunk's index
+        untouched)."""
+        for ti, p, s, e in payload["runs"]:
+            used = min(max(n_used - s, 0), e - s)
+            ti.apply_batch(p, used, list(split_flags[s:s + used]))
+
+    # -- invariants / aggregates over LIVE forests -------------------
+
+    def live_forests(self):
+        """``(chunk_id, TileIndex)`` of the built forests whose chunk is
+        live and readable, in build order."""
+        return [(cid, ti) for cid, ti in self._indexes.items()
+                if self.ds.is_live(cid) and not ti.ds.closed]
+
+    def check_invariants(self, attr: Optional[str] = None) -> None:
+        for _, ti in self.live_forests():
+            ti.check_invariants(attr)
+
+    @property
+    def n_tiles(self) -> int:
+        return sum(ti.n_tiles for _, ti in self.live_forests())
+
+    @property
+    def n_active(self) -> int:
+        return sum(ti.n_active for _, ti in self.live_forests())

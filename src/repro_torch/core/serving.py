@@ -1,10 +1,10 @@
 """Concurrent multi-session serving: epoch-isolated cracking over ONE
 shared adaptive index.
 
-Port of :mod:`repro.core.serving` for one ``TileIndex`` (chunked storage
-and its serving branches come with ROADMAP.md queue A, item 6;
-predictive pre-cracking with item 8). Exploration front ends multiplex
-many sessions — users panning their own viewports — over one dataset.
+Port of :mod:`repro.core.serving`, over one ``TileIndex`` or a chunk
+forest (``ChunkIndexSet``); predictive pre-cracking comes with ROADMAP.md
+queue A, item 8. Exploration front ends multiplex many sessions — users
+panning their own viewports — over one dataset.
 :class:`ServingEngine` serves them in ticks:
 
 - **Sessions** (:meth:`ServingEngine.open_session`) submit queries as
@@ -19,7 +19,9 @@ many sessions — users panning their own viewports — over one dataset.
 - **Micro-batching** (``mode="batched"``): same-tick queries advance in
   lock-step rounds. Each round gathers the union of every active
   query's next score-ordered batch — one ``read_values`` call per
-  attribute — and answers all scalar queries with one packed
+  (part, attribute): over a chunk forest a query's batch splits into
+  same-chunk runs, and no gather crosses two chunks' planes — and
+  answers all scalar queries with one packed
   ``segment_window_agg_multi`` pass and all same-resolution heatmaps
   with one ``segment_window_bin_select_multi`` pass (chunked at query
   spans to ``MAX_SEGMENTS`` segments on a device backend). Per-query
@@ -56,7 +58,8 @@ from ..kernels.segment_agg import MAX_SEGMENTS, MAX_UNROLL
 from . import query as query_mod
 from .bounds import AccuracyPolicy, HeatmapResult, QueryResult
 from .engine import AQPEngine, EngineTrace
-from .index import EpochStage, _adjacent, _host, _host_pair
+from .index import (ChunkIndexSet, EpochStage, _adjacent, _chunk_overlaps,
+                    _host, _host_pair, composite_payload)
 from .predict import TrajectoryStep
 from .refine import (HeatmapQueryAdapter, ScalarQueryAdapter, met,
                      round_residual)
@@ -182,6 +185,9 @@ class _QueryRun:
 
         # ---- phase 1: build (frozen-epoch classification) ----
         tk = ticket
+        prepare = getattr(index, "prepare", None)
+        if prepare is not None:
+            prepare(tk.window, tk.attr)
         io_before = index.ds.stats.snapshot()
         index.ensure_attr(tk.attr)
         if tk.kind == "query":
@@ -479,35 +485,75 @@ class ServingEngine:
             qr.tk.result = qr.build_result(now, t0)
 
     # -- micro-round execution ---------------------------------------- #
+    def _entry_runs(self, batch):
+        """Split one query's round batch into ``(TileIndex, local_ids, s,
+        e)`` chunk runs (global prefix coordinates), mirroring
+        :meth:`ChunkIndexSet._read_batch_runs` routing."""
+        index = self.index
+        if not isinstance(index, ChunkIndexSet):
+            return [(index, batch, 0, len(batch))]
+        out = []
+        for s, e in index._chunk_runs(batch):
+            ti, _ = index.resolve(int(batch[s]))
+            out.append((ti, batch[s:e] % index._stride, s, e))
+        return out
+
     def _execute_round(self, entries) -> None:
         """One micro-batched round: fuse every active query's batch
-        into one gathered read per attribute and one packed multi-window
-        kernel pass per family (+ per heatmap bin resolution), then
-        fold/stage per query exactly as its private driver would."""
-        items = [{"qr": qr, "local": batch} for qr, batch in entries]
-        # group items by attribute; scalar items first, then heatmap
+        into one gathered read per (part, attribute) and one packed
+        multi-window kernel pass per family (+ per heatmap bin
+        resolution), then fold/stage per query exactly as its private
+        driver would."""
+        # item: one (query, chunk-run) piece of the round
+        items = []
+        per_entry = []  # (qr, batch, [item indices in run order])
+        for qr, batch in entries:
+            idxs = []
+            for ti, local, s, e in self._entry_runs(batch):
+                items.append({"qr": qr, "ti": ti, "local": local,
+                              "s": s, "e": e})
+                idxs.append(len(items) - 1)
+            per_entry.append((qr, batch, idxs))
+
+        # group items by (part, attr); scalar items first, then heatmap
         # items grouped by bin resolution — per-family contiguity lets
         # one kernel pass cover each family
-        groups: Dict[str, List[int]] = {}
+        groups: Dict[tuple, List[int]] = {}
         for j, it in enumerate(items):
             tk = it["qr"].tk
             it["fam"] = ((0,) if tk.kind == "query"
                          else (1, tk.bins[0], tk.bins[1]))
-            groups.setdefault(tk.attr, []).append(j)
+            groups.setdefault((id(it["ti"]), tk.attr), []).append(j)
         for js in groups.values():
             js.sort(key=lambda j: (items[j]["fam"], j))
             self._read_group([items[j] for j in js])
-        for it in items:
-            it["qr"].fold(it["local"], it["contribs"], it["payload"])
+
+        # per query: reassemble contribs + payload across its runs (a
+        # composite payload with GLOBAL bounds over a chunk forest) and
+        # run the driver's fold/stage epilogue
+        chunked = isinstance(self.index, ChunkIndexSet)
+        for qr, batch, idxs in per_entry:
+            contribs = []
+            for j in idxs:
+                contribs.extend(items[j]["contribs"])
+            if not chunked:
+                payload = items[idxs[0]]["payload"]
+            else:
+                payload = composite_payload(
+                    batch, [(items[j]["ti"], items[j]["payload"],
+                             items[j]["s"], items[j]["e"]) for j in idxs],
+                    qr.tk.attr)
+            qr.fold(batch, contribs, payload)
 
     def _read_group(self, group_items) -> None:
-        """One gathered read + packed kernel passes for every item of an
-        attribute group; writes ``contribs``/``payload`` per item."""
-        ti = self.index
+        """One gathered read + packed kernel passes for every item of a
+        (part, attribute) group; writes ``contribs``/``payload`` per
+        item."""
+        ti = group_items[0]["ti"]
         attr = group_items[0]["qr"].tk.attr
         if ti.ds.closed:
-            # the dataset retired: degrade every item (the driver drops
-            # the tiles from its answer set)
+            # the whole part retired: degrade every item (the driver
+            # drops the tiles from its answer set)
             for it in group_items:
                 it["contribs"], it["payload"] = ti._dead_batch(
                     it["local"], attr)
@@ -677,9 +723,17 @@ class ServingEngine:
                     ti.heatmap_cache(tk.window, tk.bins, tk.attr)
 
     def _parts_silent(self, window):
-        """Window-overlapping, already-materialized parts: one TileIndex
-        is its own only part (a chunk forest's come with item 6)."""
-        return [self.index]
+        """Window-overlapping, already-materialized parts — without the
+        pruning accounting of :meth:`ChunkIndexSet.parts`."""
+        index = self.index
+        if not isinstance(index, ChunkIndexSet):
+            return [index]
+        out = []
+        for chunk in index.ds.chunks():
+            ti = index._indexes.get(chunk.chunk_id)
+            if ti is not None and _chunk_overlaps(chunk.bbox, window):
+                out.append(ti)
+        return out
 
 
 __all__ = ["ServingEngine", "Session", "Ticket", "NullStage"]

@@ -7,7 +7,9 @@ can continue from the same cracked index. :func:`index_to_numpy` takes
 the same arrays off either package's index (reference or port),
 including the session bin-grid memory: the LRU of heatmap registries, in
 order, each mapping a tile id to its per-bin ``(cnt_b, sum_b, min_b,
-max_b)``.
+max_b)``. :func:`forest_to_numpy` and :func:`forest_from_numpy` do the
+same for a chunk forest (``ChunkIndexSet``), chunk by chunk, keyed by
+chunk id.
 """
 from __future__ import annotations
 
@@ -17,8 +19,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..data.chunked import ChunkedDataset
 from ..data.rawfile import RawDataset
-from .index import IndexConfig, TileIndex
+from .index import ChunkIndexSet, IndexConfig, TileIndex
 
 TABLE = ("bbox", "offset", "count", "active", "level", "parent")
 OBJECTS = ("perm", "x_s", "y_s")
@@ -80,3 +83,28 @@ def index_from_numpy(dataset: RawDataset, config: Optional[IndexConfig],
         for key, reg in arrays.get("hm_regs", ()))
     ti._hm_key = next(reversed(ti._hm_regs), None)
     return ti
+
+
+def forest_to_numpy(forest) -> Dict[int, Dict[str, object]]:
+    """:func:`index_to_numpy` of each built forest of a live chunk, keyed
+    by chunk id in build order (a reference or a port
+    ``ChunkIndexSet``)."""
+    return {int(cid): index_to_numpy(ti)
+            for cid, ti in forest._indexes.items()
+            if forest.ds.is_live(cid)}
+
+
+def forest_from_numpy(dataset: ChunkedDataset,
+                      config: Optional[IndexConfig],
+                      arrays: Dict[int, Dict[str, object]]) -> ChunkIndexSet:
+    """A port ``ChunkIndexSet`` over ``dataset`` whose chunks ``arrays``
+    names (see :func:`forest_to_numpy`) are built from those arrays, in
+    their order, with no I/O accounted; the other chunks stay unbuilt
+    and are built lazily as usual. Every forest shares the set's
+    ``AdaptStats``."""
+    forest = ChunkIndexSet(dataset, config)
+    for cid, a in arrays.items():
+        ti = index_from_numpy(dataset.chunk(int(cid)).data, forest.cfg, a)
+        ti.adapt_stats = forest.adapt_stats
+        forest._indexes[int(cid)] = ti
+    return forest

@@ -1,5 +1,8 @@
 from .rawfile import RawDataset, IOStats
-from .synthetic import make_synthetic_dataset, exploration_path
+from .chunked import Chunk, ChunkedDataset
+from .synthetic import (make_synthetic_dataset, make_streaming_chunks,
+                        exploration_path)
 
-__all__ = ["RawDataset", "IOStats", "make_synthetic_dataset",
+__all__ = ["RawDataset", "IOStats", "Chunk", "ChunkedDataset",
+           "make_synthetic_dataset", "make_streaming_chunks",
            "exploration_path"]

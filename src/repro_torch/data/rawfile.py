@@ -59,8 +59,8 @@ class IOStats:
     bytes_read: int = 0
     read_calls: int = 0
     init_rows: int = 0
-    # chunks skipped wholesale on their axis bounding box (chunked
-    # storage, a later slice of the port); kept so deltas line up
+    # chunks skipped wholesale on their axis bounding box or value zone
+    # map (chunked storage): the query touched none of their rows
     pruned_calls: int = 0
 
     def snapshot(self) -> "IOStats":
@@ -69,6 +69,12 @@ class IOStats:
     def delta(self, before: "IOStats") -> "IOStats":
         return IOStats(**{
             f.name: getattr(self, f.name) - getattr(before, f.name)
+            for f in dataclasses.fields(self)})
+
+    def merge(self, other: "IOStats") -> "IOStats":
+        """Field-wise sum (chunked datasets aggregate per-chunk stats)."""
+        return IOStats(**{
+            f.name: getattr(self, f.name) + getattr(other, f.name)
             for f in dataclasses.fields(self)})
 
 
@@ -149,10 +155,15 @@ class RawDataset:
         return self._closed
 
     def close(self) -> None:
-        """Release column storage. Accounted reads after close raise."""
+        """Release column storage (chunk retirement). Accounted reads
+        after close raise. On a device the axis planes go too, so a
+        retired chunk holds no device memory once its forest is dropped
+        (``n`` and ``domain()`` stay)."""
         self._closed = True
         self._cols = {}
         self._text = {}
+        if self.device is not None:
+            self.x = self.y = None
         if self.storage == "mmap" and self._mmap_dir is not None:
             import shutil
             shutil.rmtree(self._mmap_dir, ignore_errors=True)

@@ -6,6 +6,8 @@ VALINOR/VETI synthetic file the paper evaluates on (10 columns, 11 GB,
 about 10⁸ rows). The arrays come from the SAME numpy ``default_rng``
 streams as the reference, so a seed gives the reference's arrays bit for
 bit; they are then moved to the requested device.
+:func:`make_streaming_chunks` gives the streaming workload's
+range-partitioned chunks (B8) as numpy arrays.
 """
 from __future__ import annotations
 
@@ -61,6 +63,58 @@ def make_synthetic_dataset(n: int = 2_000_000, n_columns: int = 10,
     return RawDataset(xy[:, 0].astype(np.float32),
                       xy[:, 1].astype(np.float32), cols,
                       mmap_dir=mmap_dir, storage=storage, device=device)
+
+
+def make_streaming_chunks(n_chunks: int = 10,
+                          rows_per_chunk: int = 200_000,
+                          n_columns: int = 4, domain: float = 1000.0,
+                          seed: int = 7):
+    """Range-partitioned arrival chunks for the streaming workload (B8).
+
+    Chunk ``i`` covers the x-slab ``[i*W, (i+1)*W)`` with
+    ``W = domain / n_chunks`` — x plays the role of arrival time, so a
+    "time-windowed" query is an x-range over the most recent chunks and
+    older chunks prune on their axis bounding box. Within a chunk, y is
+    clustered (two Gaussian bands + uniform background) and the value
+    columns reuse the heterogeneous distributions of
+    :func:`make_synthetic_dataset`.
+
+    Returns a list of ``(x, y, columns)`` numpy tuples ready for
+    ``ChunkedDataset.ingest`` — the reference's arrays, bit for bit (the
+    same ``default_rng`` stream); ``ingest`` moves them to the dataset's
+    device.
+    """
+    rng = np.random.default_rng(seed)
+    width = domain / n_chunks
+    chunks = []
+    for i in range(n_chunks):
+        n = rows_per_chunk
+        x = rng.uniform(i * width, (i + 1) * width, size=n)
+        # avoid touching the next slab's lower edge (half-open ranges)
+        x = np.minimum(x, np.nextafter((i + 1) * width, 0.0))
+        band = rng.random(n)
+        c0, c1 = rng.uniform(0.15 * domain, 0.85 * domain, size=2)
+        y = np.where(
+            band < 0.4, rng.normal(c0, 0.04 * domain, size=n),
+            np.where(band < 0.7, rng.normal(c1, 0.06 * domain, size=n),
+                     rng.uniform(0, domain, size=n)))
+        y = np.clip(y, 0, domain)
+        cols = {}
+        for j in range(n_columns):
+            kind = j % 4
+            if kind == 0:
+                v = rng.normal(50.0 + 10 * j, 15.0, size=n)
+            elif kind == 1:
+                v = rng.lognormal(mean=2.0, sigma=0.6, size=n)
+            elif kind == 2:
+                v = rng.uniform(-100.0, 100.0, size=n)
+            else:
+                sel = rng.random(n) < 0.5
+                v = np.where(sel, rng.normal(-40, 8, size=n),
+                             rng.normal(40, 8, size=n))
+            cols[f"a{j}"] = v.astype(np.float32)
+        chunks.append((x.astype(np.float32), y.astype(np.float32), cols))
+    return chunks
 
 
 def _densest_cell(x, y, bins: int):

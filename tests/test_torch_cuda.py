@@ -7,8 +7,9 @@ Run on a machine with an NVIDIA Hopper GPU and ``nvcc``:
 The kernels build at first use. Each kernel is held against its plain
 PyTorch version on the same CUDA tensors (counts and extrema equal,
 float64 sums within 1e-12 · Σ|v|, the select op's suffix widths equal
-bit for bit), and the main path, the heatmap path and the serving tick on the
-``"cuda"`` backend against the same paths on ``"torch"``.
+bit for bit), and the main path, the heatmap path, the serving tick and
+the chunked path (a forest and a tick over chunks) on the ``"cuda"``
+backend against the same paths on ``"torch"``.
 """
 import numpy as np
 import pytest
@@ -234,6 +235,108 @@ def test_serving_tick_cuda_matches_torch(card):
     out["cuda"][1].check_invariants("a0")
     for k in ("segment_window_agg_multi", "segment_window_bin_select_multi"):
         assert build.LAUNCHES[k] > before.get(k, 0), k
+
+
+def _stream(device, n_chunks=4, rows=50_000, ingest=3):
+    from repro_torch.data import ChunkedDataset, make_streaming_chunks
+    src = make_streaming_chunks(n_chunks=n_chunks, rows_per_chunk=rows,
+                                n_columns=2, seed=31)
+    cds = ChunkedDataset(device=device)
+    for x, y, cols in src[:ingest]:
+        cds.ingest(x, y, cols)
+    return cds, src
+
+
+def test_chunked_path_cuda_matches_torch(card):
+    """A chunk forest on the card, "cuda" against "torch": windows across
+    chunk edges (composite rounds), a min query over value-pruned chunks,
+    an ingest and a retire; equal reads, splits, pruning and each
+    forest's permutation, values to float64 order."""
+    from repro_torch.core import ChunkIndexSet
+    wins = [(230.0, 100.0, 520.0, 800.0), (240.0, 0.0, 560.0, 1000.0),
+            (100.0, 300.0, 700.0, 600.0)]
+    out = {}
+    for backend in ("torch", "cuda"):
+        cds, src = _stream(card)
+        eng = AQPEngine(cds, IndexConfig(grid0=(8, 8), min_split_count=512,
+                                         init_metadata_attrs=("a0",),
+                                         backend=backend))
+        assert isinstance(eng.index, ChunkIndexSet)
+        res = []
+        for step in range(2):
+            for w in wins:
+                res.append(eng.query(w, "mean", "a0", phi=0.05))
+                res.append(eng.heatmap(w, "sum", "a0", bins=(4, 4),
+                                       phi=0.05))
+                res.append(eng.query(w, "min", "a0", phi=0.0))
+            cds.ingest(*src[3])
+            cds.retire(cds.live_ids[0])
+        out[backend] = (res, eng)
+    for a, c in zip(out["torch"][0], out["cuda"][0]):
+        assert (a.objects_read, a.read_calls, a.batch_rounds,
+                a.tiles_processed, a.pruned_chunks) == \
+            (c.objects_read, c.read_calls, c.batch_rounds,
+             c.tiles_processed, c.pruned_chunks)
+        f = "values" if hasattr(a, "values") else "value"
+        np.testing.assert_allclose(np.atleast_1d(getattr(c, f)),
+                                   np.atleast_1d(getattr(a, f)), rtol=1e-12)
+    it, ic = out["torch"][1].index, out["cuda"][1].index
+    assert it.built_ids() == ic.built_ids()
+    for cid in ic.built_ids():
+        assert torch.equal(it._indexes[cid].perm, ic._indexes[cid].perm)
+    ic.check_invariants("a0")
+
+
+def test_chunked_tick_cuda_matches_torch(card):
+    """The serving tick over three chunks on the card, "cuda" against
+    "torch", the first chunk's storage closed before the second tick:
+    equal degradation, reads and publication."""
+    from repro_torch.core import ServingEngine
+    out = {}
+    for backend in ("torch", "cuda"):
+        cds, _ = _stream(card)
+        sv = ServingEngine(AQPEngine(cds, IndexConfig(
+            grid0=(8, 8), min_split_count=512, init_metadata_attrs=("a0",),
+            backend=backend)))
+        sessions = [sv.open_session() for _ in range(3)]
+        res = []
+        for tick in range(2):
+            if tick:
+                cds.chunk(cds.live_ids[0]).data.close()
+            for i, s in enumerate(sessions):
+                w = (200.0 + 50 * i + 10 * tick, 100.0, 560.0, 900.0)
+                s.query(w, "mean", "a0", phi=0.05 * (1 - tick))
+                s.heatmap(w, "mean", "a0", bins=(4, 4), phi=0.05)
+            res.append((sv.tick(), dict(sv.last_publish)))
+        out[backend] = res
+    for (rt, pt), (rc, pc) in zip(out["torch"], out["cuda"]):
+        assert pt == pc
+        for a, c in zip(rt, rc):
+            assert (a.objects_read, a.tiles_processed, a.exact,
+                    a.retired_during_query) == \
+                (c.objects_read, c.tiles_processed, c.exact,
+                 c.retired_during_query)
+            f = "values" if hasattr(a, "values") else "value"
+            np.testing.assert_allclose(np.atleast_1d(getattr(c, f)),
+                                       np.atleast_1d(getattr(a, f)),
+                                       rtol=1e-12)
+    assert any(r.retired_during_query for r in out["cuda"][1][0])
+
+
+def test_zone_map_on_the_card(card):
+    """A device chunk's zone map equals numpy's float32 min/max as Python
+    floats, a NaN included."""
+    from repro_torch.data import ChunkedDataset
+    rng = np.random.default_rng(8)
+    x, y = rng.uniform(0, 10, (2, 100_000)).astype(np.float32)
+    a0 = rng.normal(0, 1, 100_000).astype(np.float32)
+    a1 = a0.copy()
+    a1[777] = np.nan
+    cds = ChunkedDataset(device=card)
+    cds.ingest(x, y, {"a0": a0, "a1": a1})
+    vr = cds.chunk(0).val_range
+    assert vr["a0"] == (float(np.min(a0)), float(np.max(a0)))
+    assert np.isnan(vr["a1"][0]) and np.isnan(vr["a1"][1])
 
 
 # --- the one-launch kernels (rows 1-4 and 6-10 of PERF.md's kernel

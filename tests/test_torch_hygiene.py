@@ -99,7 +99,8 @@ def test_chip_smoke_fails_without_card_or_repo(tmp_path, alone):
     assert '"ok"' not in p.stdout
 
 
-CORE_FILES = sorted((ROOT / "src" / "repro_torch" / "core").glob("*.py"))
+CORE_FILES = sorted((ROOT / "src" / "repro_torch" / "core").glob("*.py")) + [
+    ROOT / "src" / "repro_torch" / "data" / "chunked.py"]
 KERNEL_MODULES = ("segment_agg", "fused_select", "bin_agg", "window_agg")
 # helpers of the kernel modules that are no kernel's plain version: the
 # core may import them (the oracles, the axis-only counts, the split
@@ -110,7 +111,8 @@ SHARED_HELPERS = {"agg4", "window_bin_ids", "edge_cell_ids", "segment_ids"}
 @pytest.mark.parametrize("path", CORE_FILES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_core_reaches_kernels_through_ops(path):
-    """No module of ``repro_torch/core`` imports a plain kernel version
+    """No module of ``repro_torch/core`` (nor the chunked storage of
+    ``repro_torch/data``) imports a plain kernel version
     (a name ending in ``_torch`` from a kernel module) or reaches one as
     an attribute: the core reaches every kernel through ``ops`` with its
     backend, so the card's path runs no plain version."""

@@ -1,7 +1,9 @@
 """The port's serving tick — ``AQPEngine.serve()`` → ``ServingEngine.tick``
-on one ``TileIndex`` — against the reference package, on the dataset,
-config and scripts of ``tests/test_serving.py`` (n = 60 000 uniform
-points, grid0 (8, 8), ``min_split_count=256``; unchunked, prefetch off).
+on one ``TileIndex`` or a chunk forest — against the reference package,
+on the dataset, config and scripts of ``tests/test_serving.py`` (n =
+60 000 uniform points, grid0 (8, 8), ``min_split_count=256``; prefetch
+off). Chunked, the dataset is one chunk (``from_dataset``, as the
+reference tests) or three x-slabs, whose windows straddle chunks.
 
 - Port ``"np"`` ≡ reference, bit for bit, in each serving mode: every
   result field but the wall time, the ``IOStats`` and ``AdaptStats``
@@ -24,11 +26,15 @@ import torch
 
 from repro.core import (AQPEngine as RefEngine, IndexConfig as RefConfig,
                         ServingEngine as RefServing)
+from repro.core.index import EpochStage as RefStage
+from repro.data.chunked import ChunkedDataset as RefChunked
 from repro.data.rawfile import RawDataset as RefDataset
 from repro.kernels import ops as rops
-from repro_torch.core import (AccuracyPolicy, AQPEngine, EpochStage,
-                              IndexConfig, NullStage, ServingEngine,
+from repro_torch.core import (AccuracyPolicy, AQPEngine, ChunkIndexSet,
+                              EpochStage, IndexConfig, NullStage,
+                              ServingEngine, forest_to_numpy,
                               index_from_numpy, index_to_numpy)
+from repro_torch.data import ChunkedDataset
 from repro_torch.data.rawfile import RawDataset
 
 PHI = 0.05
@@ -511,6 +517,192 @@ def test_batched_compare_follows_the_ticket(backend):
 
 
 # --------------------------------------------------------------------- #
+# chunked storage: the tick over a chunk forest
+# --------------------------------------------------------------------- #
+
+SLABS = (0.0, 333.0, 667.0)
+
+
+def chunked_dataset(cols, layout, backend=None):
+    """The serving dataset as one chunk or three x-slabs, in the reference
+    (``backend=None``) or the port."""
+    xs, ys, a0 = cols
+    if backend is None:
+        cds = RefChunked()
+        single = lambda: RefChunked.from_dataset(  # noqa: E731
+            RefDataset(xs, ys, {"a0": a0}))
+    else:
+        dev = None if backend == "np" else "cpu"
+        cds = ChunkedDataset(device=dev)
+        single = lambda: ChunkedDataset.from_dataset(  # noqa: E731
+            RawDataset(xs, ys, {"a0": a0}, device=dev))
+    if layout == "single":
+        return single()
+    edges = SLABS + (np.inf,)
+    for lo, hi in zip(edges[:-1], edges[1:]):
+        m = (xs >= lo) & (xs < hi)
+        cds.ingest(xs[m], ys[m], {"a0": a0[m]})
+    return cds
+
+
+def chunked_server(cols, layout, backend=None, **kw):
+    ds = chunked_dataset(cols, layout, backend)
+    if backend is None:
+        return RefServing(RefEngine(ds, RefConfig(**KW)), **kw)
+    return ServingEngine(AQPEngine(ds, IndexConfig(backend=backend, **KW)),
+                         **kw)
+
+
+def forest_fingerprint(index):
+    """Per live chunk, in build order: the fingerprint of its forest."""
+    out = []
+    for cid, a in forest_to_numpy(index).items():
+        n = a["n_tiles"]
+        out.append((cid, (n, int(a["active"].sum()), a["count"][:n],
+                          a["bbox"][:n], a["perm"],
+                          {k: (a["meta_sum"][k][:n], a["meta_min"][k][:n],
+                               a["meta_max"][k][:n], a["meta_valid"][k][:n])
+                           for k in a["meta_sum"]})))
+    return out
+
+
+def assert_forests_equal(fa, fb, rtol=0.0):
+    assert [c for c, _ in fa] == [c for c, _ in fb]
+    for (_, a), (_, b) in zip(fa, fb):
+        assert_fingerprints_equal(a, b, rtol)
+
+
+@pytest.mark.parametrize("backend", ["np", "torch"])
+@pytest.mark.parametrize("crack_budget", [None, 1])
+@pytest.mark.parametrize("layout", ["single", "multi"])
+def test_chunked_tick_matches_reference(layout, crack_budget, backend):
+    """tests/test_serving.py:115's chunked cases, and the same over three
+    chunks: the port's batched tick against the reference's (``"np"``
+    bit for bit: results, deltas, publication, grants and each chunk's
+    index), and the port's batched tick ≡ its sequential tick."""
+    cols = columns()
+    ticks = two_session_script()
+    rtol = 0.0 if backend == "np" else VALUE_RTOL
+    ref = chunked_server(cols, layout, mode="batched",
+                         crack_budget=crack_budget)
+    pa, _ = play(ref, 2, ticks)
+    plays, forests = [], []
+    for mode in ("batched", "sequential"):
+        sv = chunked_server(cols, layout, backend, mode=mode,
+                            crack_budget=crack_budget)
+        assert isinstance(sv.index, ChunkIndexSet)
+        p, _ = play(sv, 2, ticks)
+        plays.append(p)
+        forests.append(forest_fingerprint(sv.index))
+        sv.index.check_invariants("a0")
+    assert_plays_equal(pa, plays[0], rtol, chunked=backend != "np")
+    assert_forests_equal(forest_fingerprint(ref.index), forests[0], rtol)
+    for (ra, pub_a, gr_a, _, _), (rb, pub_b, gr_b, _, _) in zip(*plays):
+        for x, y in zip(ra, rb):
+            for f in ANSWER_FIELDS:
+                if hasattr(x, f):
+                    assert_same(getattr(x, f), getattr(y, f), what=f)
+        assert (pub_a, gr_a) == (pub_b, gr_b)
+    assert_forests_equal(*forests)
+    if layout == "multi":
+        # windows straddle chunks: a round reads one run per chunk
+        io = sum(t[3]["read_calls"] for t in plays[0])
+        rounds = sum(t[4]["batch_rounds"] for t in plays[0])
+        assert len(forests[0]) == 3 and io >= rounds > 0
+
+
+@pytest.mark.parametrize("backend", ["np", "torch"])
+@pytest.mark.parametrize("layout", ["single", "multi"])
+def test_chunked_retired_during_query_matches_reference(layout, backend):
+    """tests/test_serving.py:257: a chunk's storage closes between ticks;
+    the next tick's reads of it degrade, ``retired_during_query`` is set,
+    in both modes, as in the reference. Over three chunks the closed
+    part is one run of a composite round; the others still read."""
+    cols = columns()
+    rtol = 0.0 if backend == "np" else VALUE_RTOL
+    got = {}
+    for mode in ("batched", "sequential"):
+        for side in (None, backend):
+            sv = chunked_server(cols, layout, side, mode=mode)
+            s = sv.open_session()
+            win = (100, 100, 900, 900)
+            s.query(win, "mean", "a0", phi=PHI)
+            sv.tick()
+            ds = sv.engine.dataset
+            ds.chunk(ds.live_ids[0]).data.close()
+            tickets = [s.query(win, "mean", "a0", phi=0.0),
+                       s.heatmap(win, "sum", "a0", bins=(4, 4), phi=0.0)]
+            sv.tick()
+            assert all(tk.result.retired_during_query for tk in tickets)
+            if layout == "multi":
+                assert all(tk.result.objects_read > 0 for tk in tickets)
+            got[side, mode] = ([tk.result for tk in tickets],
+                               dict(sv.last_publish))
+    for mode in ("batched", "sequential"):
+        (ra, pa), (rb, pb) = got[None, mode], got[backend, mode]
+        assert pa == pb
+        for x, y in zip(ra, rb):
+            assert y.batch_rounds >= 0
+            if layout == "multi" and mode == "sequential":
+                # ROADMAP C.9: the reference's forest subtracts a round
+                # for each dead run of a composite round
+                assert x.batch_rounds < y.batch_rounds
+                x = dataclasses.replace(x, batch_rounds=y.batch_rounds)
+            assert_results_equal(x, y, rtol)
+    (ra, pa), (rb, pb) = got[backend, "batched"], got[backend, "sequential"]
+    assert pa == pb
+    for x, y in zip(ra, rb):
+        for f in ANSWER_FIELDS:
+            if hasattr(x, f):
+                assert_same(getattr(x, f), getattr(y, f), what=f)
+
+
+def test_composite_payload_stages_per_run():
+    """``EpochStage.stage_apply`` splits a chunk forest's composite
+    payload into its runs, the global folded prefix routed per run, as
+    the reference's stage does."""
+    runs = [("ti0", {"tile_ids": np.arange(3)}, 0, 3),
+            ("ti1", {"tile_ids": np.arange(2)}, 3, 5),
+            ("ti2", {"tile_ids": np.arange(4)}, 5, 9)]
+    flags = [True, False, True, True, False, True, False, True, True]
+    entries = []
+    for stage in (RefStage(), EpochStage()):
+        stage.set_owner(2)
+        for n_used in (0, 4, 9):
+            stage.stage_apply("forest", {"runs": runs, "tile_ids":
+                                         np.arange(9)}, n_used, flags)
+        stage.stage_apply("ti3", {"tile_ids": np.arange(2)}, 1, [True])
+        entries.append([(o, q, ti, used, fl) for o, q, ti, _, used, fl
+                        in stage._entries])
+    assert entries[0] == entries[1]
+    assert entries[1][3:6] == [(2, 3, "ti0", 3, [True, False, True]),
+                               (2, 4, "ti1", 1, [True]),
+                               (2, 5, "ti2", 0, [])]
+
+
+@pytest.mark.parametrize("backend", ["np", "torch"])
+def test_serving_engine_over_a_chunked_dataset(backend):
+    """``ServingEngine`` given a chunked dataset builds its own engine
+    over a lazy forest, as the reference's does, and serves it."""
+    cols = columns()
+    servers = []
+    for side in (None, backend):
+        ds = chunked_dataset(cols, "multi", side)
+        if side is None:
+            sv = RefServing(ds, RefConfig(**KW))
+        else:
+            sv = ServingEngine(ds, IndexConfig(backend=backend, **KW))
+        assert sv.engine.index.built_ids() == ()
+        servers.append(sv)
+    pa, _ = play(servers[0], 2, containment_script()[:2])
+    pb, _ = play(servers[1], 2, containment_script()[:2])
+    assert_plays_equal(pa, pb, 0.0 if backend == "np" else VALUE_RTOL,
+                       chunked=backend != "np")
+    assert servers[1].engine.index.built_ids() == \
+        servers[0].engine.index.built_ids()
+
+
+# --------------------------------------------------------------------- #
 # state carried across packages, and what is not ported yet
 # --------------------------------------------------------------------- #
 
@@ -550,10 +742,6 @@ def test_unported_serving_options_name_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="item 8"):
         s.heatmap((0, 0, 1, 1), "sum", "a0", phi=0.05,
                   policy=AccuracyPolicy(salience="learned"))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        EpochStage().stage_apply(eng.index, {"runs": []}, 0, [])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ServingEngine(object())
     with pytest.raises(ValueError):
         eng.serve(mode="parallel")
 
