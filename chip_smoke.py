@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--rows 100000000] [--queries 50]
                           [--ticks 10] [--reps 20] [--chunk-rows 3333334]
-                          [--clocks-of TREE]
+                          [--pan-steps 24] [--clocks-of TREE]
 
 Phases (each prints its own lines; any failure exits non-zero):
 
@@ -126,11 +126,39 @@ plain version and timed beside its byte bound.
    ``retired_during_query``); both modes give the same answers, index
    and publication.
 
-Phases 3 to 5 and 7 run with every plain ``*_torch`` kernel version
+8. Prediction on the card (run after phase 5 and before 7a, on phase 3's
+   dataset; launch counts reset before it: rows 1, 4 and 7 must launch
+   in the phase, 8 and 10 in 8d).
+   8a: B9's workload (``benchmarks/predictive_exploration.py``) at the
+   paper's scale: its linear pan and random walk (0.3 x domain windows),
+   ``--pan-steps`` steps each (B9's full size is 50; cut to 24 by
+   default for time), a reactive and a predicted arm on fresh "cuda"
+   engines with B9's ``IndexConfig``, 4x4 ``mean(a0)`` heatmaps at
+   phi = 0.05 and a budget of 3e6 rows a step (B9's 120 000 at 4e6 rows,
+   3 % of the file). Gates: no prefetch reads past its budget or adds a
+   speculative row, every answer meets phi, every 4th contains its
+   float64 oracle, and on the linear pan the predicted arm's sources
+   after warm-up are "linear" with ``hit_linear`` 1.0. The p99
+   comparison of query-time reads is printed, not gated, as are the
+   predictor's host microseconds: in the arms, and a fresh predictor's
+   alone with the card idle before each call.
+   8b: 8 linear-pan windows at phi = 0 (mean, count, min, max), a
+   prefetching engine against a reactive one: counts and extrema equal,
+   means within 1e-12 relative, both equal to the oracle.
+   8c: 8 heatmaps under ``AccuracyPolicy(salience="learned")`` with
+   phase 4's absolute floor: every bin meets its budget, no speculative
+   rows, the resolved map equals the dwell histogram recomputed here.
+   8d: 4 sessions x 3 ticks panning (a query and a 4x4 heatmap in turns)
+   with ``crack_budget=6`` and ``prefetch_rows=3e6`` on fresh engines,
+   batched against sequential: the same answers, prefetch records,
+   publication and index; some prefetch reads rows.
+
+Phases 3 to 5, 7 and 8 run with every plain ``*_torch`` kernel version
 wrapped in a counter: the card's path must call none of them.
 
-The line before the last is a JSON object describing each kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object describing each kernel (with
+its launches in phase 8 as ``launches_phase8``); the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1950,6 +1978,322 @@ def serving_parity(torch, a, b, budget):
 
 
 # --------------------------------------------------------------------- #
+# phase 8, prediction
+# --------------------------------------------------------------------- #
+
+# rows 1, 4 and 7 across phase 8; rows 8 and 10 in 8d's batched tick
+PREDICT_KERNELS = ("segment_window_agg", "segment_bin_agg_edges",
+                   "segment_window_bin_select")
+# B9's budget, 6 x 20 000 = 120 000 rows a step at 4e6 rows, kept at 3 %
+# of the file
+B9_BUDGET = 3_000_000
+POLICY_EPS_ABS = 0.5        # phase 4's absolute floor
+
+
+def median_us(seconds):
+    return float(np.median(seconds)) * 1e6 if seconds else None
+
+
+def b9_arm(torch, ds, wins, predictive, tag):
+    """One arm of B9 on a fresh "cuda" engine over ``ds``, with 8a's
+    gates; returns its numbers and, for the predicted arm, the
+    predictor's hit-rates and sources."""
+    from repro_torch.benchmarks import predictive_exploration as b9
+    from repro_torch.core import AQPEngine
+    from repro_torch.core.predict import prefetch_crack
+
+    eng = AQPEngine(ds, b9.b9_config("cuda"))
+    reads, evals, pre_s, spent, sources = [], [], [], 0, []
+    with Counting(eng.predictor, "observe") as obs, \
+            Counting(eng.predictor, "predict") as pred:
+        for q, w in enumerate(wins):
+            r = eng.heatmap(w, "mean", "a0", bins=b9.BINS, phi=b9.PHI)
+            if not (r.exact or r.bound <= b9.PHI + 1e-12):
+                raise Failed(f"8a {tag} step {q}: bound {r.bound} > phi")
+            if q % 4 == 0:
+                truth = eng.heatmap_oracle(w, "mean", "a0", bins=b9.BINS)
+                if not heatmap_ok(r, truth, b9.PHI):
+                    raise Failed(f"8a {tag} step {q}: a bin misses the "
+                                 "oracle")
+            reads.append(r.objects_read)
+            evals.append(r.eval_time_s)
+            spec = eng.adapt_stats.speculative_rows
+            t = time.perf_counter()
+            if predictive:
+                rec = eng.prefetch(B9_BUDGET)
+                sources.append(rec["source"])
+            else:
+                rec = prefetch_crack(eng.index, w, "a0", b9.BINS, B9_BUDGET,
+                                     alpha=eng.alpha)
+            torch.cuda.synchronize()
+            pre_s.append(time.perf_counter() - t)
+            if rec["rows_read"] > B9_BUDGET:
+                raise Failed(f"8a {tag} step {q}: prefetch read "
+                             f"{rec['rows_read']} rows > {B9_BUDGET}")
+            if eng.adapt_stats.speculative_rows != spec:
+                raise Failed(f"8a {tag} step {q}: prefetch added "
+                             "speculative rows")
+            spent += rec["rows_read"]
+    q_reads = np.asarray(reads, np.float64)
+    p50, p99 = np.percentile(q_reads[b9.WARMUP:], [50, 99])
+    out = {"p50_reads": float(p50), "p99_reads": float(p99),
+           "total_io": int(q_reads.sum()) + spent, "prefetch_rows": spent,
+           "heatmap_eval_s_median": float(np.median(evals)),
+           "prefetch_s_sum": float(np.sum(pre_s)),
+           "prefetch_s_median": float(np.median(pre_s)),
+           "observe_us_median": median_us(obs.each),
+           "predict_us_median": median_us(pred.each),
+           "n_tiles": int(eng.index.n_tiles)}
+    if predictive:
+        out["hit_linear"] = eng.predictor.hit_rate("linear")
+        out["hit_model"] = eng.predictor.hit_rate("model")
+        out["sources"] = sources
+        w1 = eng.predictor._params["w1"]
+        if w1.device.type != ds.x.device.type:
+            raise Failed(f"8a: the predictor's weights are on {w1.device}")
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_b9(torch, ds, pan_steps):
+    """8a: B9's two scripts and two arms at ``ds``'s scale."""
+    from repro_torch.benchmarks import predictive_exploration as b9
+
+    out = {}
+    for name, wins in (("linear_pan", b9._linear_pan(pan_steps)),
+                       ("random_walk", b9._random_walk(pan_steps))):
+        arms = {arm: b9_arm(torch, ds, wins, arm == "predicted",
+                            f"{name} {arm}")
+                for arm in ("reactive", "predicted")}
+        p = arms["predicted"]
+        if name == "linear_pan" and not (
+                p["hit_linear"] == 1.0
+                and set(p["sources"][b9.WARMUP - 1:]) == {"linear"}):
+            raise Failed(f"8a linear pan: sources {p['sources']}, "
+                         f"hit_linear {p['hit_linear']}")
+        log(f"8a {name}: {json.dumps(arms)}")
+        log(f"8a {name}: p99 query-time reads, predicted "
+            f"{p['p99_reads']:.0f} vs reactive "
+            f"{arms['reactive']['p99_reads']:.0f} (printed, not gated); "
+            f"hit_linear {p['hit_linear']}, hit_model {p['hit_model']}")
+        out[name] = arms
+    out["predictor_alone"] = predictor_alone(torch, b9._linear_pan(pan_steps))
+    log(f"8a predictor alone on the card: "
+        f"{json.dumps(out['predictor_alone'])}")
+    return out
+
+
+def predictor_alone(torch, wins):
+    """A fresh predictor on the card observing and predicting ``wins``
+    with the device idle before each call: its own host microseconds
+    (the arms' ``observe`` also waits there for the query's queued
+    device work, at its one synchronise)."""
+    from repro_torch.core import ViewportPredictor
+
+    p = ViewportPredictor(device="cuda")
+    obs, pred = [], []
+    for w in wins:
+        for fn, acc in ((lambda: p.observe(w, bins=(4, 4)), obs),
+                        (p.predict, pred)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            acc.append(time.perf_counter() - t)
+    return {"observe_us_median": median_us(obs),
+            "observe_us_max": max(obs) * 1e6,
+            "predict_us_median": median_us(pred), "n_trained": p.n_trained,
+            "source": p.source}
+
+
+def phase_neutrality(torch, ds, n_windows=8):
+    """8b: φ = 0 heatmaps of a prefetching engine against a reactive one
+    on B9's linear pan: counts, minima and maxima equal, means within
+    1e-12 relative (float64 sums in another atomic order), both within
+    1e-9 of the oracle."""
+    from repro_torch.benchmarks import predictive_exploration as b9
+    from repro_torch.core import AQPEngine
+
+    eng_p = AQPEngine(ds, b9.b9_config("cuda"))
+    eng_r = AQPEngine(ds, b9.b9_config("cuda"))
+    prefetched = 0
+    for q, w in enumerate(b9._linear_pan(n_windows)):
+        prefetched += eng_p.prefetch(B9_BUDGET)["rows_read"]
+        for agg in ("mean", "count", "min", "max"):
+            a = eng_p.heatmap(w, agg, "a0", bins=b9.BINS, phi=0.0)
+            b = eng_r.heatmap(w, agg, "a0", bins=b9.BINS, phi=0.0)
+            if not (a.exact and b.exact):
+                raise Failed(f"8b window {q} {agg}: not exact")
+            same = (close_rel(a.values, b.values) if agg == "mean" else
+                    np.array_equal(a.values, b.values, equal_nan=True))
+            if not same:
+                raise Failed(f"8b window {q} {agg}: prefetch altered the "
+                             "answer")
+            if agg == "mean":
+                truth = eng_r.heatmap_oracle(w, agg, "a0", bins=b9.BINS)
+                if not (heatmap_ok(a, truth, 0.0)
+                        and heatmap_ok(b, truth, 0.0)):
+                    raise Failed(f"8b window {q}: misses the oracle")
+    if prefetched <= 0:
+        raise Failed("8b: no prefetch read a row")
+    log(f"8b: {n_windows} windows x (mean, count, min, max) at phi = 0: "
+        f"prefetching engine ({prefetched} rows prefetched) equals the "
+        "reactive one, both equal the oracle")
+    del eng_p, eng_r
+    torch.cuda.empty_cache()
+
+
+def dwell_salience(steps, window, bins, floor):
+    """The dwell histogram of ``steps`` ((window, dwell_s) pairs) over
+    ``window``'s bins, normalised into ``(floor, 1]`` — recomputed here
+    from the trajectory, apart from the predictor's code."""
+    bx, by = bins
+    ex = np.linspace(window[0], window[2], bx + 1)
+    ey = np.linspace(window[1], window[3], by + 1)
+    h = np.zeros((by, bx))
+    for (x0, y0, x1, y1), dwell in steps:
+        fx = np.clip(np.minimum(ex[1:], x1) - np.maximum(ex[:-1], x0), 0,
+                     None) / np.diff(ex)
+        fy = np.clip(np.minimum(ey[1:], y1) - np.maximum(ey[:-1], y0), 0,
+                     None) / np.diff(ey)
+        h += dwell * np.outer(fy, fx)
+    if h.max() <= 0:
+        return np.ones(bx * by)
+    return (floor + (1.0 - floor) * h / h.max()).reshape(-1)
+
+
+def phase_learned_salience(torch, ds, n_windows=8):
+    """8c: heatmaps under ``salience="learned"`` on one engine."""
+    from repro_torch.benchmarks import predictive_exploration as b9
+    from repro_torch.core import AccuracyPolicy, AQPEngine
+    from repro_torch.core.predict import resolve_learned_salience
+
+    eng = AQPEngine(ds, b9.b9_config("cuda"))
+    pol = AccuracyPolicy(salience="learned", eps_abs=POLICY_EPS_ABS)
+    steps = []
+    for q, w in enumerate(b9._linear_pan(n_windows)):
+        dwell = 1.0 + (q % 3)
+        want = dwell_salience(steps, w, b9.BINS, pol.salience_floor)
+        got = resolve_learned_salience(pol, eng.predictor, w, b9.BINS)
+        if not np.allclose(got.salience, want, rtol=1e-12, atol=0.0):
+            raise Failed(f"8c window {q}: the resolved map differs from "
+                         "the host's")
+        r = eng.heatmap(w, "mean", "a0", bins=b9.BINS, phi=b9.PHI,
+                        policy=pol, dwell_s=dwell)
+        truth = eng.heatmap_oracle(w, "mean", "a0", bins=b9.BINS)
+        fin = np.isfinite(truth)
+        tol = 1e-9 * np.maximum(np.abs(truth[fin]), 1.0)
+        if not (r.bin_met.all() and r.speculative_rows == 0
+                and np.array_equal(r.phi_b, got.phi_b(b9.PHI, b9.BINS))
+                and (r.lo[fin] - tol <= truth[fin]).all()
+                and (truth[fin] <= r.hi[fin] + tol).all()):
+            raise Failed(f"8c window {q}: a bin misses its budget or the "
+                         "oracle, or rows were speculative")
+        steps.append((w, dwell))
+    log(f"8c: {n_windows} learned-salience heatmaps: every bin met its "
+        f"budget (eps_abs {POLICY_EPS_ABS}), zero speculative rows, the "
+        "resolved map equals the host's")
+    del eng
+    torch.cuda.empty_cache()
+
+
+def pan_sessions(n_sessions, n_ticks, size=0.2 * DOMAIN):
+    """Per tick, per session: (kind, window) — session i pans linearly
+    from its own corner, a ``mean(a0)`` query and a 4x4 heatmap in
+    turns."""
+    ticks = []
+    for t in range(n_ticks):
+        subs = []
+        for i in range(n_sessions):
+            x0 = 0.1 * DOMAIN + 0.2 * DOMAIN * i + 0.03 * DOMAIN * t
+            y0 = 0.1 * DOMAIN + 0.15 * DOMAIN * (i % 2) + 0.04 * DOMAIN * t
+            subs.append(("heatmap" if (t + i) % 2 else "query",
+                         (x0, y0, x0 + size, y0 + size)))
+        ticks.append(subs)
+    return ticks
+
+
+def phase_serving_prefetch(torch, build, ds, n_sessions=4, n_ticks=3):
+    """8d: the serving tick with ``prefetch_rows`` on fresh engines,
+    batched against sequential; rows 8 and 10 must launch."""
+    from repro_torch.core import AQPEngine, ServingEngine
+
+    script = pan_sessions(n_sessions, n_ticks)
+    got, prefetches = {}, {}
+    before = dict(build.LAUNCHES)
+    for mode in ("batched", "sequential"):
+        e = AQPEngine(ds, serving_config())
+        sv = ServingEngine(e, mode=mode, crack_budget=6,
+                           prefetch_rows=B9_BUDGET)
+        ses = [sv.open_session(f"s{i}") for i in range(n_sessions)]
+        res, pubs, recs = [], [], []
+        for subs in script:
+            submit(ses, subs)
+            rs = sv.tick()
+            for i, (r, (kind, w)) in enumerate(zip(rs, subs)):
+                truth = (e.heatmap_oracle(w, "mean", "a0", bins=(4, 4))
+                         if kind == "heatmap" else e.oracle(w, "mean", "a0"))
+                if not ((r.exact or r.bound <= PHI + 1e-12)
+                        and serving_ok(r, truth, PHI)):
+                    raise Failed(f"8d {mode}: answer {i} misses phi or "
+                                 "its oracle")
+            res.extend(rs)
+            pubs.append(dict(sv.last_publish))
+            recs.append([dict(p) for p in sv.last_prefetch])
+        ix = e.index
+        got[mode] = (res, pubs, ix.n_tiles, int(ix.active.sum()),
+                     ix.count[:ix.n_tiles].copy(), ix.perm.clone(),
+                     ix.meta_min["a0"][:ix.n_tiles].copy(),
+                     ix.meta_max["a0"][:ix.n_tiles].copy(), ix)
+        prefetches[mode] = recs
+        if mode == "batched":
+            launched = {k: build.LAUNCHES.get(k, 0) - before.get(k, 0)
+                        for k in SERVING_KERNELS}
+        del sv, ses
+    if prefetches["batched"] != prefetches["sequential"]:
+        raise Failed("8d: the prefetch records differ between modes")
+    bad = same_tile_index(torch, got["batched"][-1], got["sequential"][-1])
+    if bad is not None:
+        raise Failed(f"8d: the batched index differs: {bad}")
+    serving_parity(torch, got["batched"][:-1], got["sequential"][:-1],
+                   "6, prefetch_rows 3e6")
+    rows = [p["rows_read"] for recs in prefetches["batched"] for p in recs]
+    log(f"8d: prefetch records per tick {json.dumps(prefetches['batched'])}")
+    if not rows or max(rows) <= 0:
+        raise Failed("8d: no prefetch read a row")
+    log(f"8d launches of the batched ticks: {json.dumps(launched)}")
+    for k in SERVING_KERNELS:
+        if launched[k] <= 0:
+            raise Failed(f"{k} was not launched in 8d")
+    del got
+    torch.cuda.empty_cache()
+    return {"prefetches": len(rows), "prefetch_rows": int(sum(rows))}
+
+
+def phase_prediction(torch, build, ds, pan_steps):
+    """Phase 8 on phase 3's dataset: 8a-8d; the launches of the phase."""
+    log(f"== phase 8: prediction, {ds.n} rows, B9 at {pan_steps} steps a "
+        f"script, budget {B9_BUDGET} rows a step")
+    t_phase = time.perf_counter()
+    build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    b9 = phase_b9(torch, ds, pan_steps)
+    phase_neutrality(torch, ds)
+    phase_learned_salience(torch, ds)
+    serving = phase_serving_prefetch(torch, build, ds)
+    launches = dict(build.LAUNCHES)
+    log(f"launches in phase 8: {json.dumps(launches)}")
+    for k in PREDICT_KERNELS:
+        if launches.get(k, 0) <= 0:
+            raise Failed(f"{k} was not launched in phase 8")
+    wall = time.perf_counter() - t_phase
+    log(f"phase 8 took {wall:.3f} s, device memory peak "
+        f"{torch.cuda.max_memory_allocated()} B, on {card_line()}")
+    return {"b9": b9, "serving": serving, "launches": launches,
+            "wall_s": wall}
+
+
+# --------------------------------------------------------------------- #
 # phase 7, chunked storage
 # --------------------------------------------------------------------- #
 
@@ -2025,28 +2369,31 @@ def same_tile_index(torch, a, b):
 class Counting:
     """While active, wraps ``owner.name`` (a method or a module function):
     counts its calls, through ``composite(args)`` the composite ones
-    among them, and its host seconds (outermost calls only)."""
+    among them (``args`` past the first), and its host seconds, in all
+    and each (outermost calls only)."""
 
     def __init__(self, owner, name, composite=lambda a: False):
         self.owner, self.name, self.composite = owner, name, composite
         self.calls = self.composites = 0
         self.seconds = 0.0
+        self.each = []
         self._depth = 0
 
     def __enter__(self):
         self.orig = getattr(self.owner, self.name)
 
-        def f(first, *a, **kw):
+        def f(*a, **kw):
             self.calls += 1
-            self.composites += bool(self.composite(a))
+            self.composites += bool(self.composite(a[1:]))
             self._depth += 1
             t = time.perf_counter()
             try:
-                return self.orig(first, *a, **kw)
+                return self.orig(*a, **kw)
             finally:
                 self._depth -= 1
                 if not self._depth:
-                    self.seconds += time.perf_counter() - t
+                    self.each.append(time.perf_counter() - t)
+                    self.seconds += self.each[-1]
         setattr(self.owner, self.name, f)
         return self
 
@@ -2444,6 +2791,8 @@ def main(argv=None) -> int:
     ap.add_argument("--chunk-rows", type=int, default=3_333_334,
                     help="rows per chunk of phase 7b (B8's 30 chunks: "
                     "10^8 rows at the default)")
+    ap.add_argument("--pan-steps", type=int, default=24,
+                    help="steps a script of phase 8a (B9's full size: 50)")
     ap.add_argument("--clocks-of", metavar="TREE",
                     help="only build the port under TREE/src and print "
                     "phase 2b's three clocks of rows 1-10 (to time "
@@ -2494,13 +2843,16 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
             serving_launches, stats = phase_serving(torch, build, ds,
                                                     args.ticks)
+            torch.cuda.empty_cache()
+            launches8 = phase_prediction(torch, build, ds,
+                                         args.pan_steps)["launches"]
             t7 = time.perf_counter()
             build.reset_launches()
             phase_chunked_legacy(torch, ds, windows)
             del ds
             torch.cuda.empty_cache()
             phase_chunked(torch, build, args.chunk_rows, t7)
-        log(f"plain kernel versions called in phases 3-5 and 7: "
+        log(f"plain kernel versions called in phases 3-5, 7 and 8: "
             f"{json.dumps(guard.calls)}")
         if guard.calls:
             raise Failed("the card's path called a plain kernel version: "
@@ -2515,6 +2867,7 @@ def main(argv=None) -> int:
         return 1
     for name, row in rows.items():
         row["launches"] = int(launches.get(name, 0))
+        row["launches_phase8"] = int(launches8.get(name, 0))
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,10 +2,11 @@
 
     PYTHONPATH=src python -m repro_torch.benchmarks.run [--smoke] [--device cpu]
 
-Prints ``name,us_per_call,derived`` rows (B3, the kernels bench, for
-now) and writes them to ``experiments/BENCH_torch_{smoke,full}.json``
-(git-ignored; the reference's ``BENCH_*.json`` names are left alone).
-Runs on the card unless ``--device cpu`` is given.
+Prints ``name,us_per_call,derived`` rows — B3 (the kernels bench), then
+B9 (predictive pre-cracking) — and writes them to
+``experiments/BENCH_torch_{smoke,full}.json`` (git-ignored; the
+reference's ``BENCH_*.json`` names are left alone). Runs on the card
+unless ``--device cpu`` is given (B9 then runs under ``"torch"``).
 """
 from __future__ import annotations
 
@@ -30,9 +31,10 @@ def main(argv=None) -> Path:
     from . import common
     if args.smoke:
         common.configure_smoke()
-    from . import kernels_bench
+    from . import kernels_bench, predictive_exploration
     print("name,us_per_call,derived")
     kernels_bench.main(device=args.device)
+    predictive_exploration.main(device=args.device)
     dev = torch.device(args.device)
     out = {
         "smoke": args.smoke,

@@ -147,12 +147,13 @@ class AccuracyPolicy:
         if isinstance(self.salience, str) and self.salience == "learned":
             # "learned" is a marker the front-ends materialize from the
             # session's dwell histogram BEFORE evaluation (see
-            # the viewport predictor); reaching the
-            # accumulator unresolved means the query bypassed them
+            # repro_torch.core.predict.resolve_learned_salience); reaching
+            # the accumulator unresolved means the query bypassed them
             raise ValueError(
                 "salience='learned' must be resolved to a per-bin map "
-                "before evaluation; its resolver (the viewport predictor) "
-                "is not ported yet (ROADMAP.md queue A, item 8)")
+                "before evaluation — route the query through AQPEngine/"
+                "ServingEngine, or call "
+                "repro_torch.core.predict.resolve_learned_salience yourself")
         if isinstance(self.salience, str):  # "center" (validated above)
             cx = (np.arange(bx) + 0.5) / bx - 0.5
             cy = (np.arange(by) + 0.5) / by - 0.5

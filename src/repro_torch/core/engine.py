@@ -17,9 +17,11 @@ constraint φ (φ=0 ⇒ exact), recording a per-query trace (time, objects
 read, tiles processed) and the session's viewport trajectory. Both query
 types refine through one ``RefinementDriver``; :meth:`AQPEngine.serve`
 shares the engine's index with a concurrent multi-session server.
-Predictive prefetch and the learned-salience policy come with a later
-slice of the port (``ROADMAP.md`` queue A, item 8); their entry points
-raise until then.
+The trajectory feeds a :class:`~repro_torch.core.predict.
+ViewportPredictor` on the dataset's device: :meth:`AQPEngine.prefetch`
+pre-cracks the predicted next viewport under a hard row budget, and a
+policy with ``salience="learned"`` is resolved from the session's dwell
+histogram before evaluation.
 """
 from __future__ import annotations
 
@@ -31,7 +33,8 @@ from ..data.rawfile import RawDataset
 from . import query as query_mod
 from .bounds import AccuracyPolicy, HeatmapResult, QueryResult
 from .index import ChunkIndexSet, IndexConfig, TileIndex
-from .predict import TrajectoryStep
+from .predict import (TrajectoryStep, ViewportPredictor, prefetch_crack,
+                      resolve_learned_salience)
 
 
 @dataclasses.dataclass
@@ -39,7 +42,7 @@ class EngineTrace:
     """Per-query instrumentation (scalar and heatmap results alike) plus
     the session's viewport trajectory (one
     :class:`~repro_torch.core.predict.TrajectoryStep` per query) and its
-    prefetch reports (none until prefetch is ported)."""
+    prefetch reports."""
 
     results: List[Union[QueryResult, HeatmapResult]] = dataclasses.field(
         default_factory=list)
@@ -95,6 +98,24 @@ class AQPEngine:
             self.index = TileIndex(dataset, config)
         self.alpha = alpha
         self.trace = EngineTrace()
+        # session trajectory → next-viewport prediction (prefetch()) and
+        # learned salience (policy salience="learned"); the model trains
+        # where the data lives (the host for host-mode datasets)
+        self.predictor = ViewportPredictor(device=dataset.device or "cpu")
+        self._last_attr: Optional[str] = None
+        self._last_bins: Tuple[int, int] = (8, 8)
+
+    def _observe(self, window, bins, attr: str, dwell_s: float) -> None:
+        """Record one served viewport on the trajectory (trace + the
+        predictor's online model/hit-rate update)."""
+        self.trace.trajectory.append(TrajectoryStep(
+            tuple(float(v) for v in window),
+            None if bins is None else (int(bins[0]), int(bins[1])),
+            float(dwell_s)))
+        self.predictor.observe(window, bins=bins, dwell_s=dwell_s)
+        self._last_attr = attr
+        if bins is not None:
+            self._last_bins = (int(bins[0]), int(bins[1]))
 
     def query(self, window: Tuple[float, float, float, float], agg: str,
               attr: str, phi: float = 0.0,
@@ -108,15 +129,14 @@ class AQPEngine:
         batch_k: tiles refined per batched round (one gathered read + one
           packed kernel pass per round); defaults to ``IndexConfig.batch_k``.
         sequential: the per-tile reference refinement path.
-        dwell_s: how long the user dwelled on this viewport (recorded on
-          the trajectory).
+        dwell_s: how long the user dwelled on this viewport — weights the
+          learned-salience histogram (default 1 ⇒ uniform dwell).
         """
         r = query_mod.evaluate(self.index, window, agg, attr, phi=phi,
                                alpha=self.alpha if alpha is None else alpha,
                                batch_k=batch_k, sequential=sequential)
         self.trace.results.append(r)
-        self.trace.trajectory.append(TrajectoryStep(
-            tuple(float(v) for v in window), None, float(dwell_s)))
+        self._observe(window, None, attr, dwell_s)
         return r
 
     def heatmap(self, window: Tuple[float, float, float, float], agg: str,
@@ -134,30 +154,52 @@ class AQPEngine:
           EVERY occupied bin's relative bound is ≤ φ (0 ⇒ exact).
         policy: optional :class:`~repro_torch.core.bounds.AccuracyPolicy`
           allocating the constraint per bin (φ_b from user weights ×
-          salience, plus an absolute-error floor ε_abs). A policy with
-          ``salience="learned"`` raises: its resolver, the viewport
-          predictor, is not ported yet.
+          salience, plus an absolute-error floor ε_abs).
+          ``salience="learned"`` is resolved here into the session's
+          dwell histogram over PAST viewports (see
+          :mod:`repro_torch.core.predict`).
         batch_k / sequential / dwell_s: as in :meth:`query`.
         """
-        if (policy is not None and isinstance(policy.salience, str)
-                and policy.salience == "learned"):
-            raise NotImplementedError(
-                "salience='learned' needs the viewport predictor, which is "
-                "not ported yet (ROADMAP.md queue A, item 8)")
+        policy = resolve_learned_salience(policy, self.predictor, window,
+                                          bins)
         r = query_mod.evaluate_heatmap(
             self.index, window, agg, attr, bins=bins, phi=phi,
             alpha=self.alpha if alpha is None else alpha, policy=policy,
             batch_k=batch_k, sequential=sequential)
         self.trace.results.append(r)
-        self.trace.trajectory.append(TrajectoryStep(
-            tuple(float(v) for v in window), (int(bins[0]), int(bins[1])),
-            float(dwell_s)))
+        self._observe(window, bins, attr, dwell_s)
         return r
 
-    def prefetch(self, *args, **kwargs):
-        raise NotImplementedError(
-            "predictive prefetch is not ported yet (ROADMAP.md queue A, "
-            "item 8)")
+    def prefetch(self, budget_rows: int, attr: Optional[str] = None,
+                 bins: Optional[Tuple[int, int]] = None,
+                 alpha: Optional[float] = None) -> dict:
+        """Crack the PREDICTED next viewport under a hard row budget.
+
+        Uses the session trajectory's next-viewport prediction (linear
+        extrapolation vs online model, by rolling hit-rate) and
+        pre-cracks it through the heatmap refinement machinery — at most
+        ``budget_rows`` rows are read, the per-part session bin-grid
+        memory is warmed for the predicted viewport, and answers of any
+        later query are unchanged (splits/enrichments are
+        answer-neutral; zero speculative rows). ``attr``/``bins``
+        default to the last queried ones. Returns a report dict (also
+        appended to ``trace.prefetches``); ``predicted=None`` means the
+        trajectory is too short to extrapolate and nothing was read.
+        """
+        attr = self._last_attr if attr is None else attr
+        bins = self._last_bins if bins is None else bins
+        pred = self.predictor.predict()
+        if pred is None or attr is None:
+            rec = {"predicted": None, "source": None, "rows_read": 0,
+                   "read_calls": 0, "tiles_cracked": 0}
+        else:
+            rec = prefetch_crack(
+                self.index, pred, attr, bins, budget_rows,
+                alpha=self.alpha if alpha is None else alpha)
+            rec["predicted"] = rec.pop("window")
+            rec["source"] = self.predictor.source
+        self.trace.prefetches.append(rec)
+        return rec
 
     def serve(self, *, mode: str = "batched",
               crack_budget: Optional[int] = None,
@@ -177,8 +219,10 @@ class AQPEngine:
         crack_budget: max queries per tick allowed to stage index
           mutations, granted round-robin across sessions (None ⇒
           unlimited).
-        prefetch_rows: predictive pre-cracking; anything but ``None``
-          raises until the viewport predictor is ported.
+        prefetch_rows: per-session row budget for predictive
+          pre-cracking between ticks (None ⇒ off) — leftover
+          crack-budget slots are spent cracking each session's PREDICTED
+          next viewport, staged through the same epoch publication.
         """
         from .serving import ServingEngine
         return ServingEngine(self, mode=mode, crack_budget=crack_budget,

@@ -2,9 +2,8 @@
 shared adaptive index.
 
 Port of :mod:`repro.core.serving`, over one ``TileIndex`` or a chunk
-forest (``ChunkIndexSet``); predictive pre-cracking comes with ROADMAP.md
-queue A, item 8. Exploration front ends multiplex many sessions — users
-panning their own viewports — over one dataset.
+forest (``ChunkIndexSet``). Exploration front ends multiplex many
+sessions — users panning their own viewports — over one dataset.
 :class:`ServingEngine` serves them in ticks:
 
 - **Sessions** (:meth:`ServingEngine.open_session`) submit queries as
@@ -35,6 +34,10 @@ panning their own viewports — over one dataset.
   already meets φ answers with zero reads and stages nothing; past
   ``crack_budget`` queries a tick (granted round-robin across sessions)
   a query reads and folds until φ is met but stages no mutation.
+- **Predictive pre-cracking** (``prefetch_rows``): leftover crack-budget
+  slots are spent between ticks cracking each session's predicted next
+  viewport (:func:`~repro_torch.core.predict.prefetch_crack`), staged
+  with owners past every ticket, so both tick modes publish alike.
 
 Under ``"torch"``/``"cuda"`` a round's gathered segments stay on the
 device: each family pass moves only its ``(S, 4)`` or ``(S, nb, 4)``
@@ -60,7 +63,8 @@ from .bounds import AccuracyPolicy, HeatmapResult, QueryResult
 from .engine import AQPEngine, EngineTrace
 from .index import (ChunkIndexSet, EpochStage, _adjacent, _chunk_overlaps,
                     _host, _host_pair, composite_payload)
-from .predict import TrajectoryStep
+from .predict import (TrajectoryStep, ViewportPredictor, prefetch_crack,
+                      resolve_learned_salience)
 from .refine import (HeatmapQueryAdapter, ScalarQueryAdapter, met,
                      round_residual)
 
@@ -83,11 +87,6 @@ class NullStage:
 
 
 _NULL_STAGE = NullStage()
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md "
-                               f"queue A, item {item})")
 
 
 @dataclasses.dataclass
@@ -114,9 +113,10 @@ class Ticket:
 
 class Session:
     """A client handle on the shared engine: submits tickets and owns a
-    private :class:`EngineTrace` (its trajectory recorded at submit
-    time — deterministic and mode-independent). Closing drops its
-    queued tickets."""
+    private :class:`EngineTrace` and :class:`~repro_torch.core.predict.
+    ViewportPredictor` (its trajectory recorded at submit time —
+    deterministic and mode-independent). Closing drops its queued
+    tickets."""
 
     def __init__(self, engine: "ServingEngine", sid: int,
                  name: Optional[str] = None):
@@ -124,6 +124,10 @@ class Session:
         self.sid = sid
         self.name = name or f"session-{sid}"
         self.trace = EngineTrace()
+        self.predictor = ViewportPredictor(
+            device=engine.engine.dataset.device or "cpu")
+        self._last_attr: Optional[str] = None
+        self._last_bins: Tuple[int, int] = (8, 8)
         self.closed = False
 
     def query(self, window, agg: str, attr: str, phi: float = 0.0,
@@ -141,14 +145,8 @@ class Session:
                 policy: Optional[AccuracyPolicy] = None,
                 batch_k: Optional[int] = None,
                 dwell_s: float = 1.0) -> Ticket:
-        """A heatmap ticket. A policy with ``salience="learned"`` raises:
-        its resolver, the viewport predictor, is not ported yet."""
         assert np.isfinite(np.asarray(window, np.float64)).all(), \
             "heatmap windows must be finite rectangles"
-        if (policy is not None and isinstance(policy.salience, str)
-                and policy.salience == "learned"):
-            raise _not_ported("salience='learned' (the viewport predictor)",
-                              8)
         return self.engine._submit(Ticket(
             session=self, kind="heatmap", window=tuple(window), agg=agg,
             attr=attr, phi=float(phi), alpha=float(alpha),
@@ -324,15 +322,15 @@ class ServingEngine:
     ``"batched"`` (micro-batched reads/kernels) or ``"sequential"``
     (the per-query reference). ``crack_budget`` caps how many queries
     per tick may stage index mutation (granted round-robin across
-    sessions; ``None`` ⇒ unlimited). ``prefetch_rows`` (predictive
-    pre-cracking) must stay ``None`` until the predictor is ported."""
+    sessions; ``None`` ⇒ unlimited) — the skip-under-contention knob.
+    ``prefetch_rows`` (``None`` ⇒ off) is the per-session row budget
+    for predictive pre-cracking: leftover crack-budget slots are spent
+    between ticks cracking each session's predicted next viewport."""
 
     def __init__(self, engine, config=None, alpha: float = 1.0, *,
                  mode: str = "batched",
                  crack_budget: Optional[int] = None,
                  prefetch_rows: Optional[int] = None):
-        if prefetch_rows is not None:
-            raise _not_ported("predictive pre-cracking (prefetch_rows)", 8)
         if not isinstance(engine, AQPEngine):
             engine = AQPEngine(engine, config, alpha=alpha)
         self.engine = engine
@@ -341,10 +339,12 @@ class ServingEngine:
             raise ValueError(f"unknown serving mode {mode!r}")
         self.mode = mode
         self.crack_budget = crack_budget
+        self.prefetch_rows = prefetch_rows
         self.epoch = 0
         self.last_publish: Dict[str, int] = {"rounds_published": 0,
                                              "splits_masked": 0}
         self.last_grants: List[bool] = []
+        self.last_prefetch: List[dict] = []
         self._sessions: Dict[int, Session] = {}
         self._next_sid = 0
         self._queue: List[Ticket] = []
@@ -363,8 +363,21 @@ class ServingEngine:
     def _submit(self, ticket: Ticket) -> Ticket:
         if ticket.session.closed:
             raise RuntimeError(f"{ticket.session.name} is closed")
-        ticket.session.trace.trajectory.append(TrajectoryStep(
+        s = ticket.session
+        # learned salience is materialized from the trajectory BEFORE
+        # this viewport is observed (salience = where PAST queries
+        # dwelled), at submit time so both tick modes — and any tick
+        # batching — see the identical resolved policy
+        if ticket.kind == "heatmap":
+            ticket.policy = resolve_learned_salience(
+                ticket.policy, s.predictor, ticket.window, ticket.bins)
+        s.trace.trajectory.append(TrajectoryStep(
             ticket.window, ticket.bins, ticket.dwell_s))
+        s.predictor.observe(ticket.window, bins=ticket.bins,
+                            dwell_s=ticket.dwell_s)
+        s._last_attr = ticket.attr
+        if ticket.bins is not None:
+            s._last_bins = ticket.bins
         self._queue.append(ticket)
         return ticket
 
@@ -429,11 +442,54 @@ class ServingEngine:
             self._tick_batched(tickets, stage, grants, t0)
         else:
             raise ValueError(f"unknown serving mode {mode!r}")
+        self.last_prefetch = self._prefetch_predicted(tickets, stage,
+                                                      grants)
         self.last_publish = stage.publish()
         self.epoch += 1
         for tk in tickets:
             tk.session.trace.results.append(tk.result)
         return [tk.result for tk in tickets]
+
+    def _prefetch_predicted(self, tickets, stage, grants) -> List[dict]:
+        """Spend leftover crack-budget slots cracking each active
+        session's PREDICTED next viewport (per-session ``prefetch_rows``
+        row budget), staged with owners ordered past every query so
+        publication order — hence the published evolution — is
+        mode-independent and served answers stay untouched. Every input
+        (tickets, predictor states) is identical across modes, so this
+        runs identically in both."""
+        if self.prefetch_rows is None:
+            return []
+        leftover = (None if self.crack_budget is None
+                    else int(self.crack_budget) - sum(grants))
+        sessions, seen = [], set()
+        for tk in tickets:
+            if tk.session.sid not in seen:
+                seen.add(tk.session.sid)
+                sessions.append(tk.session)
+        out: List[dict] = []
+        owner = len(tickets)
+        for s in sessions:
+            if leftover is not None and leftover <= 0:
+                break
+            if s._last_attr is None:
+                continue
+            pred = s.predictor.predict()
+            if pred is None:
+                continue
+            rec = prefetch_crack(
+                self.index, pred, s._last_attr, s._last_bins,
+                self.prefetch_rows, alpha=self.engine.alpha,
+                stage=stage, owner=owner)
+            owner += 1
+            rec["predicted"] = rec.pop("window")
+            rec["source"] = s.predictor.source
+            rec["session"] = s.name
+            s.trace.prefetches.append(rec)
+            out.append(rec)
+            if leftover is not None:
+                leftover -= 1
+        return out
 
     def _tick_sequential(self, tickets, stage, grants) -> None:
         """Reference execution: one private driver per ticket, arrival

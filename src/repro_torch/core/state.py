@@ -9,11 +9,14 @@ including the session bin-grid memory: the LRU of heatmap registries, in
 order, each mapping a tile id to its per-bin ``(cnt_b, sum_b, min_b,
 max_b)``. :func:`forest_to_numpy` and :func:`forest_from_numpy` do the
 same for a chunk forest (``ChunkIndexSet``), chunk by chunk, keyed by
-chunk id.
+chunk id. :func:`predictor_to_numpy` and :func:`predictor_from_numpy`
+carry a session's viewport predictor (its MLP weights, trajectory and
+rolling hit-rates), so a session started in the reference can go on in
+the port.
 """
 from __future__ import annotations
 
-from collections import OrderedDict
+from collections import OrderedDict, deque
 from typing import Dict, Optional
 
 import numpy as np
@@ -22,6 +25,7 @@ import torch
 from ..data.chunked import ChunkedDataset
 from ..data.rawfile import RawDataset
 from .index import ChunkIndexSet, IndexConfig, TileIndex
+from .predict import PARAMS, TrajectoryStep, ViewportPredictor, _params_on
 
 TABLE = ("bbox", "offset", "count", "active", "level", "parent")
 OBJECTS = ("perm", "x_s", "y_s")
@@ -108,3 +112,43 @@ def forest_from_numpy(dataset: ChunkedDataset,
         ti.adapt_stats = forest.adapt_stats
         forest._indexes[int(cid)] = ti
     return forest
+
+
+HYPER = ("history", "hit_iou", "lr", "train_steps")
+
+
+def predictor_to_numpy(p) -> Dict[str, object]:
+    """The state :func:`predictor_from_numpy` reads off either package's
+    ``ViewportPredictor``: the hyper-parameters, the MLP's ``w1, b1, w2,
+    b2`` as float32 numpy arrays, the trajectory as ``(window, bins,
+    dwell_s)`` tuples, both hit deques with their ``maxlen``, ``source``
+    and ``n_trained``."""
+    out = {k: getattr(p, k) for k in HYPER}
+    out["params"] = {k: np.array(
+        v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v,
+        np.float32) for k, v in p._params.items()}
+    out["trajectory"] = [(tuple(s.window), s.bins, s.dwell_s)
+                         for s in p.trajectory]
+    out["hits"] = {k: (list(h), h.maxlen) for k, h in p._hits.items()}
+    out["source"] = p.source
+    out["n_trained"] = int(p.n_trained)
+    return out
+
+
+def predictor_from_numpy(d: Dict[str, object],
+                         device="cuda") -> ViewportPredictor:
+    """A port ``ViewportPredictor`` holding ``d`` (see
+    :func:`predictor_to_numpy`), its MLP on ``device``."""
+    roll = d["hits"]["linear"][1]
+    p = ViewportPredictor(**{k: d[k] for k in HYPER}, roll=roll,
+                          device=device)
+    if set(d["params"]) != set(PARAMS):
+        raise ValueError(f"params {sorted(d['params'])}, want {PARAMS}")
+    p._params = _params_on(d["params"], p.device)
+    p.trajectory = [TrajectoryStep(tuple(w), None if b is None
+                                   else (int(b[0]), int(b[1])), float(t))
+                    for w, b, t in d["trajectory"]]
+    p._hits = {k: deque(h, maxlen=m) for k, (h, m) in d["hits"].items()}
+    p.source = d["source"]
+    p.n_trained = int(d["n_trained"])
+    return p

@@ -7,9 +7,10 @@ Run on a machine with an NVIDIA Hopper GPU and ``nvcc``:
 The kernels build at first use. Each kernel is held against its plain
 PyTorch version on the same CUDA tensors (counts and extrema equal,
 float64 sums within 1e-12 · Σ|v|, the select op's suffix widths equal
-bit for bit), and the main path, the heatmap path, the serving tick and
-the chunked path (a forest and a tick over chunks) on the ``"cuda"``
-backend against the same paths on ``"torch"``.
+bit for bit), and the main path, the heatmap path, the serving tick,
+the chunked path (a forest and a tick over chunks) and prediction
+(prefetch, learned salience, a tick with ``prefetch_rows``) on the
+``"cuda"`` backend against the same paths on ``"torch"``.
 """
 import numpy as np
 import pytest
@@ -233,6 +234,89 @@ def test_serving_tick_cuda_matches_torch(card):
                                        rtol=1e-12)
     assert torch.equal(out["cuda"][1].perm, out["torch"][1].perm)
     out["cuda"][1].check_invariants("a0")
+    for k in ("segment_window_agg_multi", "segment_window_bin_select_multi"):
+        assert build.LAUNCHES[k] > before.get(k, 0), k
+
+
+def _pan(n, start=(150.0, 200.0), step=(35.0, 25.0), size=300.0):
+    return [(start[0] + step[0] * i, start[1] + step[1] * i,
+             start[0] + step[0] * i + size, start[1] + step[1] * i + size)
+            for i in range(n)]
+
+
+def test_prefetch_and_learned_salience_cuda_match_torch(card):
+    """Prefetching along a pan and learned-salience heatmaps, "cuda"
+    against "torch" on one dataset: equal prefetch reports, reads, splits
+    and permutation, values to float64 order; each predictor's weights
+    on the card."""
+    from repro_torch.core import AccuracyPolicy
+    ds = make_synthetic_dataset(n=200_000, seed=4, device=card)
+    pol = AccuracyPolicy(salience="learned", eps_abs=0.5)
+    out = {}
+    for backend in ("torch", "cuda"):
+        eng = AQPEngine(ds, IndexConfig(grid0=(8, 8), min_split_count=512,
+                                        init_metadata_attrs=("a0",),
+                                        backend=backend))
+        assert all(t.device.type == card.type
+                   for t in eng.predictor._params.values())
+        res, recs = [], []
+        for i, w in enumerate(_pan(8)):
+            res.append(eng.heatmap(w, "mean", "a0", bins=(4, 4), phi=0.05,
+                                   policy=pol if i % 2 else None,
+                                   dwell_s=1.0 + i % 3))
+            spec = eng.adapt_stats.speculative_rows
+            recs.append(eng.prefetch(20_000))
+            assert recs[-1]["rows_read"] <= 20_000
+            assert eng.adapt_stats.speculative_rows == spec
+        out[backend] = (res, recs, eng)
+    (rt, pt, et), (rc, pc, ec) = out["torch"], out["cuda"]
+    assert pt == pc and any(p["rows_read"] > 0 for p in pc)
+    for a, c in zip(rt, rc):
+        assert (a.objects_read, a.tiles_processed, a.exact) == \
+            (c.objects_read, c.tiles_processed, c.exact)
+        np.testing.assert_array_equal(c.phi_b, a.phi_b)
+        np.testing.assert_allclose(c.values, a.values, rtol=1e-12)
+    assert torch.equal(ec.index.perm, et.index.perm)
+    ec.index.check_invariants("a0")
+    assert ec.predictor.source == et.predictor.source == "linear"
+
+
+def test_serving_prefetch_batched_equals_sequential_on_the_card(card):
+    """A tick with ``prefetch_rows`` and leftover crack-budget slots on
+    the card, batched against sequential: equal answers (values to
+    float64 order), prefetch reports, publication and permutation."""
+    from repro_torch.core import ServingEngine
+    ds = make_synthetic_dataset(n=200_000, seed=6, device=card)
+    out = {}
+    before = dict(build.LAUNCHES)
+    for mode in ("batched", "sequential"):
+        sv = ServingEngine(AQPEngine(ds, IndexConfig(
+            grid0=(8, 8), min_split_count=512, init_metadata_attrs=("a0",))),
+            mode=mode, crack_budget=3, prefetch_rows=20_000)
+        sessions = [sv.open_session(f"s{i}") for i in range(2)]
+        res = []
+        for tick in range(3):
+            for i, s in enumerate(sessions):
+                w = _pan(3, start=(100.0 + 400 * i, 150.0))[tick]
+                if (tick + i) % 2:
+                    s.heatmap(w, "mean", "a0", bins=(4, 4), phi=0.05)
+                else:
+                    s.query(w, "mean", "a0", phi=0.05)
+            res.append((sv.tick(), dict(sv.last_publish),
+                        [dict(p) for p in sv.last_prefetch]))
+        out[mode] = (res, sv.index)
+    for (ra, pa, fa), (rb, pb, fb) in zip(out["batched"][0],
+                                          out["sequential"][0]):
+        assert pa == pb and fa == fb
+        for a, b in zip(ra, rb):
+            assert (a.tiles_processed, a.exact, a.speculative_rows) == \
+                (b.tiles_processed, b.exact, b.speculative_rows)
+            f = "values" if hasattr(a, "values") else "value"
+            np.testing.assert_allclose(np.atleast_1d(getattr(a, f)),
+                                       np.atleast_1d(getattr(b, f)),
+                                       rtol=1e-12)
+    assert any(p["rows_read"] > 0 for _, _, f in out["batched"][0] for p in f)
+    assert torch.equal(out["batched"][1].perm, out["sequential"][1].perm)
     for k in ("segment_window_agg_multi", "segment_window_bin_select_multi"):
         assert build.LAUNCHES[k] > before.get(k, 0), k
 

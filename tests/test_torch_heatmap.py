@@ -259,12 +259,28 @@ def test_oracle_on_device_path_matches_reference(agg):
         np.testing.assert_allclose(got[fin], want[fin], rtol=VALUE_RTOL)
 
 
-def test_learned_salience_names_its_roadmap_item():
-    _, e_port = engines(5, "np", n=5_000)
-    w = e_port.dataset.domain()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        e_port.heatmap(w, "sum", "a0", bins=BINS, phi=0.05,
-                       policy=AccuracyPolicy(salience="learned"))
+@pytest.mark.parametrize("backend", ["np", "torch"])
+def test_learned_salience_matches_reference(backend):
+    """Heatmaps under ``salience="learned"`` (resolved from the session's
+    dwell histogram before each evaluation): "np" every field bit for
+    bit, "torch" counts, reads and φ_b equal, values to
+    ``VALUE_RTOL``."""
+    e_ref, e_port = engines(5, backend, n=5_000)
+    wins = ref_path(e_ref.dataset, n_queries=5, target_objects=1500, seed=3)
+    for i, w in enumerate(wins):
+        kw = dict(bins=BINS, phi=0.05, dwell_s=1.0 + i % 2)
+        ra = e_ref.heatmap(w, "sum", "a0",
+                           policy=RefPolicy(salience="learned"), **kw)
+        rb = e_port.heatmap(w, "sum", "a0",
+                            policy=AccuracyPolicy(salience="learned"), **kw)
+        a, b = fields(ra), fields(rb)
+        np.testing.assert_array_equal(b.pop("phi_b"), a.pop("phi_b"))
+        if backend == "np":
+            assert_fields_equal(a, b)
+            continue
+        for k in ("values", "lo", "hi", "bin_bound", "bound"):
+            np.testing.assert_allclose(b.pop(k), a.pop(k), rtol=VALUE_RTOL)
+        assert_fields_equal(a, b)
 
 
 @pytest.mark.parametrize("backend", ["np", "torch"])

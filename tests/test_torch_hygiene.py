@@ -58,20 +58,52 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
     assert AQPEngine(ds, IndexConfig(backend="torch")).index.n_tiles == 256
 
 
-def test_unported_entry_points_name_their_roadmap_item():
-    eng = AQPEngine(make_synthetic_dataset(n=1000, device="cpu"),
-                    IndexConfig(backend="np"))
-    learned = AccuracyPolicy(salience="learned")
-    session = eng.serve().open_session()
-    for call, item in (
-            (lambda: eng.heatmap((0, 0, 1, 1), "sum", "a0", phi=0.05,
-                                 policy=learned), "item 8"),
-            (eng.prefetch, "item 8"),
-            (lambda: eng.serve(prefetch_rows=1000), "item 8"),
-            (lambda: session.heatmap((0, 0, 1, 1), "sum", "a0", phi=0.05,
-                                     policy=learned), "item 8")):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+@pytest.mark.parametrize("device,backend", [(None, "np"), ("cpu", "torch")])
+def test_prediction_entry_points_match_reference(device, backend,
+                                                 monkeypatch):
+    """The prediction entry points — a learned-salience heatmap,
+    ``prefetch``, ``serve(prefetch_rows=)`` and a learned-salience
+    ticket — answer as the reference's do, with each session's model on
+    its dataset's device (the host for host data); a predictor asked for
+    nothing else wants the card and raises without one."""
+    from repro.core import (AccuracyPolicy as RefPolicy,
+                            AQPEngine as RefEngine, IndexConfig as RefConfig)
+    from repro.data import make_synthetic_dataset as ref_dataset
+    from repro_torch.core import ViewportPredictor
+
+    got = []
+    for eng, pol in (
+            (RefEngine(ref_dataset(n=5000, seed=2),
+                       RefConfig(init_metadata_attrs=("a0",))),
+             RefPolicy(salience="learned", eps_abs=0.5)),
+            (AQPEngine(make_synthetic_dataset(n=5000, seed=2, device=device),
+                       IndexConfig(init_metadata_attrs=("a0",),
+                                   backend=backend)),
+             AccuracyPolicy(salience="learned", eps_abs=0.5))):
+        out = []
+        for i in range(3):
+            w = (100.0 + 50 * i, 200.0, 500.0 + 50 * i, 600.0)
+            r = eng.heatmap(w, "count", "a0", bins=(2, 2), phi=0.05,
+                            policy=pol)
+            out.append((r.objects_read, r.values.tolist(), r.phi_b.tolist(),
+                        eng.prefetch(1000)))
+        server = eng.serve(prefetch_rows=1000)
+        session = server.open_session("s")
+        for i in range(3):
+            session.heatmap((300.0 + 40 * i, 300.0, 700.0 + 40 * i, 700.0),
+                            "count", "a0", bins=(2, 2), phi=0.05, policy=pol)
+            r = server.tick()[0]
+            out.append((r.objects_read, r.values.tolist(), r.phi_b.tolist(),
+                        server.last_prefetch))
+        got.append(out)
+        if not isinstance(eng, RefEngine):
+            for p in (eng.predictor, session.predictor):
+                assert all(t.device.type == "cpu"
+                           for t in p._params.values())
+    assert got[0] == got[1]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises((RuntimeError, AssertionError)):
+        ViewportPredictor()
 
 
 def test_kernel_modules_import_without_nvcc_or_gpu(tmp_path):

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import AccuracyPolicy as RefPolicy
 from repro.core import (AQPEngine as RefEngine, IndexConfig as RefConfig,
                         ServingEngine as RefServing)
 from repro.core.index import EpochStage as RefStage
@@ -734,16 +735,36 @@ def test_null_stage_discards():
     assert ns.publish() == {"rounds_published": 0, "splits_masked": 0}
 
 
-def test_unported_serving_options_name_their_roadmap_item():
-    eng = port_engine(columns(n=2000), "np")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        eng.serve(prefetch_rows=1000)
-    s = eng.serve().open_session()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        s.heatmap((0, 0, 1, 1), "sum", "a0", phi=0.05,
-                  policy=AccuracyPolicy(salience="learned"))
+def test_serving_prediction_options_match_reference():
+    """``prefetch_rows`` and learned-salience tickets on the two-session
+    script, port "np" against the reference: every tick's answers,
+    publication, grants, deltas and prefetch reports bit for bit, and
+    the same index; an unknown mode still raises."""
+    cols = columns()
+    learned = {"phi": PHI, "bins": (4, 4), "policy": None}
+    ticks = [[(sid, kind, w, agg, ({**learned} if kind == "heatmap"
+                                   else kw))
+              for sid, kind, w, agg, kw in subs]
+             for subs in two_session_script()]
+    got = []
+    for sv, pol in ((ref_server(cols, crack_budget=4, prefetch_rows=2000),
+                     RefPolicy(salience="learned", eps_abs=0.5)),
+                    (port_server(cols, "np", crack_budget=4,
+                                 prefetch_rows=2000),
+                     AccuracyPolicy(salience="learned", eps_abs=0.5))):
+        for subs in ticks:
+            for sub in subs:
+                if sub[1] == "heatmap":
+                    sub[4]["policy"] = pol
+        p, _ = play(sv, 2, ticks)
+        got.append((p, [s.trace.prefetches for s in sv._sessions.values()],
+                    fingerprint(sv.index)))
+    (pa, fa, ia), (pb, fb, ib) = got
+    assert_plays_equal(pa, pb)
+    assert fa == fb and any(r["rows_read"] > 0 for f in fb for r in f)
+    assert_fingerprints_equal(ia, ib)
     with pytest.raises(ValueError):
-        eng.serve(mode="parallel")
+        port_engine(columns(n=2000), "np").serve(mode="parallel")
 
 
 def test_torch_tick_copies_one_table_per_pass(monkeypatch):
