@@ -106,7 +106,7 @@ plain version and timed beside its byte bound.
    not a copy) against a fresh legacy engine, both "cuda", on the first
    10 windows as ``mean(a0)`` queries and 8x8 heatmaps at phi = 0.05:
    equal reads, read calls, rounds, tiles, tile table and permutation;
-   float64 values within 1e-12. Phase 3's dataset is then freed.
+   float64 values within 1e-12.
    7b: B8's streaming session (``benchmarks/streaming_exploration.py``)
    at ``--chunk-rows`` rows a chunk: 30 x-slab chunks of (x, y, a0, a1)
    resident on the card, 3 live (the oldest retired), 2 windows over the
@@ -153,12 +153,34 @@ plain version and timed beside its byte bound.
    batched against sequential: the same answers, prefetch records,
    publication and index; some prefetch reads rows.
 
-Phases 3 to 5, 7 and 8 run with every plain ``*_torch`` kernel version
+9. The paper's benches on the card (run after phase 7, on phase 3's
+   dataset, which is freed after it; launch counts reset before it: rows
+   1 and its +-inf entry, 2, 3, 4, 6, 7, 8 and 10 must all launch). The
+   port's B1 ``fig2_exploration``, B2 ``objects_read``, B4
+   ``accuracy_sweep``, B5 ``adaptation_cost``, B6
+   ``heatmap_exploration``, B7 ``serving_concurrency`` and B8
+   ``streaming_exploration`` (``repro_torch/benchmarks``) run through
+   their modules at the benches' own shapes (query counts, bins, phi
+   sets, sessions, ticks, chunk counts), their rows printed:
+   ``common.configure(n)`` scales the window to 500 000 objects at 10^8
+   rows (the reference's 3x crude-tile-to-query ratio on the 8x8 grid),
+   ``common.use_dataset`` hands phase 3's dataset over (for every seed a
+   bench asks for: B7's parity runs on it rather than on a second
+   dataset), B6's skewed set is 2.5e7 rows on the card, B8 streams
+   phase 7b's chunks at ``--chunk-rows``. The benches assert their
+   gates: B1, B2 and B5 answers equal (phi = 0, 1e-9) or contain
+   (phi > 0) the float64 oracle; B4 no violation; B6 no speculative row,
+   every bin met under the floored and salience policies, a sequential
+   replay equal to the batched path; B7 containment and batched equal to
+   sequential; B8 containment, no pruned-chunk read, one chunk equal to
+   the legacy engine.
+
+Phases 3 to 5 and 7 to 9 run with every plain ``*_torch`` kernel version
 wrapped in a counter: the card's path must call none of them.
 
 The line before the last is a JSON object describing each kernel (with
-its launches in phase 8 as ``launches_phase8``); the last line is
-``{"ok": true, "device": {...}}``.
+its launches in phases 8 and 9 as ``launches_phase8`` and
+``launches_phase9``); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1999,10 +2021,11 @@ def b9_arm(torch, ds, wins, predictive, tag):
     gates; returns its numbers and, for the predicted arm, the
     predictor's hit-rates and sources."""
     from repro_torch.benchmarks import predictive_exploration as b9
+    from repro_torch.benchmarks.common import bench_config
     from repro_torch.core import AQPEngine
     from repro_torch.core.predict import prefetch_crack
 
-    eng = AQPEngine(ds, b9.b9_config("cuda"))
+    eng = AQPEngine(ds, bench_config("cuda"))
     reads, evals, pre_s, spent, sources = [], [], [], 0, []
     with Counting(eng.predictor, "observe") as obs, \
             Counting(eng.predictor, "predict") as pred:
@@ -2112,10 +2135,11 @@ def phase_neutrality(torch, ds, n_windows=8):
     1e-12 relative (float64 sums in another atomic order), both within
     1e-9 of the oracle."""
     from repro_torch.benchmarks import predictive_exploration as b9
+    from repro_torch.benchmarks.common import bench_config
     from repro_torch.core import AQPEngine
 
-    eng_p = AQPEngine(ds, b9.b9_config("cuda"))
-    eng_r = AQPEngine(ds, b9.b9_config("cuda"))
+    eng_p = AQPEngine(ds, bench_config("cuda"))
+    eng_r = AQPEngine(ds, bench_config("cuda"))
     prefetched = 0
     for q, w in enumerate(b9._linear_pan(n_windows)):
         prefetched += eng_p.prefetch(B9_BUDGET)["rows_read"]
@@ -2165,10 +2189,11 @@ def dwell_salience(steps, window, bins, floor):
 def phase_learned_salience(torch, ds, n_windows=8):
     """8c: heatmaps under ``salience="learned"`` on one engine."""
     from repro_torch.benchmarks import predictive_exploration as b9
+    from repro_torch.benchmarks.common import bench_config
     from repro_torch.core import AccuracyPolicy, AQPEngine
     from repro_torch.core.predict import resolve_learned_salience
 
-    eng = AQPEngine(ds, b9.b9_config("cuda"))
+    eng = AQPEngine(ds, bench_config("cuda"))
     pol = AccuracyPolicy(salience="learned", eps_abs=POLICY_EPS_ABS)
     steps = []
     for q, w in enumerate(b9._linear_pan(n_windows)):
@@ -2726,11 +2751,11 @@ def phase_chunked_serving(torch, live, n_ticks=3, n_sessions=4):
 def phase_chunked(torch, build, chunk_rows, t_phase):
     """Phase 7 after 7a: B8's chunks at ``chunk_rows`` rows each, 7b and
     7c; the launches of the whole phase (counted since 7a)."""
-    from repro_torch.data import make_streaming_chunks
+    from repro_torch.benchmarks import streaming_exploration
 
     t0 = time.perf_counter()
-    src = make_streaming_chunks(n_chunks=N_CHUNKS, rows_per_chunk=chunk_rows,
-                                n_columns=2, domain=DOMAIN, seed=31)
+    # B8's own chunks, kept by its module for phase 9's run of it
+    src = streaming_exploration.chunks(chunk_rows)
     log(f"7b data: {N_CHUNKS} chunks x {chunk_rows} rows x (x, y, a0, a1) "
         f"made on the host in {time.perf_counter() - t0:.3f} s")
     stream, live = phase_streaming(torch, src)
@@ -2745,6 +2770,88 @@ def phase_chunked(torch, build, chunk_rows, t_phase):
     log(f"phase 7 took {wall:.3f} s on {card_line()}")
     return {"streaming": stream, "serving": serving, "launches": launches,
             "wall_s": wall}
+
+
+# --------------------------------------------------------------------- #
+# phase 9, the paper's benches
+# --------------------------------------------------------------------- #
+
+# B1, B2 and B4-B8 (repro_torch/benchmarks), in the reference's order
+PAPER_BENCHES = ("fig2_exploration", "objects_read", "accuracy_sweep",
+                 "adaptation_cost", "heatmap_exploration",
+                 "serving_concurrency", "streaming_exploration")
+# rows 1 (and its +-inf entry), 2, 3 (B5's sequential arm), 4, 6 (B6's
+# sequential replay), 7, 8 and 10 (B7): the kernels the benches launch
+BENCH_KERNELS = ("segment_window_agg", "segment_window_agg_everywhere",
+                 "segment_bin_agg", "bin_agg", "segment_bin_agg_edges",
+                 "segment_window_bin_agg", "segment_window_bin_select",
+                 "segment_window_agg_multi",
+                 "segment_window_bin_select_multi")
+
+
+def phase_benches(torch, build, ds, seed, chunk_rows):
+    """Phase 9: the port's B1, B2 and B4-B8 on the card, through their
+    modules, over phase 3's dataset (``common.use_dataset``) and B8 at
+    ``chunk_rows`` rows a chunk. Every bench asserts its own gates; the
+    launches of the phase."""
+    import importlib
+
+    from repro_torch.benchmarks import common
+
+    common.configure(ds.n)
+    common.use_dataset(ds, seed)
+    log(f"== phase 9: the paper's benches B1, B2, B4-B8 on phase 3's {ds.n} "
+        f"rows (seed {seed}, target {common.TARGET_OBJECTS} objects a "
+        f"window), B8 at {chunk_rows} rows a chunk")
+    t_phase = time.perf_counter()
+    common.EMITTED.clear()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    seconds = {}
+    print("name,us_per_call,derived", flush=True)
+    for name in PAPER_BENCHES:
+        bench = importlib.import_module(f"repro_torch.benchmarks.{name}")
+        t0 = time.perf_counter()
+        try:
+            out = (bench.main(chunk_rows=chunk_rows)
+                   if name == "streaming_exploration" else bench.main())
+        except AssertionError as e:
+            raise Failed(f"phase 9, {name}: a gate failed: {e}") from e
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        if name == "fig2_exploration":
+            log(f"B1 per query:\n{out['csv']}")
+        log(f"phase 9, {name}: {seconds[name]:.3f} s")
+    launches = dict(build.LAUNCHES)
+    wall = time.perf_counter() - t_phase
+    rows = {r["name"]: r for r in common.EMITTED}
+    # the gates the benches assert, read back from their rows
+    held = (all(rows[f"accuracy_phi{p}"]["violations"] == 0
+                for p in (1, 5, 10))
+            and all(rows[f"heatmap_{k}"]["speculative_rows"] == 0
+                    for k in ("exact", "phi1", "phi5", "phi_b_uniform",
+                              "phi_b_floored", "phi_b_salience"))
+            and rows["heatmap_phi_b_floored"]["queries_unmet"] == 0
+            and rows["heatmap_phi_b_salience"]["queries_unmet"] == 0
+            and rows["heatmap_batched_eq_sequential"]["equal"]
+            and rows["serving_batched_eq_sequential"]["equal"]
+            and rows["streaming_chunked"]["violations"] == 0
+            and rows["streaming_chunked"]["prune_leaks"] == 0
+            and rows["streaming_single_chunk_parity"]["equal"])
+    if not held:
+        raise Failed("phase 9: a bench row reports a failed gate")
+    log("phase 9 gates: B1/B2/B5 answers equal (phi = 0, 1e-9) or contain "
+        "(phi > 0) the float64 oracle; B4 violations 0; B6 no speculative "
+        "rows, floored and salience sessions meet every bin, sequential "
+        "replay == batched; B7 containment, batched == sequential; B8 "
+        "violations 0, prune_leaks 0, one chunk == the legacy engine")
+    log(f"launches in phase 9: {json.dumps(launches)}")
+    for k in BENCH_KERNELS:
+        if launches.get(k, 0) <= 0:
+            raise Failed(f"{k} was not launched in phase 9")
+    log(f"phase 9 took {wall:.3f} s ({json.dumps(seconds)}), device memory "
+        f"peak {torch.cuda.max_memory_allocated()} B, on {card_line()}")
+    return {"launches": launches, "seconds": seconds, "wall_s": wall}
 
 
 class PlainGuard:
@@ -2849,10 +2956,14 @@ def main(argv=None) -> int:
             t7 = time.perf_counter()
             build.reset_launches()
             phase_chunked_legacy(torch, ds, windows)
-            del ds
             torch.cuda.empty_cache()
             phase_chunked(torch, build, args.chunk_rows, t7)
-        log(f"plain kernel versions called in phases 3-5, 7 and 8: "
+            torch.cuda.empty_cache()
+            launches9 = phase_benches(torch, build, ds, args.seed,
+                                      args.chunk_rows)["launches"]
+            del ds
+            torch.cuda.empty_cache()
+        log(f"plain kernel versions called in phases 3-5 and 7-9: "
             f"{json.dumps(guard.calls)}")
         if guard.calls:
             raise Failed("the card's path called a plain kernel version: "
@@ -2868,6 +2979,7 @@ def main(argv=None) -> int:
     for name, row in rows.items():
         row["launches"] = int(launches.get(name, 0))
         row["launches_phase8"] = int(launches8.get(name, 0))
+        row["launches_phase9"] = int(launches9.get(name, 0))
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

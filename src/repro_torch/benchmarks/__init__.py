@@ -1,2 +1,2 @@
 """The port's benchmarks (counterparts of the top-level ``benchmarks/``):
-for now B3, the kernels bench. ``python -m repro_torch.benchmarks.run``."""
+B1-B9, run in order by ``python -m repro_torch.benchmarks.run``."""

@@ -31,11 +31,10 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..core import AQPEngine, IndexConfig
+from ..core import AQPEngine
 from ..core.predict import prefetch_crack
-from ..data import make_synthetic_dataset
 from . import common
-from .common import emit
+from .common import bench_config, emit, resolve
 
 BINS = (4, 4)
 PHI = 0.05
@@ -43,16 +42,6 @@ PHI = 0.05
 # both arms pay the identical cold start there, so the percentile
 # comparison covers the steady-state steps the budget can influence
 WARMUP = 2
-
-
-def b9_config(backend: str) -> IndexConfig:
-    return IndexConfig(grid0=(8, 8), min_split_count=512,
-                       init_metadata_attrs=("a0",), backend=backend)
-
-
-def _engine(backend: str, device):
-    ds = make_synthetic_dataset(n=common.N_ROWS, seed=7, device=device)
-    return AQPEngine(ds, b9_config(backend))
 
 
 def _linear_pan(n, domain=1000.0):
@@ -123,12 +112,13 @@ def main(device: str = "cuda", backend=None):
     """B9 on ``device`` (the card by default); ``backend`` defaults to
     ``"cuda"`` on the card and ``"torch"`` elsewhere, and ``"np"`` runs
     the host mirrors on host data."""
-    if backend is None:
-        backend = "cuda" if device == "cuda" else "torch"
-    data_device = None if backend == "np" else device
+    backend, data_device = resolve(device, backend)
 
     def make_engine():
-        return _engine(backend, data_device)
+        # one dataset (the bench dataset's array form) for every engine;
+        # each engine's reads are counted as deltas of its own
+        return AQPEngine(common.dataset(7, data_device, storage="array"),
+                         bench_config(backend))
 
     n_q = common.N_QUERIES
     # spare-I/O budget per step, sized to a typical query's reads so

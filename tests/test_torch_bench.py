@@ -36,7 +36,10 @@ def test_roofline_matches_the_reference_and_scores_the_card(n_bytes,
 
 @pytest.fixture
 def smoke(monkeypatch):
-    monkeypatch.setattr(common, "SMOKE", False)
+    for k in ("SMOKE", "N_ROWS", "N_QUERIES", "TARGET_OBJECTS", "SEED"):
+        monkeypatch.setattr(common, k, getattr(common, k))
+    for k in ("_DS_CACHE", "_HANDED"):
+        monkeypatch.setattr(common, k, {})
     monkeypatch.setattr(common, "EMITTED", [])
     common.configure_smoke()
     return common
@@ -64,14 +67,45 @@ def test_bench_on_the_cpu_emits_np_and_torch_rows(smoke):
 
 def test_bench_runner_writes_its_own_artifact(smoke, tmp_path,
                                               monkeypatch):
-    monkeypatch.setattr(kernels_bench, "main",
-                        lambda device: common.emit("row", 1.0, "x=1"))
+    """The runner calls B1-B9 in the reference's order, on the device
+    asked for (B1 with its CSV beside the artifact), and writes their
+    rows to its own artifact."""
+    import importlib
+    called = []
+    for name in run.BENCHES:
+        def main(device, save_csv=None, name=name):
+            called.append((name, device, save_csv))
+            common.emit(name, 1.0, "x=1")
+        monkeypatch.setattr(importlib.import_module(
+            f"repro_torch.benchmarks.{name}"), "main", main)
     monkeypatch.setattr(run, "EXPERIMENTS", tmp_path)
     path = run.main(["--smoke", "--device", "cpu"])
     assert path.parent == tmp_path
     assert path.name == "BENCH_torch_smoke.json"
     out = json.loads(path.read_text())
-    assert out["device"] == "cpu" and out["rows"][0]["name"] == "row"
+    assert out["device"] == "cpu"
+    assert [r["name"] for r in out["rows"]] == list(run.BENCHES)
+    assert called[0] == ("fig2_exploration", "cpu",
+                         tmp_path / "fig2_torch.csv")
+    assert all(c[1:] == ("cpu", None) for c in called[1:])
+    assert [c[0] for c in called] == [
+        "fig2_exploration", "objects_read", "kernels_bench",
+        "accuracy_sweep", "adaptation_cost", "heatmap_exploration",
+        "serving_concurrency", "streaming_exploration",
+        "predictive_exploration"]
+
+
+def test_bench_runner_sizes_the_dataset(smoke, tmp_path, monkeypatch):
+    import importlib
+    seen = []
+    for name in run.BENCHES:
+        monkeypatch.setattr(importlib.import_module(
+            f"repro_torch.benchmarks.{name}"), "main",
+            lambda device, save_csv=None: seen.append(
+                (common.N_ROWS, common.TARGET_OBJECTS)))
+    monkeypatch.setattr(run, "EXPERIMENTS", tmp_path)
+    run.main(["--device", "cpu", "--rows", "8000000"])
+    assert set(seen) == {(8_000_000, 40_000)}
 
 
 def test_bench_runs_on_the_card_by_default(monkeypatch):

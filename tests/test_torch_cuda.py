@@ -9,8 +9,9 @@ PyTorch version on the same CUDA tensors (counts and extrema equal,
 float64 sums within 1e-12 · Σ|v|, the select op's suffix widths equal
 bit for bit), and the main path, the heatmap path, the serving tick,
 the chunked path (a forest and a tick over chunks) and prediction
-(prefetch, learned salience, a tick with ``prefetch_rows``) on the
-``"cuda"`` backend against the same paths on ``"torch"``.
+(prefetch, learned salience, a tick with ``prefetch_rows``) and the
+benches B1, B2 and B4-B8 at the smoke size on the ``"cuda"`` backend
+against the same paths on ``"torch"``.
 """
 import numpy as np
 import pytest
@@ -875,3 +876,56 @@ def test_nan_value_tile_metadata_on_the_card(card):
     np.testing.assert_array_equal(contribs[1][:, [0, 2, 3]],
                                   contribs[0][:, [0, 2, 3]])
     assert np.isnan(contribs[1][0, 1]) and np.isnan(contribs[0][0, 1])
+
+
+# the port's benches (repro_torch/benchmarks) at the smoke size
+BENCHES = ("fig2_exploration", "objects_read", "accuracy_sweep",
+           "adaptation_cost", "heatmap_exploration", "serving_concurrency",
+           "streaming_exploration")
+# derived fields that are times, rates or float64 values, not counters
+NOT_BENCH_COUNTERS = {
+    "total_s", "overall_speedup", "speedup_phi5", "speedup_phi1",
+    "q15-25_speedup_phi5", "phi1", "peak_early_phi5", "exact_vs_phi5_gap",
+    "exact_vs_phi5", "rows_per_s", "queries_per_s", "p50_ms", "p99_ms",
+    "corr_time_reads", "median_err", "p99_err", "worst_bin_err",
+    "mean_bin_err", "worst_bin_bound"}
+
+
+@pytest.fixture
+def bench_smoke(monkeypatch):
+    from repro_torch.benchmarks import common
+    for k in ("SMOKE", "N_ROWS", "N_QUERIES", "TARGET_OBJECTS", "SEED"):
+        monkeypatch.setattr(common, k, getattr(common, k))
+    for k in ("_DS_CACHE", "_HANDED"):
+        monkeypatch.setattr(common, k, {})
+    monkeypatch.setattr(common, "EMITTED", [])
+    common.configure_smoke()
+    return common
+
+
+@pytest.mark.parametrize("bench", BENCHES)
+def test_bench_smoke_on_the_card_counts_as_torch(card, bench_smoke, bench):
+    """Each bench at the smoke size under "cuda" (its default on the
+    card) emits the counters it emits under "torch" on CPU tensors —
+    rows read, read calls, splits, tiles, pruned chunks — and its gates
+    hold (a failed gate raises)."""
+    import importlib
+    main = importlib.import_module(f"repro_torch.benchmarks.{bench}").main
+    got = []
+    for device in ("cuda", "cpu"):
+        bench_smoke.EMITTED.clear()
+        main(device=device)
+        got.append({r["name"]: {
+            k: v for k, v in (kv.split("=", 1)
+                              for kv in r["derived"].split(";"))
+            if k not in NOT_BENCH_COUNTERS}
+            for r in bench_smoke.EMITTED})
+    assert got[0] == got[1]
+
+
+def test_bench_asked_for_cuda_with_cpu_tensors_raises(card, bench_smoke):
+    from repro_torch.benchmarks import accuracy_sweep, common
+    with pytest.raises(TypeError, match="CUDA device"):
+        common.fresh_engine(device="cpu", backend="cuda")
+    with pytest.raises(TypeError, match="CUDA device"):
+        accuracy_sweep.main(device="cpu", backend="cuda")

@@ -131,7 +131,9 @@ def test_chip_smoke_fails_without_card_or_repo(tmp_path, alone):
     assert '"ok"' not in p.stdout
 
 
-CORE_FILES = sorted((ROOT / "src" / "repro_torch" / "core").glob("*.py")) + [
+CORE_FILES = sorted(
+    p for d in ("core", "benchmarks", "examples")
+    for p in (ROOT / "src" / "repro_torch" / d).glob("*.py")) + [
     ROOT / "src" / "repro_torch" / "data" / "chunked.py"]
 KERNEL_MODULES = ("segment_agg", "fused_select", "bin_agg", "window_agg")
 # helpers of the kernel modules that are no kernel's plain version: the
@@ -143,7 +145,8 @@ SHARED_HELPERS = {"agg4", "window_bin_ids", "edge_cell_ids", "segment_ids"}
 @pytest.mark.parametrize("path", CORE_FILES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_core_reaches_kernels_through_ops(path):
-    """No module of ``repro_torch/core`` (nor the chunked storage of
+    """No module of ``repro_torch/core``, ``repro_torch/benchmarks`` or
+    ``repro_torch/examples`` (nor the chunked storage of
     ``repro_torch/data``) imports a plain kernel version
     (a name ending in ``_torch`` from a kernel module) or reaches one as
     an attribute: the core reaches every kernel through ``ops`` with its
