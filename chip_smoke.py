@@ -175,12 +175,36 @@ plain version and timed beside its byte bound.
    sequential; B8 containment, no pruned-chunk read, one chunk equal to
    the legacy engine.
 
-Phases 3 to 5 and 7 to 9 run with every plain ``*_torch`` kernel version
+10. The SPMD session engine on the card (run after phase 9, on phase 3's
+   dataset; launch counts reset before it and read after it — its data
+   plane is plain PyTorch, as the reference's is jnp outside any Pallas
+   kernel, so no kernel of the table is expected). 10a:
+   ``DistributedAQPEngine`` with ``DistConfig()`` (32x32 grid, capacity
+   4096) on 1 and on 8 in-process shards (views of the same columns):
+   the first 20 windows as ``sum(a0)`` queries at phi = 0 and 0.05,
+   8 windows as 8x8 heatmaps at phi = 0.05 (sum, then min and max) and a
+   floored phi_b heatmap. Gates: every answer contains its float64 truth
+   (binned by the engine's rule) within ``1e-5·|truth| + 1e-2`` (extrema
+   1e-4), phi met or exact, phi = 0 equal to the truth, every bin met
+   under phi_b; 1 shard == 8 shards (counters, ``n_active``, ``cell``
+   and tile table; values within 1e-12). It prints ms per query step,
+   heatmap step and refine epoch, and the data plane's device time
+   (``torch.profiler``). 10b: B6's distributed arm
+   (``heatmap_exploration.distributed_session``) on its skewed set at the
+   dataset's row count, 1 and 8 shards, its row printed; gates: the
+   repeat reads no more than query 1, the phi_b query meets every bin,
+   1 shard == 8 shards. 10c: ``defer_epochs=True`` and
+   ``publish_epochs()`` leave the state an epoch in place leaves. 10d:
+   ``ProcessGroupMesh`` on NCCL with one rank (a file store in the build
+   directory) == the in-process shard on 5 windows.
+
+Phases 3 to 5 and 7 to 10 run with every plain ``*_torch`` kernel version
 wrapped in a counter: the card's path must call none of them.
 
 The line before the last is a JSON object describing each kernel (with
-its launches in phases 8 and 9 as ``launches_phase8`` and
-``launches_phase9``); the last line is ``{"ok": true, "device": {...}}``.
+its launches in phases 8, 9 and 10 as ``launches_phase8``,
+``launches_phase9`` and ``launches_phase10``); the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -2854,6 +2878,392 @@ def phase_benches(torch, build, ds, seed, chunk_rows):
     return {"launches": launches, "seconds": seconds, "wall_s": wall}
 
 
+# --------------------------------------------------------------------- #
+# phase 10, the SPMD session engine
+# --------------------------------------------------------------------- #
+
+DIST_SHARDS = (1, 8)
+DIST_WINDOWS = 20
+DIST_HEATMAPS = 8
+DIST_COUNTERS = ("objects_read", "read_calls", "batch_rounds",
+                 "tiles_processed", "tiles_full", "tiles_partial", "exact")
+
+
+def dist_bins(torch, xs, ys, w, bx, by):
+    """``(in-window mask, bin id)`` by the reference's SPMD binning,
+    written out here apart from the engine's code: the closed float32
+    window; the cell size ``max((x1 - x0) * f32(1/bx), 1e-30)`` in numpy
+    float32 (the reference's ``(x1 - x0) / bx`` as XLA compiles a
+    division by a constant); ``floor((x - x0) / cw)`` of the float32
+    difference, the quotient taken in float64 and rounded to float32
+    (the float32 IEEE quotient, since 53 >= 2*24 + 2), clipped to the
+    grid; bin ``cy * bx + cx``."""
+    w32 = np.asarray(w, np.float32).reshape(4)
+    x0, y0, x1, y1 = (float(c) for c in w32)
+    m = (xs >= x0) & (xs <= x1) & (ys >= y0) & (ys <= y1)
+
+    def cell(c, c0, c1, g):
+        size = np.maximum((np.float32(c1) - np.float32(c0))
+                          * np.float32(1.0 / g), np.float32(1e-30))
+        d = (c[m] - c0).double()
+        q = (d / torch.tensor(float(size), dtype=torch.float64,
+                              device=c.device)).float()
+        return q.floor().clamp(0, g - 1).long()
+
+    return m, cell(ys, y0, y1, by) * bx + cell(xs, x0, x1, bx)
+
+
+def dist_oracle(torch, eng, w, bins=(1, 1), agg="sum"):
+    """The float64 truth over the engine's shards, binned by
+    :func:`dist_bins`: ``(per-bin truth, occupied)``; empty bins NaN
+    (sum) or +-inf (min/max)."""
+    bx, by = bins
+    nb = bx * by
+    dev = eng.xs.device
+    m, b = dist_bins(torch, eng.xs, eng.ys, w, bx, by)
+    v = eng.vals["a0"][m]
+    cnt = torch.bincount(b, minlength=nb)
+    if agg == "sum":
+        t = torch.zeros(nb, dtype=torch.float64, device=dev).index_add_(
+            0, b, v.double())
+        fill = float("nan")
+    else:
+        fill = float("inf") if agg == "min" else float("-inf")
+        t = torch.full((nb,), fill, dtype=torch.float32,
+                       device=dev).scatter_reduce_(
+            0, b, v, "amin" if agg == "min" else "amax").double()
+    occ = cnt > 0
+    t = torch.where(occ, t, fill)
+    return t.cpu().numpy(), occ.cpu().numpy()
+
+
+def dist_answer_ok(r, truth, occ, phi, agg="sum", uniform=True):
+    """The reference tests' gates: the interval contains the truth within
+    ``1e-5·|truth| + 1e-2`` (extrema: 1e-4); under a uniform phi, phi is
+    met or the answer is exact, and phi = 0 gives the truth (1e-9
+    relative); empty min/max bins are +-inf."""
+    lo, hi = np.atleast_1d(r.lo)[occ], np.atleast_1d(r.hi)[occ]
+    val, t = np.atleast_1d(
+        r.value if hasattr(r, "value") else r.values)[occ], truth[occ]
+    eps = (1e-5 * np.abs(t) + 1e-2) if agg == "sum" else 1e-4
+    ok = bool((lo - eps <= t).all() and (t <= hi + eps).all())
+    if uniform and phi > 0:
+        ok &= r.bound <= phi + 1e-6 or r.exact
+    elif uniform:
+        ok &= r.exact and bool((np.abs(val - t) <= 1e-9 * np.abs(t)).all())
+    if agg != "sum":
+        fill = np.inf if agg == "min" else -np.inf
+        ok &= bool((r.values[~occ] == fill).all())
+    return ok
+
+
+def dist_session(torch, ds, windows, shards):
+    """Phase 10a on ``shards`` in-process shards: the scalar queries at
+    phi = 0 and 0.05, the sum, min and max heatmaps, a floored phi_b
+    heatmap; every answer gated against the float64 truth. Returns the
+    engine and its results."""
+    from repro_torch.core import (AccuracyPolicy, DistConfig,
+                                  DistributedAQPEngine, ShardMesh)
+
+    eng = DistributedAQPEngine(ds, ShardMesh(shards, "cuda"), DistConfig())
+    t0 = time.perf_counter()
+    out = []
+    for phi in (0.0, 0.05):
+        for w in windows[:DIST_WINDOWS]:
+            r = eng.query(w, "a0", phi)
+            truth, occ = dist_oracle(torch, eng, w)
+            if not dist_answer_ok(r, truth, occ, phi):
+                raise Failed(f"phase 10a, {shards} shards: query {w} at "
+                             f"phi={phi}: {r} vs {truth}")
+            out.append(r)
+    for agg in ("sum", "min", "max"):
+        for w in windows[:DIST_HEATMAPS]:
+            r = eng.heatmap(w, "a0", bins=(8, 8), phi=0.05, agg=agg)
+            truth, occ = dist_oracle(torch, eng, w, (8, 8), agg)
+            if not dist_answer_ok(r, truth, occ, 0.05, agg):
+                raise Failed(f"phase 10a, {shards} shards: {agg} heatmap "
+                             f"{w} misses its truth")
+            out.append(r)
+    w = windows[0]
+    truth, occ = dist_oracle(torch, eng, w, (8, 8))
+    pol = AccuracyPolicy(eps_abs=0.02 * float(np.abs(truth[occ]).max()))
+    r = eng.heatmap(w, "a0", bins=(8, 8), phi=0.05, policy=pol)
+    if not (r.bin_met.all()
+            and dist_answer_ok(r, truth, occ, 0.05, uniform=False)):
+        raise Failed(f"phase 10a, {shards} shards: the phi_b heatmap "
+                     "left a bin over its budget")
+    out.append(r)
+    torch.cuda.synchronize()
+    log(f"phase 10a, {shards} shard(s): {len(out)} answers in "
+        f"{time.perf_counter() - t0:.3f} s, reads "
+        f"{sum(x.objects_read for x in out)}, selection passes "
+        f"{sum(x.read_calls for x in out)}, epochs "
+        f"{sum(x.batch_rounds for x in out)}, active tiles {eng.n_active}")
+    return eng, out
+
+
+def same_dist_state(torch, a, b):
+    return all(torch.equal(getattr(a, k), getattr(b, k))
+               for k in ("cell", "bbox", "active", "level", "count", "vmin",
+                         "vmax", "n_tiles"))
+
+
+def same_dist_results(ra, rb, rtol, skip=()):
+    for x, y in zip(ra, rb):
+        for f in DIST_COUNTERS:
+            if f not in skip and getattr(x, f) != getattr(y, f):
+                return False
+        for f in ("value", "values", "lo", "hi"):
+            if hasattr(x, f):
+                u = np.atleast_1d(getattr(x, f))
+                v = np.atleast_1d(getattr(y, f))
+                fin = np.isfinite(u)
+                if not (np.array_equal(fin, np.isfinite(v)) and np.array_equal(
+                        u[~fin], v[~fin]) and np.allclose(
+                        v[fin], u[fin], rtol=rtol, atol=0)):
+                    return False
+    return len(ra) == len(rb)
+
+
+def dist_step_clocks(torch, eng, w, reps=10):
+    """ms per query step, heatmap step (8x8 sum, fresh registry) and
+    refine epoch on the engine's cracked state, each call synchronised."""
+    from repro_torch.core import distributed as dist
+
+    st = eng._states["a0"]
+    v = eng.vals["a0"]
+    heat = eng._heatmap_step((8, 8), "sum", False)
+    epoch = eng._epoch((1, 1))
+    sel = eng._query_step(st, eng.xs, eng.ys, v, w, 0.05)["sel"]
+    zeros = np.zeros(64, np.float32)
+
+    def clock(fn):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / reps
+
+    return {
+        "query_step_ms": clock(lambda: eng._query_step(
+            st, eng.xs, eng.ys, v, w, 0.05)),
+        "heatmap_step_ms": clock(lambda: heat(
+            st, dist._empty_cache(eng.cfg.capacity, 64, "sum", "cuda"),
+            eng.xs, eng.ys, v, w, 0.05, zeros, 0.0)),
+        "refine_epoch_ms": clock(lambda: epoch(st, eng.xs, eng.ys, v, w,
+                                               sel))}
+
+
+DEVICE_RECORD_TRIES = 5
+
+
+def data_plane_device_ms(torch, eng, w, reps=5):
+    """The data plane's time per call: the classify + keyed scatter of
+    every shard (``fused_count_val``) on the scalar step's key (nb = 1)
+    and an 8x8 heatmap's (nb = 64).
+
+    ``<name>_event_ms``: CUDA events around ``reps`` calls (the stream's
+    time, host waits included). ``<name>_device_ms``: the sum of the
+    device records from ``torch.profiler`` between two marker kernels
+    (``torch.cuda._sleep``'s ``spin_kernel``) around ``reps`` calls, one
+    more call padding each end of the window (the profiler drops some
+    of a window's device records at an edge, ``PERF.md``). It is taken
+    only when the records between the markers are as many as the
+    host's calls made for ``reps`` calls — kernels against kernel
+    launches, copies and fills against ``cudaMemcpy*`` and
+    ``cudaMemset*`` calls, a call's share being the window's count less
+    the markers' over ``reps + 2``; up to ``DEVICE_RECORD_TRIES``
+    windows, else ``None``. ``<name>_records`` says how many windows
+    were tried and what the last counted."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import fused_select as fsel
+
+    cell = eng._states["a0"].cell
+    v = eng.vals["a0"]
+    cap = eng.cfg.capacity
+    out = {}
+    for name, (nb, bx, by) in (("scalar", (1, 1, 1)),
+                               ("heatmap_8x8", (64, 8, 8))):
+        def plane():
+            for x, y, vv, c in eng.mesh.shards(eng.xs, eng.ys, v, cell):
+                fsel.fused_count_val(c, x, y, vv, w, cap, nb, bx, by, "sum")
+        plane()
+        torch.cuda.synchronize()
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        for _ in range(reps):
+            plane()
+        t1.record()
+        torch.cuda.synchronize()
+        out[f"{name}_event_ms"] = t0.elapsed_time(t1) / reps
+        out[f"{name}_device_ms"] = None
+        for tries in range(1, DEVICE_RECORD_TRIES + 1):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                plane()
+                torch.cuda._sleep(1000)
+                for _ in range(reps):
+                    plane()
+                torch.cuda._sleep(1000)
+                plane()
+                torch.cuda.synchronize()
+            evs = prof.events()
+            dev = sorted((e for e in evs if e.device_type == DeviceType.CUDA),
+                         key=lambda e: e.time_range.start)
+            marks = [i for i, e in enumerate(dev) if "spin_kernel" in e.name]
+            ks = dev[marks[0] + 1:marks[1]] if len(marks) == 2 else []
+            host = [e.name for e in evs if e.device_type == DeviceType.CPU]
+            n_launch = sum(n.startswith("cu") and "Launch" in n for n in host)
+            n_copy = sum(n.startswith(("cudaMemcpy", "cudaMemset"))
+                         for n in host)
+            copy = [e.name.lower().startswith(("memset", "memcpy"))
+                    for e in ks]
+            rec = {"windows": tries, "markers": len(marks),
+                   "kernels": len(ks) - sum(copy),
+                   "launches": (n_launch - 2) * reps / (reps + 2),
+                   "copies": sum(copy),
+                   "copy_calls": n_copy * reps / (reps + 2)}
+            out[f"{name}_records"] = rec
+            if len(marks) == 2 and rec["launches"] > 0 \
+                    and rec["kernels"] == rec["launches"] \
+                    and rec["copies"] == rec["copy_calls"]:
+                break
+        else:
+            log(f"phase 10a: the profiler's device records of the {name} "
+                f"data plane stayed incomplete in {tries} windows ({rec}): "
+                "no device ms, the CUDA events' ms stand")
+            continue
+        out[f"{name}_device_ms"] = sum(
+            e.time_range.elapsed_us() for e in ks) * 1e-3 / reps
+        top = {}
+        for e in ks:
+            k = e.name.split("(")[0][:60]
+            top[k] = top.get(k, 0.0) + e.time_range.elapsed_us() * 1e-3 / reps
+        out[f"{name}_top"] = dict(sorted(top.items(),
+                                         key=lambda kv: -kv[1])[:4])
+    return out
+
+
+def phase_distributed(torch, build, ds, windows):
+    """Phase 10: the SPMD session engine on phase 3's dataset (10a on 1
+    and 8 in-process shards; 10b B6's distributed arm at ``ds.n`` rows;
+    10c deferred epochs; 10d the NCCL mesh of one rank); the launches of
+    the phase."""
+    import torch.distributed as tdist
+
+    from repro_torch.benchmarks import heatmap_exploration as b6
+    from repro_torch.core import (DistConfig, DistributedAQPEngine,
+                                  ProcessGroupMesh, ShardMesh)
+
+    log(f"== phase 10: the SPMD session engine on phase 3's {ds.n} rows, "
+        f"shards {DIST_SHARDS}, {DIST_WINDOWS} windows, DistConfig() "
+        "(32x32 grid, capacity 4096)")
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    # 10a
+    engines, results, clocks = {}, {}, {}
+    for s in DIST_SHARDS:
+        engines[s], results[s] = dist_session(torch, ds, windows, s)
+        clocks[s] = dist_step_clocks(torch, engines[s], windows[0])
+        clocks[s].update(data_plane_device_ms(torch, engines[s],
+                                              windows[0]))
+        log(f"phase 10a, {s} shard(s), clocks: {json.dumps(clocks[s])}")
+    a, b = (engines[s] for s in DIST_SHARDS)
+    if not (same_dist_results(results[1], results[8], 1e-12)
+            and a.n_active == b.n_active
+            and same_dist_state(torch, a._states["a0"], b._states["a0"])):
+        raise Failed("phase 10a: 1 shard and 8 shards differ")
+    log(f"phase 10a: 1 shard == 8 shards (counters, n_active "
+        f"{a.n_active}, cell and tile table equal; values within 1e-12)")
+    del engines, a, b
+    torch.cuda.empty_cache()
+    # 10b
+    t0 = time.perf_counter()
+    sk = b6.skewed_dataset(n=ds.n, device="cuda")
+    log(f"phase 10b: B6's skewed set, {sk.n} rows, made in "
+        f"{time.perf_counter() - t0:.3f} s")
+    arms = {}
+    for s in DIST_SHARDS:
+        t0 = time.perf_counter()
+        try:
+            arm = b6.distributed_session(device="cuda", shards=s, ds=sk)
+        except AssertionError as e:
+            raise Failed(f"phase 10b, {s} shards: a gate failed: {e}") from e
+        arms[s] = (arm["reads"], arm["stateless"])
+        del arm
+        log(f"phase 10b, {s} shard(s): {time.perf_counter() - t0:.3f} s")
+    if arms[1] != arms[8]:
+        raise Failed(f"phase 10b: 1 shard and 8 shards read differently "
+                     f"{arms}")
+    log("phase 10b gates: reads_q2 <= reads_q1, phi_b_bins_met; 1 shard "
+        "== 8 shards")
+    del sk
+    torch.cuda.empty_cache()
+    # 10c
+    cfg = DistConfig()
+    w = windows[0]
+    got = {}
+    for defer in (False, True):
+        eng = DistributedAQPEngine(ds, ShardMesh(1, "cuda"), cfg,
+                                   defer_epochs=defer)
+        r = eng.heatmap(w, "a0", bins=(8, 8), phi=0.05)
+        rep = eng.publish_epochs()
+        got[defer] = (r, eng._states["a0"], rep)
+        del eng
+    if not (same_dist_results([got[False][0]], [got[True][0]], 0.0,
+                              skip=("batch_rounds",))
+            and same_dist_state(torch, got[False][1], got[True][1])
+            and got[True][2]["epochs_published"] == 1):
+        raise Failed("phase 10c: a deferred epoch differs from one in place")
+    log(f"phase 10c: defer_epochs then publish_epochs == the epoch in place "
+        f"({json.dumps(got[True][2])})")
+    del got
+    torch.cuda.empty_cache()
+    # 10d
+    store = build.BUILD_DIR / f"nccl-store-{os.getpid()}"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    if store.exists():
+        store.unlink()
+    tdist.init_process_group("nccl", init_method=f"file://{store}",
+                             world_size=1, rank=0)
+    try:
+        outs = []
+        for mesh in (ProcessGroupMesh("cuda"), ShardMesh(1, "cuda")):
+            eng = DistributedAQPEngine(ds, mesh, cfg)
+            rs = [eng.query(w, "a0", 0.05) for w in windows[:5]]
+            rs += [eng.heatmap(w, "a0", bins=(8, 8), phi=0.05)
+                   for w in windows[:5]]
+            outs.append((rs, eng._states["a0"]))
+            del eng
+        if not (same_dist_results(outs[0][0], outs[1][0], 1e-12)
+                and same_dist_state(torch, outs[0][1], outs[1][1])):
+            raise Failed("phase 10d: the NCCL mesh differs from the "
+                         "in-process shard")
+    finally:
+        tdist.destroy_process_group()
+        if store.exists():
+            store.unlink()
+    log("phase 10d: the NCCL mesh of one rank == the in-process shard on 5 "
+        "windows (queries and 8x8 heatmaps)")
+    del outs
+    launches = dict(build.LAUNCHES)
+    wall = time.perf_counter() - t_phase
+    log(f"launches in phase 10: {json.dumps(launches)} (the SPMD data plane "
+        "is plain PyTorch: no ported kernel is on this path)")
+    log(f"phase 10 took {wall:.3f} s, device memory peak "
+        f"{torch.cuda.max_memory_allocated()} B, on {card_line()}")
+    print(json.dumps({"phase10": {"seconds": wall, "clocks": clocks,
+                                  "peak_bytes":
+                                      torch.cuda.max_memory_allocated()}}),
+          flush=True)
+    return {"launches": launches, "wall_s": wall, "clocks": clocks}
+
+
 class PlainGuard:
     """While active, counts every call of a plain ``*_torch`` kernel
     version: each such function of the kernel modules, and each name
@@ -2961,9 +3371,12 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
             launches9 = phase_benches(torch, build, ds, args.seed,
                                       args.chunk_rows)["launches"]
+            torch.cuda.empty_cache()
+            launches10 = phase_distributed(torch, build, ds,
+                                           windows)["launches"]
             del ds
             torch.cuda.empty_cache()
-        log(f"plain kernel versions called in phases 3-5 and 7-9: "
+        log(f"plain kernel versions called in phases 3-5 and 7-10: "
             f"{json.dumps(guard.calls)}")
         if guard.calls:
             raise Failed("the card's path called a plain kernel version: "
@@ -2980,6 +3393,7 @@ def main(argv=None) -> int:
         row["launches"] = int(launches.get(name, 0))
         row["launches_phase8"] = int(launches8.get(name, 0))
         row["launches_phase9"] = int(launches9.get(name, 0))
+        row["launches_phase10"] = int(launches10.get(name, 0))
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,14 +27,20 @@ sequential per-tile path give the batched path's answers and index
 device, whose sums run in another order). On the card that replay is
 the path that launches ``segment_window_bin_agg``.
 
+The distributed arm (``--distributed``; always at the smoke size, as
+in the reference) runs a repeated-window heatmap session on the SPMD
+session engine over a ``ShardMesh`` of ``--shards`` shards (default 1,
+the reference's one-device baseline row) against the stateless one-shot
+step, plus one floored φ_b query. Its gates: the repeat reads no more
+than the first query, and the φ_b query meets every bin's budget.
+
     python -m repro_torch.benchmarks.heatmap_exploration [--smoke]
         [--device cpu] [--phi-floor 0.02] [--salience center]
+        [--distributed] [--shards 8]
 
 ``--phi-floor`` is RELATIVE to the hottest bin's |oracle| (a scale-free
 spec for the absolute ε_abs floor); ``--salience none`` drops the
-salience session. The reference's ``--distributed`` arm (the sharded
-session over a device mesh) waits for the port of the SPMD engine
-(``ROADMAP.md`` queue A item 9) and has no flag here.
+salience session.
 """
 from __future__ import annotations
 
@@ -43,6 +49,9 @@ import argparse
 import numpy as np
 
 from ..core import AQPEngine, AccuracyPolicy, IndexConfig
+from ..core.distributed import (DistConfig, DistributedAQPEngine,
+                                make_heatmap_step)
+from ..core.mesh import ShardMesh
 from ..data.rawfile import RawDataset
 from . import common
 from .common import (bench_config, emit, fresh_engine, mixed_io_summary,
@@ -193,8 +202,65 @@ def sequential_parity(device="cuda", backend=None,
     return bool(ok)
 
 
+def distributed_session(bins=BINS, phi=0.05, repeats=4,
+                        floor_frac=FLOOR_FRAC, salience=SALIENCE,
+                        device="cuda", backend=None, shards=1, ds=None):
+    """Repeated-window DISTRIBUTED heatmap session over the sharded
+    session state on ``shards`` shards: query 1 pays the surrogate
+    price, query 2+ answer previously-read tiles from the per-(tile,
+    bin) registry and the cracked grid — against the stateless one-shot
+    step, which pays the full price on every repeat. Also one floored
+    φ_b query and its per-bin budget verdict. ``ds`` replaces the
+    skewed dataset (the card's runs pass a larger one)."""
+    backend, data_device = resolve(device, backend)
+    if ds is None:
+        ds = skewed_dataset(device=data_device)
+    mesh = ShardMesh(shards, device)
+    cfg = DistConfig(grid=(16, 16), capacity=2048, min_split_count=512)
+    eng = DistributedAQPEngine(ds, mesh, cfg)
+    # deliberately NOT grid-aligned: the boundary tiles are partial, so
+    # query 1 has real reads for the session memory to amortize
+    w = (433.0, 417.0, 981.0, 993.0)
+    reads = []
+    for _ in range(repeats):
+        r = eng.heatmap(w, "a0", bins=bins, phi=phi)
+        reads.append(r.objects_read)
+    # stateless baseline: the pre-session surrogate, rebuilt per call
+    step = make_heatmap_step(mesh, cfg, bins)
+    sl = [float(step(eng.xs, eng.ys, eng.vals["a0"], eng.domain, w,
+                     phi)["objects_read"]) for _ in range(2)]
+    # φ_b budgets: floor calibrated off the hottest bin seen, under the
+    # same spec as the host φ_b sessions
+    hot = float(np.abs(r.values[np.isfinite(r.values)]).max())
+    pol = AccuracyPolicy(eps_abs=max(1.0, floor_frac * hot),
+                         salience=None if salience == "none"
+                         else salience)
+    rp = eng.heatmap(w, "a0", bins=bins, phi=phi, policy=pol)
+    tot = eng.trace.totals()
+    met = bool(rp.bin_met.all())
+    emit("heatmap_distributed_session",
+         tot["total_time_s"] * 1e6 / max(tot["queries"], 1),
+         mixed_io_summary(tot, extra=[
+             f"devices={shards}",
+             f"reads_q1={reads[0]:.0f}",
+             f"reads_q2={reads[1]:.0f}",
+             f"reads_last={reads[-1]:.0f}",
+             f"reads_stateless_repeat={sl[1]:.0f}",
+             f"session_repeat_frac="
+             f"{reads[1] / max(reads[0], 1):.3f}",
+             f"phi_b_bins_met={met}",
+             f"active_tiles={list(eng.n_active.values())[0]}"]),
+         time_s=tot["total_time_s"], devices=shards, reads=reads,
+         reads_stateless=sl, phi_b_bins_met=met)
+    require(reads[1] <= reads[0],
+            f"B6 distributed: the repeat read {reads[1]} > {reads[0]}")
+    require(met, "B6 distributed: the phi_b query left a bin over its "
+            "budget")
+    return {"reads": reads, "stateless": sl, "engine": eng}
+
+
 def main(floor_frac=FLOOR_FRAC, salience=SALIENCE, device="cuda",
-         backend=None):
+         backend=None, distributed=False, shards=1):
     out = {}
     for name, phi in (("exact", 0.0), ("phi1", 0.01), ("phi5", 0.05)):
         eng, tot = run_session(phi, device=device, backend=backend)
@@ -228,6 +294,12 @@ def main(floor_frac=FLOOR_FRAC, salience=SALIENCE, device="cuda",
          f"speculative_phi5={out['phi5']['total_speculative_rows']}",
          exact_vs_phi5=s5)
     out["phi_b"] = phi_b_comparison(floor_frac, salience, device, backend)
+    if distributed or common.SMOKE:
+        # the sharded-session acceptance numbers ride the smoke lane, as
+        # in the reference; full size via --distributed
+        out["distributed"] = distributed_session(
+            floor_frac=floor_frac, salience=salience, device=device,
+            backend=backend, shards=shards)
     out["sequential_parity"] = sequential_parity(device, backend)
     return out
 
@@ -239,6 +311,11 @@ if __name__ == "__main__":
                          "bin's |oracle| (default 0.02)")
     ap.add_argument("--salience", choices=["center", "none"],
                     default=SALIENCE)
+    ap.add_argument("--distributed", action="store_true",
+                    help="run the repeated-window sharded-session "
+                         "comparison (persistent state vs stateless)")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="shards of the distributed arm's mesh")
     ap.add_argument("--smoke", action="store_true",
                     help="tiny-n smoke sizing (same code paths)")
     ap.add_argument("--device", default="cuda")
@@ -246,4 +323,5 @@ if __name__ == "__main__":
     if a.smoke:
         common.configure_smoke()
     print("name,us_per_call,derived")
-    main(floor_frac=a.phi_floor, salience=a.salience, device=a.device)
+    main(floor_frac=a.phi_floor, salience=a.salience, device=a.device,
+         distributed=a.distributed, shards=a.shards)

@@ -1,4 +1,7 @@
 from .engine import AQPEngine, EngineTrace
+from .distributed import (DistConfig, DistributedAQPEngine, GroupedCache,
+                          ShardedTileState)
+from .mesh import ProcessGroupMesh, ShardMesh
 from .index import (IndexConfig, TileIndex, AdaptStats, EpochStage,
                     ChunkIndexSet)
 from .bounds import (AccuracyPolicy, GroupedAccumulator, HeatmapResult,
@@ -8,7 +11,8 @@ from .predict import (TrajectoryStep, ViewportPredictor, prefetch_crack,
 from .serving import NullStage, ServingEngine, Session, Ticket
 from .state import (forest_from_numpy, forest_to_numpy, index_from_numpy,
                     index_to_numpy, predictor_from_numpy,
-                    predictor_to_numpy)
+                    predictor_to_numpy, sharded_state_from_numpy,
+                    sharded_state_to_numpy)
 
 __all__ = ["AQPEngine", "EngineTrace", "IndexConfig", "TileIndex",
            "ChunkIndexSet",
@@ -18,4 +22,7 @@ __all__ = ["AQPEngine", "EngineTrace", "IndexConfig", "TileIndex",
            "ViewportPredictor", "TrajectoryStep", "prefetch_crack",
            "resolve_learned_salience",
            "index_from_numpy", "index_to_numpy", "forest_from_numpy",
-           "forest_to_numpy", "predictor_from_numpy", "predictor_to_numpy"]
+           "forest_to_numpy", "predictor_from_numpy", "predictor_to_numpy",
+           "DistConfig", "DistributedAQPEngine", "GroupedCache",
+           "ShardedTileState", "ShardMesh", "ProcessGroupMesh",
+           "sharded_state_from_numpy", "sharded_state_to_numpy"]

@@ -49,7 +49,17 @@ def phi_budgets(phi_b, denom, eps_abs, xp=np):
     if xp is np:
         with np.errstate(invalid="ignore"):
             return np.maximum(np.asarray(phi_b) * denom, eps_abs)
-    return xp.maximum(phi_b * denom, eps_abs)
+    return _maximum(xp, phi_b * denom, eps_abs)
+
+
+def _maximum(xp, a, b):
+    """``xp.maximum`` where ``b`` may be a Python float: ``torch.maximum``
+    takes tensors only, so a scalar joins as a tensor of ``a``'s dtype
+    on ``a``'s device (the float32 arithmetic of the reference's jnp
+    weak-typed scalar)."""
+    if xp is np or isinstance(b, xp.Tensor):
+        return xp.maximum(a, b)
+    return xp.maximum(a, xp.as_tensor(b, dtype=a.dtype, device=a.device))
 
 
 def budget_ratios(dev, tau, xp=np):
@@ -68,7 +78,7 @@ def bin_budgets_met(dev, values, phi_b, eps_abs, occ, xp=np,
     """Per-bin verdict: occupied bin b is satisfied when its deviation
     fits its own budget ``dev_b ≤ max(φ_b·|value_b|, ε_abs)``.
     Unoccupied / infinite-deviation / zero-deviation bins are True."""
-    tau = phi_budgets(phi_b, xp.maximum(xp.abs(values), EPS), eps_abs,
+    tau = phi_budgets(phi_b, _maximum(xp, xp.abs(values), EPS), eps_abs,
                       xp=xp)
     fin = occ & xp.isfinite(dev) & (dev > 0)
     return ~fin | (dev <= tau * (1 + rtol))

@@ -27,11 +27,16 @@ cap, but the round sizes — and so ``read_calls`` and the index
 evolution — must stay the reference's. With a ``stage`` (the serving
 layer's :class:`~repro_torch.core.index.EpochStage`), a round's side
 effects are staged for publication between ticks instead of applied in
-place. The SPMD ``EpochDriver`` comes with a later slice of the port.
+place.
+
+:class:`EpochDriver` and :class:`EpochStats` (the SPMD session loop of
+:mod:`repro_torch.core.distributed`) are copied from the reference
+without change.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+import dataclasses
+from typing import Callable, List, Optional, Sequence, Tuple
 
 from . import adapt
 from ..kernels.segment_agg import MAX_SEGMENTS, MAX_UNROLL
@@ -307,3 +312,103 @@ class RefinementDriver:
             else:
                 index.apply_batch(payload, n_used, flags)
         return processed
+
+
+@dataclasses.dataclass
+class EpochStats:
+    """Per-query accounting of an :class:`EpochDriver` run — the fields
+    the distributed engine folds into its ``QueryResult``/
+    ``HeatmapResult`` records so ``EngineTrace.totals()`` covers SPMD
+    sessions exactly like host ones."""
+    objects_read: int = 0
+    tiles_processed: int = 0
+    rounds: int = 0        # selection passes (one gathered read each)
+    epochs: int = 0        # refine epochs actually applied
+
+
+class EpochDriver:
+    """The SPMD backend of the classify→score→fold skeleton.
+
+    The host :class:`RefinementDriver` folds tile-by-tile because host
+    reads are incremental; a fully-jitted SPMD step instead folds a
+    whole score-ordered PREFIX per pass (classification, scoring, and
+    prefix selection all happen in-program). This driver runs the same
+    outer loop at that granularity:
+
+      1. run the jitted selection step (classify → score → fold the
+         selected prefix, returning the post-read stopping quantity);
+      2. while the (budget) bound misses φ and unprocessed pending
+         tiles remain, re-run the step (bounded by ``max_epochs``
+         re-selection passes — each pass's reads land in the step's
+         exact registry, so the next pass answers them free and
+         extends the selection deeper), then finish with one exact-ish
+         φ = 0 pass;
+      3. CRACK-WHAT-YOU-READ, once, after the final pass: one sharded
+         refine epoch over the tiles that pass processed — their
+         segments are already in HBM, so splitting is free I/O-wise,
+         exactly like host ``process(t)``'s split side effect. This is
+         what makes the session state converge across queries.
+         Cracking MID-query would deactivate just-read parents, orphan
+         their registry rows, and re-charge their boundary children on
+         the very next pass — so the epoch runs strictly after the
+         last selection.
+
+    ``run_step(phi) → out`` must return a dict with the stopping
+    quantity under ``"budget_bound"`` (the φ-scaled worst budget ratio —
+    equal to the plain relative bound under a uniform policy) plus
+    ``n_processed``/``n_partial``/``objects_read``; ``run_epoch(out) →
+    n_split`` applies the refinement side effects (persisting any state
+    in its closure) and reports how many tiles actually split. Both the
+    stopping predicate (:func:`met`) and the accounting
+    (:class:`EpochStats`) are shared with the host driver's consumers.
+
+    ``stateful_steps`` declares whether the step carries per-pass
+    memory (the heatmap step's per-(tile, bin) exact registry). The
+    cache-less scalar step sets it False: with the state untouched
+    until the final crack, a same-φ re-selection would be
+    byte-identical (and multiply-count its reads), so the loop goes
+    straight to the φ = 0 fallback on a miss.
+    """
+
+    def __init__(self, run_step: Callable, run_epoch: Optional[Callable],
+                 phi: float, *, max_epochs: int = 2,
+                 max_process: int = 1 << 62, stateful_steps: bool = True):
+        self.run_step = run_step
+        self.run_epoch = run_epoch
+        self.phi = float(phi)
+        self.max_epochs = int(max_epochs)
+        self.max_process = int(max_process)
+        self.stateful_steps = bool(stateful_steps)
+
+    def _fold(self, out, stats: EpochStats):
+        stats.objects_read += int(out["objects_read"])
+        stats.tiles_processed += int(out["n_processed"])
+        stats.rounds += 1
+        return out
+
+    def _refinable(self, out) -> bool:
+        # once every pending tile is processed (or the static cap is
+        # hit), another pass at the same φ answers identically
+        return int(out["n_processed"]) < min(int(out["n_partial"]),
+                                             self.max_process)
+
+    def run(self):
+        stats = EpochStats()
+        out = self._fold(self.run_step(self.phi), stats)
+        while (self.phi > 0.0
+                and not met(self.phi, float(out["budget_bound"]))
+                and self._refinable(out)
+                and self.stateful_steps
+                and stats.rounds <= self.max_epochs):
+            # the surrogate prefix bound can miss because exact values
+            # move the denominators post-read; re-select with the prior
+            # passes' reads answering from the registry
+            out = self._fold(self.run_step(self.phi), stats)
+        if (self.phi > 0.0
+                and not met(self.phi, float(out["budget_bound"]))
+                and self._refinable(out)):
+            out = self._fold(self.run_step(0.0), stats)
+        # crack-what-you-read, strictly after the last selection pass
+        if self.run_epoch is not None and int(out["n_processed"]) > 0:
+            stats.epochs += int(int(self.run_epoch(out)) > 0)
+        return out, stats

@@ -12,7 +12,9 @@ same for a chunk forest (``ChunkIndexSet``), chunk by chunk, keyed by
 chunk id. :func:`predictor_to_numpy` and :func:`predictor_from_numpy`
 carry a session's viewport predictor (its MLP weights, trajectory and
 rolling hit-rates), so a session started in the reference can go on in
-the port.
+the port. :func:`sharded_state_to_numpy` and
+:func:`sharded_state_from_numpy` do the same for the SPMD session's
+``ShardedTileState`` (the whole ``cell`` plane, in shard order).
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import torch
 
 from ..data.chunked import ChunkedDataset
 from ..data.rawfile import RawDataset
+from .distributed import ShardedTileState
 from .index import ChunkIndexSet, IndexConfig, TileIndex
 from .predict import PARAMS, TrajectoryStep, ViewportPredictor, _params_on
 
@@ -152,3 +155,34 @@ def predictor_from_numpy(d: Dict[str, object],
     p.source = d["source"]
     p.n_trained = int(d["n_trained"])
     return p
+
+
+SHARDED = {"cell": torch.int32, "bbox": torch.float32, "active": torch.bool,
+           "level": torch.int32, "count": torch.int64,
+           "vmin": torch.float32, "vmax": torch.float32,
+           "n_tiles": torch.int64}
+
+
+def sharded_state_to_numpy(state) -> Dict[str, np.ndarray]:
+    """The fields of either package's ``ShardedTileState`` as numpy
+    arrays (device tensors and sharded jax arrays are gathered to the
+    host), in the reference's dtypes' values: ``count`` is integral."""
+    out = {}
+    for k in SHARDED:
+        v = getattr(state, k)
+        out[k] = (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                  else np.asarray(v))
+    return out
+
+
+def sharded_state_from_numpy(arrays: Dict[str, np.ndarray],
+                             device="cuda") -> ShardedTileState:
+    """A port ``ShardedTileState`` on ``device`` holding ``arrays`` (see
+    :func:`sharded_state_to_numpy`), in the port's dtypes. A count that
+    is not a whole number raises."""
+    count = np.asarray(arrays["count"])
+    if not np.array_equal(count, np.round(count)):
+        raise ValueError("tile counts must be whole numbers")
+    return ShardedTileState(**{
+        k: torch.as_tensor(np.asarray(arrays[k])).to(device=device, dtype=dt)
+        for k, dt in SHARDED.items()})

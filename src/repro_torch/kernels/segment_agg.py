@@ -149,13 +149,13 @@ def edge_cell_ids(xs, ys, sid, x_edges, y_edges) -> torch.Tensor:
 
 def param_bin_ids(xs, ys, p: torch.Tensor, bx: int, by: int):
     """``(in_window_mask, bin_id)`` of float32 tensors under per-object
-    contract params ``p`` (float32 ``(L, 6)`` rows ``(x0, y0, x1, y1,
+    contract params ``p`` (float32 ``(..., 6)`` rows ``(x0, y0, x1, y1,
     cw, ch)`` of ``ref.window_bin_params``, gathered or expanded to the
-    objects): float32 compares, and ``clip(floor((x − x0) / cw))`` as
-    IEEE float32 subtract and divide of tensor operands of the objects'
-    own shape (never a scalar divisor, which PyTorch may turn into a
-    multiply by the reciprocal)."""
-    x0, y0, x1, y1, cw, ch = p.unbind(1)
+    objects' shape): float32 compares, and ``clip(floor((x − x0) / cw))``
+    as IEEE float32 subtract and divide of tensor operands of the
+    objects' own shape (never a scalar divisor, which PyTorch may turn
+    into a multiply by the reciprocal)."""
+    x0, y0, x1, y1, cw, ch = p.unbind(-1)
     m = (xs >= x0) & (xs <= x1) & (ys >= y0) & (ys <= y1)
     cx = clip_cell((xs - x0) / cw, bx)
     cy = clip_cell((ys - y0) / ch, by)
@@ -166,7 +166,11 @@ def window_bin_ids(xs, ys, window, bx: int, by: int):
     """``(in_window_mask, bin_id)`` of float32 tensors — the host rule
     ``ref.window_bin_ids_np`` through the binning contract
     ``ref.window_bin_params``: float32 window and cell sizes (the cell
-    sizes derived in float64 first), then :func:`param_bin_ids`."""
+    sizes derived in float64 first), then :func:`param_bin_ids`. The
+    SPMD engine bins by another rule, ``fused_select.window_bin_ids``:
+    its cell sizes round as XLA compiles the reference's ``(x1 − x0) /
+    bx`` (a multiply by the float32 reciprocal), so the two can put an
+    object on a bin edge into neighbouring bins."""
     p = torch.from_numpy(window_bin_params(window, bx, by)).to(xs.device)
     return param_bin_ids(xs, ys, p.expand(len(xs), 6), bx, by)
 

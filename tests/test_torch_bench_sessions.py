@@ -3,9 +3,8 @@
 ``compare`` gate against the reference's, at the smoke size.
 
 - Under ``"np"`` every counter field equals, as printed, the reference
-  bench run here and ``experiments/BENCH_baseline.json``'s row (B6
-  without the reference's distributed arm, which waits for the port of
-  the SPMD engine).
+  bench run here and ``experiments/BENCH_baseline.json``'s row (B6 with
+  its distributed arm, the SPMD session engine on one shard).
 - Under ``"torch"`` on CPU tensors the counters equal the reference
   bench's over the same arrays, and the gates hold.
 - B6's sequential replay, the port's one added gate, fails when the two
@@ -31,24 +30,17 @@ from test_torch_bench_paths import (VALUE_FIELDS, baseline_counters,
 
 SESSION_BENCHES = {
     "B6": (heatmap_exploration, ref_b6, ("heatmap_exact", "heatmap_phi",
-                                         "heatmap_speedup")),
+                                         "heatmap_speedup",
+                                         "heatmap_distributed")),
     "B7": (serving_concurrency, ref_b7, ("serving_",)),
     "B8": (streaming_exploration, ref_b8, ("streaming_",))}
-# rows the port adds (B6's sequential replay) or the reference has and
-# the port not yet (B6's distributed arm)
+# rows the port adds (B6's sequential replay)
 PORT_ONLY = {"heatmap_batched_eq_sequential"}
 
 
-def _reference_b6_on_one_device(monkeypatch):
-    # the sharded session needs the SPMD engine, which the port has not
-    monkeypatch.setattr(ref_b6, "distributed_session", lambda **kw: None)
-
-
 @pytest.mark.parametrize("bench", sorted(SESSION_BENCHES))
-def test_np_counters_equal_reference_and_baseline(smoke, bench,
-                                                  monkeypatch):
+def test_np_counters_equal_reference_and_baseline(smoke, bench):
     port, ref, prefixes = SESSION_BENCHES[bench]
-    _reference_b6_on_one_device(monkeypatch)
     _, rows = run_port(port.main, "np")
     _, ref_rows = run_reference(ref.main)
     got = counters([r for r in rows if r["name"] not in PORT_ONLY])
@@ -62,7 +54,6 @@ def test_np_counters_equal_reference_and_baseline(smoke, bench,
 @pytest.mark.parametrize("bench", sorted(SESSION_BENCHES))
 def test_torch_counters_equal_reference(smoke, bench, monkeypatch):
     port, ref, _ = SESSION_BENCHES[bench]
-    _reference_b6_on_one_device(monkeypatch)
     on_arrays()
     # B6's skewed set as arrays, not the reference's csv file
     monkeypatch.setattr(ref_b6, "RawDataset",
