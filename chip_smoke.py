@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--seed 0] [--rows 100000000] [--queries 50]
                           [--ticks 10] [--reps 20] [--chunk-rows 3333334]
-                          [--pan-steps 24] [--clocks-of TREE]
+                          [--pan-steps 24] [--lm-layers 0]
+                          [--clocks-of TREE]
 
 Phases (each prints its own lines; any failure exits non-zero):
 
@@ -198,13 +199,32 @@ plain version and timed beside its byte bound.
    ``ProcessGroupMesh`` on NCCL with one rank (a file store in the build
    directory) == the in-process shard on 5 windows.
 
-Phases 3 to 5 and 7 to 10 run with every plain ``*_torch`` kernel version
+11. The LM substrate's serving path (run last, after phase 3's dataset
+   is freed; launch counts reset before it and read after it — the
+   reference's LM path reaches no Pallas kernel, so it launches no
+   kernel of the table). 11a: granite-8b at full width (36 layers,
+   d 4096, 32 heads / 8 KV, d_ff 14 336, vocab 49 152): built in
+   float32 on the card, stepwise decode of 2 x 16 tokens must equal
+   one-shot prefill within the reference's rtol = atol = 2e-3; then
+   built in bfloat16 and served through ``launch/serve.py``'s ``serve``
+   (batch 8 x a 2 048-token prompt, 64 generated tokens, float32
+   state): every logit finite and 8 254 689 280 parameters; prefill ms,
+   decode ms a token, tokens/s and peak device memory printed. 11b: the
+   ten smoke configurations in float32, drawn on the CPU and carried to
+   the card: forward logits, prefill of 8 tokens and 3 decode steps
+   (logits and every state leaf) within 1e-4 · (1 + |cpu|). 11c:
+   rwkv6-7b and deepseek-moe-16b at full width in bfloat16, one after
+   the other, batch 2 x 256 tokens then 8 decode steps, every logit
+   finite. 11a gate 1 and 11b run without TF32. ``--lm-layers N`` cuts
+   the full-width configurations to N layers (quick shakedowns).
+   Prints ``phase 11…`` lines and a ``{"phase11": ...}`` line.
+
+Phases 3 to 5 and 7 to 11 run with every plain ``*_torch`` kernel version
 wrapped in a counter: the card's path must call none of them.
 
 The line before the last is a JSON object describing each kernel (with
-its launches in phases 8, 9 and 10 as ``launches_phase8``,
-``launches_phase9`` and ``launches_phase10``); the last line is
-``{"ok": true, "device": {...}}``.
+its launches in phases 8 to 11 as ``launches_phase8`` …
+``launches_phase11``); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -3264,6 +3284,265 @@ def phase_distributed(torch, build, ds, windows):
     return {"launches": launches, "wall_s": wall, "clocks": clocks}
 
 
+# --------------------------------------------------------------------- #
+# phase 11, the LM substrate's serving path
+# --------------------------------------------------------------------- #
+
+LM_FULL = "granite-8b"
+LM_FULL_PARAMS = 8_254_689_280      # the reference's param_count
+LM_SERVE = dict(batch=8, prompt_len=2048, gen=64)
+LM_SIDE = ("rwkv6-7b", "deepseek-moe-16b")
+LM_SIDE_SERVE = dict(batch=2, prompt_len=256, gen=9)
+LM_RTOL = 1e-4              # 11b: the card against the CPU, float32
+
+
+def lm_config(name, layers, **kw):
+    """A full-width configuration, its depth cut to ``layers`` (0: the
+    published depth)."""
+    import dataclasses
+
+    from repro_torch import configs
+    cfg = configs.get(name)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=cfg.n_head_layers + layers)
+    return dataclasses.replace(cfg, **kw)
+
+
+def lm_decode_equals_prefill(torch, cfg, n_tokens=16, batch=2):
+    """11a gate 1: teacher-forced decode token by token against one-shot
+    prefill; the largest |difference| and whether it is within the
+    reference's 2e-3."""
+    from repro_torch.models.model import init_params
+    from repro_torch.models.serving import (decode_step, init_serve_state,
+                                            prefill_step)
+    model = init_params(cfg, 0, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    toks = torch.randint(0, cfg.vocab, (batch, n_tokens), generator=g,
+                         device="cuda")
+    st = init_serve_state(cfg, batch, n_tokens, torch.float32,
+                          device="cuda")
+    want, _ = prefill_step(cfg, model, toks, st)
+    st = init_serve_state(cfg, batch, n_tokens, torch.float32,
+                          device="cuda")
+    got, st = prefill_step(cfg, model, toks[:, :1], st)
+    for i in range(1, n_tokens):
+        got, st = decode_step(cfg, model, toks[:, i:i + 1], st)
+    err = float((got - want).abs().max())
+    ok = bool(torch.allclose(got, want, rtol=2e-3, atol=2e-3))
+    del model, st
+    return err, ok
+
+
+def lm_served(torch, cfg, batch, prompt_len, gen):
+    """One run of the launcher's ``serve`` on a model built on the card,
+    after a short warm-up on the same model: its numbers, and the
+    device's share of a decode step (``lm_decode_profile``)."""
+    from repro_torch.launch import serve
+    from repro_torch.models.model import init_params
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    serve.serve(cfg, batch, 16, 2, "cuda", model=model)
+    r = serve.serve(cfg, batch, prompt_len, gen, "cuda", model=model)
+    steps = gen - 1
+    out = {"arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.n_layers,
+           "params": r["params"], "finite": r["finite"],
+           "batch": batch, "prompt_len": prompt_len, "decode_steps": steps,
+           "init_s": t_init, "prefill_ms": r["prefill_s"] * 1e3,
+           "prefill_tokens_s": batch * prompt_len / r["prefill_s"],
+           "decode_ms_per_token": r["decode_s"] / steps * 1e3,
+           "decode_tokens_s": batch * steps / r["decode_s"],
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "ids": r["ids"][0, :8].tolist()}
+    del r
+    torch.cuda.empty_cache()
+    prof = lm_decode_profile(torch, cfg, model, batch, prompt_len + gen)
+    prof["busy_share"] = prof["device_ms_per_step"] \
+        / out["decode_ms_per_token"]
+    out["decode_profile"] = prof
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_decode_profile(torch, cfg, model, batch, max_len, steps=2,
+                      tries=3):
+    """Device time of ``steps`` decode steps over a ``max_len`` cache
+    (``_gqa_decode`` reads the whole cache at any position, so a short
+    prefill stands in for the long one): the ``torch.profiler`` device
+    records of the window summed, per step; kernels a step; the top
+    device kernels. The profiler drops some device records of a window
+    (``PERF.md``), so a window counts as ``complete`` only when its
+    kernel records are as many as the host's kernel launches; up to
+    ``tries`` windows, the last one's numbers (then a lower bound)
+    standing if none is."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.serving import (decode_step, init_serve_state,
+                                            prefill_step)
+    st = init_serve_state(cfg, batch, max_len, torch.float32,
+                          device="cuda")
+    toks = torch.zeros((batch, 16), dtype=torch.long, device="cuda")
+    lg, st = prefill_step(cfg, model, toks, st)
+    for window in range(1, tries + 1):
+        lg, st = decode_step(cfg, model, lg.argmax(-1)[:, None], st)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                lg, st = decode_step(cfg, model, lg.argmax(-1)[:, None], st)
+            torch.cuda.synchronize()
+        evs = prof.events()
+        ks = [e for e in evs if e.device_type == DeviceType.CUDA
+              and not e.name.lower().startswith(("memcpy", "memset"))]
+        launches = sum(e.device_type == DeviceType.CPU
+                       and e.name.startswith("cu") and "Launch" in e.name
+                       for e in evs)
+        if len(ks) == launches:
+            break
+    top = {}
+    for e in ks:
+        k = e.name.split("(")[0][:60]
+        top[k] = top.get(k, 0.0) + e.time_range.elapsed_us() * 1e-3 / steps
+    return {"windows": window, "complete": len(ks) == launches,
+            "device_ms_per_step": sum(
+                e.time_range.elapsed_us() for e in ks) * 1e-3 / steps,
+            "kernels_per_step": len(ks) / steps,
+            "launches_per_step": launches / steps,
+            "top": dict(sorted(top.items(), key=lambda kv: -kv[1])[:6])}
+
+
+def lm_smoke_on_card(torch, arch):
+    """11b: one smoke configuration in float32, drawn on the CPU and
+    carried to the card: forward logits, then prefill of 8 tokens and 3
+    decode steps (logits and every state leaf), card against CPU. The
+    largest |difference| over all and whether all are within LM_RTOL."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models.model import (forward, init_params,
+                                          params_from_numpy, params_to_numpy)
+    from repro_torch.models.serving import (decode_step, init_serve_state,
+                                            prefill_step,
+                                            serve_state_to_numpy)
+    cfg = dataclasses.replace(configs.get_smoke(arch), dtype="float32")
+    cpu = init_params(cfg, 0, device="cpu")
+    models = {"cpu": cpu,
+              "cuda": params_from_numpy(cfg, params_to_numpy(cpu), "cuda")}
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (2, 16))}
+    if cfg.family == "encdec":
+        batch["frames"] = rng.normal(
+            size=(2, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        batch["patches"] = rng.normal(
+            size=(2, cfg.vision_patches, cfg.vision_d)).astype(np.float32)
+    runs = {}
+    for dev, model in models.items():
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        extras = {k: b[k] for k in ("frames", "patches") if k in b}
+        with torch.no_grad():
+            out = [forward(cfg, model, b, return_aux=False)]
+        st = init_serve_state(cfg, 2, 32, torch.float32, device=dev)
+        lg, st = prefill_step(cfg, model, b["tokens"][:, :8], st, extras)
+        out += [lg, serve_state_to_numpy(st)]
+        for i in range(8, 11):
+            lg, st = decode_step(cfg, model, b["tokens"][:, i:i + 1], st)
+            out += [lg, serve_state_to_numpy(st)]
+        runs[dev] = [a.cpu().numpy() if hasattr(a, "cpu") else a
+                     for a in out]
+    err, ok = 0.0, True
+    for g, w in zip(lm_leaves(runs["cuda"]), lm_leaves(runs["cpu"])):
+        g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+        err = max(err, float(np.abs(g - w).max()))
+        ok &= bool(np.all(np.abs(g - w) <= LM_RTOL * (1 + np.abs(w))))
+    return err, ok
+
+
+def lm_leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from lm_leaves(tree[k])
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from lm_leaves(v)
+    else:
+        yield tree
+
+
+def phase_lm(torch, build, layers):
+    """Phase 11: the LM substrate's serving path. 11a granite-8b at full
+    width (float32 decode ≡ prefill; bfloat16 through the launcher's
+    ``serve``), 11b the ten smoke configurations card ≡ CPU, 11c
+    rwkv6-7b and deepseek-moe-16b at full width in bfloat16."""
+    from repro_torch import configs
+    from repro_torch.models.model import param_count
+    log(f"== phase 11: the LM substrate's serving path, {card_line()}")
+    t_phase = time.perf_counter()
+    build.reset_launches()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log("float32 products without TF32 "
+        "(torch.backends.cuda.matmul.allow_tf32 = False) in 11a gate 1 "
+        "and 11b")
+    try:
+        # 11a, gate 1
+        cfg32 = lm_config(LM_FULL, layers, dtype="float32")
+        t0 = time.perf_counter()
+        err, ok = lm_decode_equals_prefill(torch, cfg32)
+        torch.cuda.empty_cache()
+        gate1 = {"max_abs_err": err, "seconds": time.perf_counter() - t0}
+        log(f"phase 11a gate 1: {cfg32.name} float32, {cfg32.n_layers} "
+            f"layers: 2 x 16 tokens stepwise against prefill, max |diff| "
+            f"{err:.3e} (limit rtol = atol = 2e-3), "
+            f"{gate1['seconds']:.3f} s")
+        if not ok:
+            raise Failed(f"phase 11a: decode != prefill ({err})")
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        # 11a, gate 2
+        cfg = lm_config(LM_FULL, layers)
+        gate2 = lm_served(torch, cfg, **LM_SERVE)
+        log(f"phase 11a gate 2: {json.dumps(gate2)}")
+        want = LM_FULL_PARAMS if not layers else param_count(cfg)
+        if not gate2["finite"] or gate2["params"] != want:
+            raise Failed(f"phase 11a: {gate2['finite']=} "
+                         f"{gate2['params']=} (want {want})")
+        # 11b
+        torch.backends.cuda.matmul.allow_tf32 = False
+        smoke = {}
+        for arch in configs.list_archs():
+            smoke[arch], ok = lm_smoke_on_card(torch, arch)
+            log(f"phase 11b: {arch} smoke, float32, card against CPU: "
+                f"max |diff| {smoke[arch]:.3e}")
+            if not ok:
+                raise Failed(f"phase 11b: {arch} differs on the card "
+                             f"({smoke[arch]}, limit {LM_RTOL} x (1 + |w|))")
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        # 11c
+        side = []
+        for name in LM_SIDE:
+            r = lm_served(torch, lm_config(name, layers), **LM_SIDE_SERVE)
+            log(f"phase 11c: {json.dumps(r)}")
+            if not r["finite"]:
+                raise Failed(f"phase 11c: {name} gave a non-finite logit")
+            side.append(r)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    launches = dict(build.LAUNCHES)
+    wall = time.perf_counter() - t_phase
+    log(f"launches in phase 11: {json.dumps(launches)} (the LM path is "
+        "plain PyTorch: no ported kernel is on it)")
+    log(f"phase 11 took {wall:.3f} s")
+    print(json.dumps({"phase11": {
+        "seconds": wall, "card": card_line(),
+        "decode_equals_prefill": gate1, "granite_8b": gate2,
+        "smoke_max_abs_err": smoke, "full_width": side}}), flush=True)
+    return {"launches": launches, "wall_s": wall}
+
+
 class PlainGuard:
     """While active, counts every call of a plain ``*_torch`` kernel
     version: each such function of the kernel modules, and each name
@@ -3310,6 +3589,10 @@ def main(argv=None) -> int:
                     "10^8 rows at the default)")
     ap.add_argument("--pan-steps", type=int, default=24,
                     help="steps a script of phase 8a (B9's full size: 50)")
+    ap.add_argument("--lm-layers", type=int, default=0,
+                    help="cut the full-width configurations of phase 11 "
+                    "to this many (repeated) layers; 0: their published "
+                    "depth")
     ap.add_argument("--clocks-of", metavar="TREE",
                     help="only build the port under TREE/src and print "
                     "phase 2b's three clocks of rows 1-10 (to time "
@@ -3376,7 +3659,8 @@ def main(argv=None) -> int:
                                            windows)["launches"]
             del ds
             torch.cuda.empty_cache()
-        log(f"plain kernel versions called in phases 3-5 and 7-10: "
+            launches11 = phase_lm(torch, build, args.lm_layers)["launches"]
+        log(f"plain kernel versions called in phases 3-5 and 7-11: "
             f"{json.dumps(guard.calls)}")
         if guard.calls:
             raise Failed("the card's path called a plain kernel version: "
@@ -3394,6 +3678,7 @@ def main(argv=None) -> int:
         row["launches_phase8"] = int(launches8.get(name, 0))
         row["launches_phase9"] = int(launches9.get(name, 0))
         row["launches_phase10"] = int(launches10.get(name, 0))
+        row["launches_phase11"] = int(launches11.get(name, 0))
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

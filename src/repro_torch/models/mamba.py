@@ -1,0 +1,118 @@
+"""Mamba-1 selective SSM block, jamba's sequence mixer (port of
+``repro/models/mamba.py``).
+
+Recurrence per channel i with state dimension n:
+    h_t = exp(Δ_t · A) ⊙ h_{t-1} + (Δ_t · B_t) · x_t
+    y_t = C_t · h_t + D ⊙ x_t
+with input-dependent Δ, B, C (selectivity). One sequential scan over
+time serves every call: the reference's time-chunked form (taken with
+no state at ``s >= 64``) is a rematerialisation for the TPU's backward
+and computes the same recurrence forward. Decode keeps O(1) state:
+(conv window, h).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from .layers import Leaves, const, mm, model_device, normal
+
+
+@dataclasses.dataclass(frozen=True)
+class MambaDims:
+    d_inner: int
+    d_state: int = 16
+    d_conv: int = 4
+    dt_rank: int = 0          # ModelConfig.mamba_dims: ceil(d_model / 16)
+
+
+def _dt_bias(t, gen):
+    """softplus⁻¹ of U(1e-3, 1e-1)."""
+    return t.copy_(torch.log(torch.expm1(t.uniform_(1e-3, 1e-1,
+                                                    generator=gen))))
+
+
+def _a_log(t, gen):
+    ds = t.shape[1]
+    return t.copy_(torch.arange(1, ds + 1, dtype=torch.float32,
+                                device=t.device).log().expand_as(t))
+
+
+class Mamba(Leaves):
+    def __init__(self, d_model, dims: MambaDims, dtype, device):
+        super().__init__(device)
+        di, ds, dc, dr = dims.d_inner, dims.d_state, dims.d_conv, dims.dt_rank
+        self.leaf("in_proj", (d_model, 2 * di), dtype, normal())
+        self.leaf("conv_w", (dc, di), dtype, normal(dc ** -0.5))
+        self.leaf("conv_b", (di,), dtype, const(0.0))
+        self.leaf("x_proj", (di, dr + 2 * ds), dtype, normal())
+        self.leaf("dt_proj", (dr, di), dtype, normal())
+        self.leaf("dt_bias", (di,), torch.float32, _dt_bias)
+        self.leaf("A_log", (di, ds), torch.float32, _a_log)
+        self.leaf("D", (di,), torch.float32, const(1.0))
+        self.leaf("out_proj", (di, d_model), dtype, normal())
+
+
+def _causal_conv(x, w, b, state=None):
+    """Depthwise causal conv. x: (B, S, di); w: (dc, di).
+
+    state: (B, dc-1, di) trailing context (decode) or None (zero
+    left-pad). Returns (y, new_state).
+    """
+    dc = w.shape[0]
+    if state is None:
+        state = x.new_zeros((x.shape[0], dc - 1, x.shape[2]))
+    t = torch.promote_types(state.dtype, x.dtype)
+    xp = torch.cat([state.to(t), x.to(t)], dim=1)
+    new_state = xp[:, -(dc - 1):, :]
+    s = x.shape[1]
+    y = sum(xp[:, j:j + s, :] * w[j] for j in range(dc))
+    return y + b, new_state
+
+
+def mamba_block(p: Mamba, x, dims: MambaDims, *, state=None):
+    """x: (B, S, d_model) → (y, new_state).
+
+    state: None (returns None) or dict(conv=(B,dc-1,di), h=(B,di,ds))
+    for stepwise decode.
+    """
+    b, s, _ = x.shape
+    di, ds, dr = dims.d_inner, dims.d_state, dims.dt_rank
+    xs, z = mm(x, p.in_proj).chunk(2, dim=-1)
+
+    conv_state = None if state is None else state["conv"]
+    xs, new_conv = _causal_conv(xs, p.conv_w, p.conv_b, conv_state)
+    xs = F.silu(xs)
+
+    proj = mm(xs, p.x_proj)                                   # (B,S,dr+2ds)
+    dt_r, bmat, cmat = proj.split([dr, ds, ds], dim=-1)
+    dt = F.softplus(mm(dt_r, p.dt_proj) + p.dt_bias).float()  # (B,S,di)
+    a = -torch.exp(p.A_log)                                   # (di,ds)
+
+    h = x.new_zeros((b, di, ds), dtype=torch.float32) if state is None \
+        else state["h"]
+    xf, bf, cf = xs.float(), bmat.float(), cmat.float()
+    ys = []
+    for t in range(s):
+        dt_t = dt[:, t]
+        da_t = torch.exp(dt_t[..., None] * a)                 # (B,di,ds)
+        dbx_t = (dt_t * xf[:, t])[..., None] * bf[:, t, None, :]
+        h = da_t * h + dbx_t
+        ys.append((h @ cf[:, t, :, None])[..., 0])
+    ys = torch.stack(ys, dim=1)                               # (B,S,di)
+    y = (ys + xf * p.D).to(x.dtype)
+    y = y * F.silu(z)
+    out = mm(y, p.out_proj)
+    new_state = None if state is None else {"conv": new_conv, "h": h}
+    return out, new_state
+
+
+def init_mamba_state(batch, dims: MambaDims, dtype=torch.bfloat16,
+                     device="cuda"):
+    dev = model_device(device)
+    return {"conv": torch.zeros((batch, dims.d_conv - 1, dims.d_inner),
+                                dtype=dtype, device=dev),
+            "h": torch.zeros((batch, dims.d_inner, dims.d_state),
+                             dtype=torch.float32, device=dev)}

@@ -11,7 +11,8 @@ bit for bit), and the main path, the heatmap path, the serving tick,
 the chunked path (a forest and a tick over chunks) and prediction
 (prefetch, learned salience, a tick with ``prefetch_rows``) and the
 benches B1, B2 and B4-B8 at the smoke size on the ``"cuda"`` backend
-against the same paths on ``"torch"``.
+against the same paths on ``"torch"``. The LM substrate's ten smoke
+configurations run on the card against the CPU (``-k lm``).
 """
 import numpy as np
 import pytest
@@ -999,3 +1000,83 @@ def test_distributed_fused_equals_composed_on_the_card(card):
             mesh, cfg, (4, 3), agg, fused=False)(*args)
         same(out_f, out_c)
         same(cache_f._asdict(), cache_c._asdict())
+
+
+# --------------------------------------------------------------------- #
+# the LM substrate's serving path: the card against the CPU
+# --------------------------------------------------------------------- #
+@pytest.fixture
+def full_f32(card):
+    """float32 products in float32 (no TF32) while a test runs."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield card
+    torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _lm_run(cfg, model, batch, device):
+    """forward logits, then prefill of 8 tokens and 3 decode steps: the
+    logits and the state (numpy) after each."""
+    from repro_torch.models.model import forward
+    from repro_torch.models.serving import (decode_step, init_serve_state,
+                                            prefill_step,
+                                            serve_state_to_numpy)
+    b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    extras = {k: b[k] for k in ("frames", "patches") if k in b}
+    out = [(forward(cfg, model, b, return_aux=False).cpu().numpy(), None)]
+    st = init_serve_state(cfg, 2, 32, torch.float32, device=device)
+    lg, st = prefill_step(cfg, model, b["tokens"][:, :8], st, extras)
+    out.append((lg.cpu().numpy(), serve_state_to_numpy(st)))
+    for i in range(8, 11):
+        lg, st = decode_step(cfg, model, b["tokens"][:, i:i + 1], st)
+        out.append((lg.cpu().numpy(), serve_state_to_numpy(st)))
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    elif tree is not None:
+        yield tree
+
+
+@pytest.mark.parametrize("arch", [
+    "granite-8b", "starcoder2-3b", "starcoder2-15b", "gemma-7b",
+    "deepseek-moe-16b", "dbrx-132b", "jamba-1.5-large-398b", "rwkv6-7b",
+    "whisper-small", "phi-3-vision-4.2b"])
+def test_lm_smoke_config_on_the_card_as_on_the_cpu(full_f32, arch):
+    """Each smoke configuration in float32, its CPU-drawn parameters
+    carried to the card: forward logits, then prefill and 3 decode steps
+    (logits and every state leaf) within rtol = atol = 1e-4."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models.model import (init_params, params_from_numpy,
+                                          params_to_numpy)
+    cfg = dataclasses.replace(configs.get_smoke(arch), dtype="float32")
+    cpu = init_params(cfg, 0, device="cpu")
+    card = params_from_numpy(cfg, params_to_numpy(cpu), full_f32)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (2, 16))}
+    if cfg.family == "encdec":
+        batch["frames"] = rng.normal(
+            size=(2, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        batch["patches"] = rng.normal(
+            size=(2, cfg.vision_patches, cfg.vision_d)).astype(np.float32)
+    with torch.no_grad():
+        want = _lm_run(cfg, cpu, batch, "cpu")
+        got = _lm_run(cfg, card, batch, full_f32)
+    for (gl, gs), (wl, ws) in zip(got, want):
+        np.testing.assert_allclose(gl, wl, rtol=1e-4, atol=1e-4)
+        for g, w in zip(_leaves(gs), _leaves(ws)):
+            np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4)
+
+
+def test_lm_launcher_on_the_card(card, capsys):
+    from repro_torch.launch import serve
+
+    r = serve.main(["--arch", "granite-8b", "--smoke"])
+    assert r["finite"] and r["ids"].device.type == "cuda"
+    assert capsys.readouterr().out.count("[serve] ") == 2
