@@ -199,7 +199,7 @@ plain version and timed beside its byte bound.
    ``ProcessGroupMesh`` on NCCL with one rank (a file store in the build
    directory) == the in-process shard on 5 windows.
 
-11. The LM substrate's serving path (run last, after phase 3's dataset
+11. The LM substrate's serving path (run after phase 10, once phase 3's dataset
    is freed; launch counts reset before it and read after it — the
    reference's LM path reaches no Pallas kernel, so it launches no
    kernel of the table). 11a: granite-8b at full width (36 layers,
@@ -219,12 +219,36 @@ plain version and timed beside its byte bound.
    the full-width configurations to N layers (quick shakedowns).
    Prints ``phase 11…`` lines and a ``{"phase11": ...}`` line.
 
-Phases 3 to 5 and 7 to 11 run with every plain ``*_torch`` kernel version
+12. The LM substrate's training path (run after phase 11, its models
+   freed; launch counts reset before it and read after it — no kernel of
+   the table is on this path). 12a: starcoder2-3b at full width (30
+   layers, d 3 072, 24 heads / 2 KV, d_ff 12 288, vocab 49 152) in
+   bfloat16 with remat, drawn from seed 0 and trained through
+   ``runtime.train_loop`` with ``OptConfig()`` (float32 moments) on the
+   launcher's synthetic batches: 4 x 4 096 tokens in 2 microbatches, 3
+   steps, then one more step under ``torch.profiler``. Gates: 3 180 705
+   792 parameters, every loss and grad_norm finite, every step moves
+   some parameter leaf. Prints the step ms of steps 2-3, tokens/s, the
+   FLOP a step (6·N·tokens, remat's second forward, attention) and their
+   rate, peak device memory, and the profiled step's device ms, busy
+   share, kernels and launches. 12b: the ten smoke configurations in
+   float32, carried from the CPU: loss, every gradient leaf and one
+   2-microbatch ``make_train_step`` (loss, grad_norm) within 1e-4
+   relative (a leaf: of its largest |g|), then one ``opt_update`` with the
+   same gradients and state within 1e-6. 12c: the example's granite-100m,
+   6 steps against 4 with checkpoints every 2 and a new loop resuming at
+   4 (a temporary directory): every leaf within 1e-4 of its largest |p|.
+   12d: ``repro_torch.examples.train_lm`` at its defaults (300 steps, 2
+   microbatches, checkpoints every 100): the last logged loss below the
+   first and below ln(8 192). 12b and 12c run without TF32. Prints
+   ``phase 12…`` lines and a ``{"phase12": ...}`` line.
+
+Phases 3 to 5 and 7 to 12 run with every plain ``*_torch`` kernel version
 wrapped in a counter: the card's path must call none of them.
 
 The line before the last is a JSON object describing each kernel (with
-its launches in phases 8 to 11 as ``launches_phase8`` …
-``launches_phase11``); the last line is ``{"ok": true, "device": {...}}``.
+its launches in phases 8 to 12 as ``launches_phase8`` …
+``launches_phase12``); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -3543,6 +3567,409 @@ def phase_lm(torch, build, layers):
     return {"launches": launches, "wall_s": wall}
 
 
+# --------------------------------------------------------------------- #
+# phase 12, the LM substrate's training path
+# --------------------------------------------------------------------- #
+
+LM_TRAIN = "starcoder2-3b"
+LM_TRAIN_PARAMS = 3_180_705_792     # the reference's param_count
+# configs/shapes.py's train_4k is 4 096 tokens x a global batch of 256 (a
+# 256-chip shape); one card takes 4 sequences, in 2 microbatches
+LM_TRAIN_SHAPE = dict(batch=4, seq=4096, microbatches=2, steps=3)
+LM_TRAIN_RTOL = 1e-4        # 12b: loss, grad_norm, gradient leaves
+LM_OPT_RTOL = 1e-6          # 12b: one opt_update, of each leaf's max |x|
+LM_RESUME_RTOL = 1e-4       # 12c: resumed against uninterrupted, ditto
+
+
+def train_flops(cfg, batch, seq):
+    """The FLOP of one training step of ``cfg`` at ``batch`` x ``seq``
+    tokens, as the port computes it: 6 x the matmul parameters x tokens
+    (forward 2, backward 4), remat's second forward of the superblocks
+    (2 x their parameters x tokens), and attention's two products over
+    the full (unmasked) score matrix, 4·b·h·s²·hd a layer forward, taken
+    four times (forward, remat, and 2 in backward). Embedding rows are
+    gathered, not multiplied; norms are not counted."""
+    from repro_torch.models.model import abstract_params
+    tokens = batch * seq
+    mm = {n: p.numel() for n, p in abstract_params(cfg).named_parameters()
+          if p.dim() >= 2 and n != "tok_embed"}
+    n_mm = sum(mm.values())
+    n_blocks = sum(v for n, v in mm.items() if n.startswith("blocks."))
+    attn_layers = sum(cfg.layer_kinds(i)[0] == "attn"
+                      for i in range(cfg.n_layers))
+    attn = 4 * batch * cfg.n_heads * seq * seq * cfg.hd * attn_layers
+    passes = 4 if cfg.remat else 3
+    return {"matmul_params": n_mm,
+            "model_6nt": 6 * n_mm * tokens,
+            "remat_2nt": 2 * n_blocks * tokens if cfg.remat else 0,
+            "attention": attn * passes,
+            "total": 6 * n_mm * tokens + (2 * n_blocks * tokens
+                                          if cfg.remat else 0)
+            + attn * passes}
+
+
+def leaf_sums(torch, model):
+    """A float64 sum of each parameter leaf: a step that changes any
+    element of a leaf changes its sum."""
+    return torch.stack([torch.sum(p.detach(), dtype=torch.float64)
+                        for p in model.parameters()]).cpu()
+
+
+def train_step_profile(torch, step_fn, model, opt, batch, tries=3):
+    """One more training step under ``torch.profiler``: its device time
+    (kernel records summed), kernels and host launches, and the top
+    device kernels. A window counts as ``complete`` only when its kernel
+    records are as many as the host's launches (``lm_decode_profile``);
+    up to ``tries`` windows, the last one's numbers standing if none
+    is."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for window in range(1, tries + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step_fn(model, opt, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        evs = prof.events()
+        ks = [e for e in evs if e.device_type == DeviceType.CUDA
+              and not e.name.lower().startswith(("memcpy", "memset"))]
+        launches = sum(e.device_type == DeviceType.CPU
+                       and e.name.startswith("cu") and "Launch" in e.name
+                       for e in evs)
+        if len(ks) == launches:
+            break
+    top = {}
+    for e in ks:
+        k = e.name.split("(")[0][:60]
+        top[k] = top.get(k, 0.0) + e.time_range.elapsed_us() * 1e-3
+    # self device time by the profiler's keys: the operators (aten::…),
+    # whose names say what the generic elementwise kernels were doing,
+    # and the kernels themselves
+    ops = sorted(((e.key, e.self_device_time_total * 1e-3, e.count)
+                  for e in prof.key_averages()
+                  if e.self_device_time_total > 0), key=lambda t: -t[1])
+    return {"windows": window, "complete": len(ks) == launches,
+            "profiled_wall_ms": wall * 1e3,
+            "device_ms": sum(e.time_range.elapsed_us() for e in ks) * 1e-3,
+            "kernels": len(ks), "launches": launches,
+            "top": dict(sorted(top.items(), key=lambda kv: -kv[1])[:8]),
+            "top_ops": {k: [ms, n] for k, ms, n in ops[:12]}}
+
+
+def lm_train_full_width(torch, layers):
+    """12a: ``LM_TRAIN`` at full width in bfloat16 with remat, drawn from
+    seed 0, trained ``steps`` steps through ``runtime.train_loop`` on the
+    launcher's synthetic batches, then one profiled step."""
+    from repro_torch.launch.train import synthetic_batches
+    from repro_torch.models.model import init_params, param_count
+    from repro_torch.optim import OptConfig
+    from repro_torch.runtime import TrainLoopConfig, train_loop
+    from repro_torch.runtime.train_loop import make_train_step
+    sh = LM_TRAIN_SHAPE
+    cfg = lm_config(LM_TRAIN, layers, remat=True)
+    ocfg = OptConfig()
+    inner = make_train_step(cfg, ocfg, sh["microbatches"])
+    held = {}
+
+    def step_fn(model, opt, batch):
+        if "model" not in held:
+            held["sums"] = [leaf_sums(torch, model)]
+        held["model"] = model
+        return inner(model, opt, batch)
+
+    rows = []
+
+    def on_log(row):
+        sums = leaf_sums(torch, held["model"])
+        row["moved_leaves"] = int((sums != held["sums"][-1]).sum())
+        held["sums"].append(sums)
+        rows.append(row)
+        log(f"phase 12a step {row['step']}: loss {row['loss']:.6f} "
+            f"grad_norm {row['grad_norm']:.6f} lr {row['lr']:.3e} "
+            f"{row['time_s'] * 1e3:.3f} ms, {row['moved_leaves']} of "
+            f"{len(sums)} leaves moved")
+
+    batches = synthetic_batches(cfg, sh["batch"], sh["seq"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    # handed over unnamed: the loop trains a copy and this one is freed
+    model, opt, info = train_loop(
+        cfg, ocfg, TrainLoopConfig(steps=sh["steps"],
+                                   microbatches=sh["microbatches"],
+                                   ckpt_every=0, log_every=1),
+        init_params(cfg, 0, device="cuda"), batches,
+        train_step=step_fn, hooks={"on_log": on_log})
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    step_s = [r["time_s"] for r in rows[1:]]
+    mean_s = sum(step_s) / len(step_s)
+    tokens = sh["batch"] * sh["seq"]
+    fl = train_flops(cfg, sh["batch"], sh["seq"])
+    batch = {k: v.to("cuda") for k, v in batches(sh["steps"]).items()}
+    prof = train_step_profile(torch, inner, model, opt, batch)
+    prof["busy_share"] = prof["device_ms"] / (mean_s * 1e3)
+    out = {"arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.n_layers,
+           "remat": cfg.remat, "params": param_count(cfg),
+           "batch": sh["batch"], "seq": sh["seq"],
+           "microbatches": sh["microbatches"], "steps": sh["steps"],
+           "opt": {"state_dtype": ocfg.state_dtype, "lr": ocfg.lr,
+                   "warmup_steps": ocfg.warmup_steps},
+           "loss": [r["loss"] for r in rows],
+           "grad_norm": [r["grad_norm"] for r in rows],
+           "moved_leaves": [r["moved_leaves"] for r in rows],
+           "leaves": len(held["sums"][0]),
+           "step_ms": [r["time_s"] * 1e3 for r in rows],
+           "step_ms_2_on": [s * 1e3 for s in step_s],
+           "tokens_s": tokens / mean_s,
+           "flop_step": fl, "flop_rate_s": fl["total"] / mean_s,
+           "bf16_peak_share": fl["total"] / mean_s / 989e12,
+           "peak_bytes": peak, "loop_s": wall,
+           "stragglers": len(info["stragglers"]), "profile": prof}
+    del model, opt, held, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def carry_train_state(cfg, ocfg, model, opt, device):
+    """``model`` and its optimizer state, carried to ``device`` through
+    the reference's numpy trees."""
+    from repro_torch.models.model import params_from_numpy, params_to_numpy
+    from repro_torch.optim import opt_state_from_numpy, opt_state_to_numpy
+    moved = params_from_numpy(cfg, params_to_numpy(model), device)
+    return moved, opt_state_from_numpy(moved, opt_state_to_numpy(opt), ocfg)
+
+
+def leafwise_err(torch, got, want):
+    """max over leaves of max|got - want| / max|want| (1 where both are 0
+    is never reached: an all-zero want leaf counts |got| alone)."""
+    worst = 0.0
+    for n in want:
+        w = want[n].detach().double().cpu()
+        g = got[n].detach().double().cpu()
+        scale = float(w.abs().max()) or 1.0
+        worst = max(worst, float((g - w).abs().max()) / scale)
+    return worst
+
+
+def lm_train_smoke_on_card(torch, arch):
+    """12b: one smoke configuration in float32, drawn on the CPU and
+    carried to the card: the loss and every gradient leaf, one
+    ``make_train_step`` step in 2 microbatches (loss and grad_norm), then
+    one ``opt_update`` from the CPU's state after that step with the
+    CPU's gradients, on both (parameters and moments)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models.model import (init_params, loss_fn,
+                                          params_from_numpy, params_to_numpy)
+    from repro_torch.optim import OptConfig, init_opt_state, opt_update
+    from repro_torch.runtime.train_loop import make_train_step
+    cfg = dataclasses.replace(configs.get_smoke(arch), dtype="float32")
+    ocfg = OptConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    rng = np.random.default_rng(0)
+    batch = {k: rng.integers(0, cfg.vocab, (4, 16)) for k in ("tokens",
+                                                              "labels")}
+    batch["labels"][1, -4:] = -100
+    if cfg.family == "encdec":
+        batch["frames"] = rng.normal(
+            size=(4, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        batch["patches"] = rng.normal(
+            size=(4, cfg.vision_patches, cfg.vision_d)).astype(np.float32)
+    tree = params_to_numpy(init_params(cfg, 0, device="cpu"))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        model = params_from_numpy(cfg, tree, dev)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        names, params = zip(*model.named_parameters())
+        loss, _ = loss_fn(cfg, model, b)
+        grads = dict(zip(names, torch.autograd.grad(loss, params)))
+        opt = init_opt_state(model, ocfg)
+        _, opt, met = make_train_step(cfg, ocfg, 2)(model, opt, b)
+        runs[dev] = {"loss": loss.detach(), "grads": grads, "met": met,
+                     "model": model, "opt": opt}
+    c, g = runs["cpu"], runs["cuda"]
+
+    def rel(a, b):
+        return abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+    errs = {"loss": rel(g["loss"], c["loss"]),
+            "grads": leafwise_err(torch, g["grads"], c["grads"]),
+            "step_loss": rel(g["met"]["loss"], c["met"]["loss"]),
+            "step_grad_norm": rel(g["met"]["grad_norm"],
+                                  c["met"]["grad_norm"])}
+    # one opt_update from the same state with the same gradients
+    card, card_opt = carry_train_state(cfg, ocfg, c["model"], c["opt"],
+                                       "cuda")
+    grads = {n: t.to("cuda") for n, t in c["grads"].items()}
+    _, om_card = opt_update(card, grads, card_opt, ocfg)
+    _, om_cpu = opt_update(c["model"], c["grads"], c["opt"], ocfg)
+    errs["opt_params"] = leafwise_err(
+        torch, dict(card.named_parameters()),
+        dict(c["model"].named_parameters()))
+    errs["opt_moments"] = max(
+        leafwise_err(torch, card_opt[k], c["opt"][k]) for k in ("m", "v"))
+    errs["opt_lr"] = rel(om_card["lr"], om_cpu["lr"])
+    errs["opt_grad_norm"] = rel(om_card["grad_norm"], om_cpu["grad_norm"])
+    ok = all(errs[k] <= LM_TRAIN_RTOL for k in
+             ("loss", "grads", "step_loss", "step_grad_norm")) and all(
+        errs[k] <= LM_OPT_RTOL for k in
+        ("opt_params", "opt_moments", "opt_lr", "opt_grad_norm"))
+    return errs, ok
+
+
+def lm_train_resume(torch, steps=6, kill_at=4):
+    """12c: the example's granite-100m on its pipeline, ``steps`` steps
+    uninterrupted, against ``kill_at`` steps with checkpoints every 2
+    and a new loop on the same (temporary) directory that resumes there.
+    Returns the largest |difference| of a parameter leaf over its
+    largest |value|, and the resumed loop's steps."""
+    import shutil
+    import tempfile
+
+    from repro_torch.examples import train_lm
+    from repro_torch.models.model import init_params
+    from repro_torch.optim import OptConfig
+    from repro_torch.runtime import TrainLoopConfig, train_loop
+    cfg = train_lm.make_config()
+    ocfg = OptConfig(lr=3e-4, warmup_steps=30, total_steps=300)
+    batches = train_lm.token_pipeline(cfg)
+    model0 = init_params(cfg, 0, device="cuda")
+    whole, _, _ = train_loop(cfg, ocfg, TrainLoopConfig(
+        steps=steps, microbatches=2, ckpt_every=0), model0, batches)
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        train_loop(cfg, ocfg, TrainLoopConfig(
+            steps=kill_at, microbatches=2, ckpt_every=2, ckpt_dir=d),
+            model0, batches)
+        resumed, _, info = train_loop(cfg, ocfg, TrainLoopConfig(
+            steps=steps, microbatches=2, ckpt_every=2, ckpt_dir=d,
+            log_every=1), model0, batches)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    err = leafwise_err(torch, dict(resumed.named_parameters()),
+                       dict(whole.named_parameters()))
+    moved = leafwise_err(torch, dict(whole.named_parameters()),
+                         dict(model0.named_parameters()))
+    del whole, resumed, model0
+    torch.cuda.empty_cache()
+    return {"max_rel_err": err, "moved_rel": moved,
+            "resumed_steps": [r["step"] for r in info["history"]]}
+
+
+def lm_train_example(torch):
+    """12d: the example at its defaults into a temporary directory: its
+    logged losses and the ms a step (median of the logged steps after
+    the first)."""
+    import contextlib
+    import io
+    import shutil
+    import statistics
+    import tempfile
+
+    from repro_torch.examples import train_lm
+    d = tempfile.mkdtemp(prefix="chip_smoke_train_lm_")
+    t0 = time.perf_counter()
+    try:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            info = train_lm.main(["--ckpt", d])
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    for line in out.getvalue().splitlines():
+        log(f"  train_lm | {line}")
+    hist = info["history"]
+    losses = [r["loss"] for r in hist]
+    return {"steps": hist[-1]["step"] + 1, "first_loss": losses[0],
+            "last_loss": losses[-1], "floor": float(np.log(8192)),
+            "margin": float(np.log(8192)) - losses[-1],
+            "ms_per_step": statistics.median(
+                r["time_s"] for r in hist[1:]) * 1e3,
+            "seconds": wall, "stragglers": len(info["stragglers"])}
+
+
+def phase_lm_train(torch, build, layers):
+    """Phase 12: the LM substrate's training path. 12a ``LM_TRAIN`` at
+    full width, 12b the ten smoke configurations card ≡ CPU, 12c resume
+    after a kill, 12d the example."""
+    from repro_torch import configs
+    from repro_torch.models.model import param_count
+    log(f"== phase 12: the LM substrate's training path, {card_line()}")
+    t_phase = time.perf_counter()
+    build.reset_launches()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    try:
+        # 12a
+        full = lm_train_full_width(torch, layers)
+        log(f"phase 12a: {json.dumps(full)}")
+        want = LM_TRAIN_PARAMS if not layers \
+            else param_count(lm_config(LM_TRAIN, layers))
+        if full["params"] != want:
+            raise Failed(f"phase 12a: {full['params']} parameters, want "
+                         f"{want}")
+        if not all(np.isfinite(full["loss"] + full["grad_norm"])):
+            raise Failed(f"phase 12a: a loss or grad_norm is not finite: "
+                         f"{full['loss']} {full['grad_norm']}")
+        if min(full["moved_leaves"]) < 1:
+            raise Failed(f"phase 12a: a step left every parameter as it "
+                         f"was: {full['moved_leaves']}")
+        log(f"phase 12a: {full['arch']} {full['layers']} layers, "
+            f"{full['batch']} x {full['seq']} tokens in "
+            f"{full['microbatches']} microbatches: steps 2-"
+            f"{full['steps']} {full['step_ms_2_on']} ms, "
+            f"{full['tokens_s']:.1f} tokens/s, "
+            f"{full['flop_step']['total']:.4e} FLOP a step "
+            f"({full['flop_rate_s'] / 1e12:.1f} TFLOP/s, "
+            f"{full['bf16_peak_share']:.3f} of the bf16 peak), peak "
+            f"{full['peak_bytes']} B; profiled step: "
+            f"{full['profile']['device_ms']:.3f} ms device, busy share "
+            f"{full['profile']['busy_share']:.3f}, "
+            f"{full['profile']['kernels']} kernels / "
+            f"{full['profile']['launches']} launches")
+        # 12b
+        torch.backends.cuda.matmul.allow_tf32 = False
+        log("float32 products without TF32 in 12b and 12c")
+        smoke = {}
+        for arch in configs.list_archs():
+            smoke[arch], ok = lm_train_smoke_on_card(torch, arch)
+            log(f"phase 12b: {arch} smoke, float32, card against CPU: "
+                f"{json.dumps(smoke[arch])}")
+            if not ok:
+                raise Failed(f"phase 12b: {arch} differs on the card "
+                             f"({smoke[arch]}; limits {LM_TRAIN_RTOL} "
+                             f"and, for one opt_update, {LM_OPT_RTOL})")
+        # 12c
+        resume = lm_train_resume(torch)
+        log(f"phase 12c: {json.dumps(resume)}")
+        if resume["resumed_steps"] != [4, 5] or \
+                resume["max_rel_err"] > LM_RESUME_RTOL or \
+                resume["moved_rel"] <= LM_RESUME_RTOL:
+            raise Failed(f"phase 12c: resume after a kill {resume} (limit "
+                         f"{LM_RESUME_RTOL} of each leaf's max |p|)")
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        # 12d
+        example = lm_train_example(torch)
+        log(f"phase 12d: {json.dumps(example)}")
+        if not (example["last_loss"] < example["first_loss"]
+                and example["last_loss"] < example["floor"]):
+            raise Failed(f"phase 12d: the example's loss did not fall "
+                         f"below ln(8192): {example}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    launches = dict(build.LAUNCHES)
+    wall = time.perf_counter() - t_phase
+    log(f"launches in phase 12: {json.dumps(launches)} (the LM path is "
+        "plain PyTorch: no ported kernel is on it)")
+    log(f"phase 12 took {wall:.3f} s")
+    print(json.dumps({"phase12": {
+        "seconds": wall, "card": card_line(), "full_width": full,
+        "smoke_rel_err": smoke, "resume": resume, "example": example}}),
+        flush=True)
+    return {"launches": launches, "wall_s": wall}
+
+
 class PlainGuard:
     """While active, counts every call of a plain ``*_torch`` kernel
     version: each such function of the kernel modules, and each name
@@ -3590,9 +4017,9 @@ def main(argv=None) -> int:
     ap.add_argument("--pan-steps", type=int, default=24,
                     help="steps a script of phase 8a (B9's full size: 50)")
     ap.add_argument("--lm-layers", type=int, default=0,
-                    help="cut the full-width configurations of phase 11 "
-                    "to this many (repeated) layers; 0: their published "
-                    "depth")
+                    help="cut the full-width configurations of phases 11 "
+                    "and 12 to this many (repeated) layers; 0: their "
+                    "published depth")
     ap.add_argument("--clocks-of", metavar="TREE",
                     help="only build the port under TREE/src and print "
                     "phase 2b's three clocks of rows 1-10 (to time "
@@ -3660,7 +4087,10 @@ def main(argv=None) -> int:
             del ds
             torch.cuda.empty_cache()
             launches11 = phase_lm(torch, build, args.lm_layers)["launches"]
-        log(f"plain kernel versions called in phases 3-5 and 7-11: "
+            torch.cuda.empty_cache()
+            launches12 = phase_lm_train(torch, build,
+                                        args.lm_layers)["launches"]
+        log(f"plain kernel versions called in phases 3-5 and 7-12: "
             f"{json.dumps(guard.calls)}")
         if guard.calls:
             raise Failed("the card's path called a plain kernel version: "
@@ -3679,6 +4109,7 @@ def main(argv=None) -> int:
         row["launches_phase9"] = int(launches9.get(name, 0))
         row["launches_phase10"] = int(launches10.get(name, 0))
         row["launches_phase11"] = int(launches11.get(name, 0))
+        row["launches_phase12"] = int(launches12.get(name, 0))
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

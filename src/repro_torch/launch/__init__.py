@@ -1,2 +1,3 @@
-"""Launch-side analysis of the port (counterpart of :mod:`repro.launch`):
-for now the AQP kernels' bandwidth roofline only."""
+"""The port's launchers and launch-side analysis (counterpart of
+:mod:`repro.launch`): ``serve`` and ``train``, and for now the AQP
+kernels' bandwidth roofline."""

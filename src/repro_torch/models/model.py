@@ -19,6 +19,11 @@ Whisper (enc-dec) adds a bidirectional encoder stack and cross-attention
 in each decoder layer; phi-3-vision prepends projected patch embeddings
 to the token embedding sequence.
 
+Training differentiates :func:`loss_fn` with ``torch.autograd``; with
+``cfg.remat`` each superblock (and each encoder layer) runs under
+``torch.utils.checkpoint``, where the reference wraps its scanned body
+in ``jax.checkpoint``.
+
 Entry points build on the card unless asked for another device:
 ``init_params(cfg, seed, device="cpu")`` on the CPU, ``device="meta"``
 for shapes only (``abstract_params``, ``param_count``).
@@ -32,6 +37,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from . import mamba as M
@@ -81,7 +87,7 @@ class ModelConfig:
     vision_d: int = 1024
     # --- numerics / structure ---
     dtype: str = "bfloat16"
-    remat: bool = True           # read; takes effect with training
+    remat: bool = True           # checkpoint each superblock in training
     logits_softcap: float = 0.0
 
     @property
@@ -308,19 +314,41 @@ def params_to_numpy(model: Model) -> Dict[str, Any]:
     """The reference's parameter tree of ``model``: leaves as numpy
     (bfloat16 as float32), repeated superblocks and encoder layers
     stacked on a leading axis."""
+    return stack_named(
+        ((name, host_numpy(p)) for name, p in model.named_parameters()),
+        np.stack)
+
+
+def host_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t`` as numpy; bfloat16 (which numpy lacks) as
+    float32."""
+    return t.detach().to("cpu", torch.float32 if t.dtype == torch.bfloat16
+                         else t.dtype, copy=True).numpy()
+
+
+def stack_named(named, stack=torch.stack) -> Dict[str, Any]:
+    """The reference's tree of ``(name, leaf)`` pairs named as the port's
+    parameters: ``blocks.<i>.…`` and ``encoder.<i>.…`` stacked on a
+    leading axis in ``i``'s order by ``stack`` (``torch.stack`` keeps
+    each leaf's dtype and device), the rest nested by name."""
     tree: Dict[str, Any] = {}
-    stacked: Dict[Tuple[str, ...], list] = {}
-    for name, p in model.named_parameters():
-        a = p.detach().to("cpu", torch.float32 if p.dtype == torch.bfloat16
-                          else p.dtype, copy=True).numpy()
+    stacked: Dict[Tuple[str, ...], Dict[int, Any]] = {}
+    for name, leaf in named:
         parts = name.split(".")
         if parts[0] in ("blocks", "encoder"):
-            stacked.setdefault((parts[0], *parts[2:]), []).append(a)
+            stacked.setdefault((parts[0], *parts[2:]), {})[
+                int(parts[1])] = leaf
         else:
-            _put(tree, parts, a)
-    for parts, arrays in stacked.items():
-        _put(tree, parts, np.stack(arrays))
+            _put(tree, parts, leaf)
+    for parts, by_index in stacked.items():
+        _put(tree, parts, stack([by_index[i] for i in sorted(by_index)]))
     return tree
+
+
+def unstack_named(tree, names) -> Dict[str, Any]:
+    """The inverse of :func:`stack_named`: each name's leaf of the
+    reference's tree (a stacked leaf indexed)."""
+    return {name: _tree_leaf(tree, name) for name in names}
 
 
 def _put(tree, parts, value):
@@ -397,10 +425,23 @@ def encode(cfg: ModelConfig, model: Model, frames):
     x = frames.to(dt) + _sinusoid_pos(frames.shape[1], cfg.d_model,
                                       frames.device).to(dt)
     positions = torch.arange(frames.shape[1], device=frames.device)
+
+    def body(p, h):
+        return _run_sublayer(cfg, p, h, positions=positions,
+                             causal=False)[0]
+
     for p in model.encoder:
-        x, _, _ = _run_sublayer(cfg, p, x, positions=positions,
-                                causal=False)
+        x = _remat(cfg, body, p, x)
     return L.apply_norm(model.enc_final_norm, x)
+
+
+def _remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward pass
+    when ``cfg.remat`` and autograd is recording (the reference wraps
+    each scanned body in ``jax.checkpoint``)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def cross_kv(cfg: ModelConfig, p: L.Attention, h_enc, dtype=None):
@@ -454,13 +495,20 @@ def forward(cfg: ModelConfig, model: Model, batch, *, return_aux=True):
         enc_out = encode(cfg, model, batch["frames"])
         x = x + model.dec_pos_embed[positions]
 
+    def run_block(subs, h, aux):
+        for p in subs:
+            ekv = None if enc_out is None else cross_kv(cfg, p.cross,
+                                                        enc_out)
+            h, _, aux = _run_sublayer(cfg, p, h, positions=positions,
+                                      enc_kv=ekv, aux=aux)
+        return h, aux
+
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    layers = [model.head[str(i)] for i in range(cfg.n_head_layers)] + [
-        blk[f"s{j}"] for blk in model.blocks for j in range(len(blk))]
-    for p in layers:
-        ekv = None if enc_out is None else cross_kv(cfg, p.cross, enc_out)
-        x, _, aux = _run_sublayer(cfg, p, x, positions=positions,
-                                  enc_kv=ekv, aux=aux)
+    for i in range(cfg.n_head_layers):
+        x, aux = run_block([model.head[str(i)]], x, aux)
+    for blk in model.blocks:            # the reference's scanned body
+        x, aux = _remat(cfg, run_block,
+                        [blk[f"s{j}"] for j in range(len(blk))], x, aux)
     logits = logits_of(cfg, model, x)
     if return_aux:
         return logits, aux
@@ -468,13 +516,15 @@ def forward(cfg: ModelConfig, model: Model, batch, *, return_aux=True):
 
 
 def loss_fn(cfg: ModelConfig, model: Model, batch):
-    """Mean next-token cross entropy; labels −100 are masked."""
+    """Mean next-token cross entropy; labels −100 are masked. Returns
+    ``(loss, {"ce", "aux"})``; ``torch.autograd`` differentiates it
+    through every family (the reference's ``jax.value_and_grad``)."""
     logits, aux = forward(cfg, model, batch)
     labels = batch["labels"]
     if cfg.family == "vlm":  # logits cover [patches; text] — text tail only
         logits = logits[:, -labels.shape[1]:]
     mask = labels >= 0
-    safe = torch.where(mask, labels, 0)
+    safe = torch.where(mask, labels, 0).long()
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.take_along_dim(logits, safe[..., None], dim=-1)[..., 0]
     ce = ((lse - ll) * mask).sum() / torch.clamp(mask.sum(), min=1)

@@ -12,7 +12,9 @@ the chunked path (a forest and a tick over chunks) and prediction
 (prefetch, learned salience, a tick with ``prefetch_rows``) and the
 benches B1, B2 and B4-B8 at the smoke size on the ``"cuda"`` backend
 against the same paths on ``"torch"``. The LM substrate's ten smoke
-configurations run on the card against the CPU (``-k lm``).
+configurations run on the card against the CPU: serving (``-k lm``) and
+one training step with its gradients and update, and the train
+launcher (``-k train``).
 """
 import numpy as np
 import pytest
@@ -1080,3 +1082,93 @@ def test_lm_launcher_on_the_card(card, capsys):
     r = serve.main(["--arch", "granite-8b", "--smoke"])
     assert r["finite"] and r["ids"].device.type == "cuda"
     assert capsys.readouterr().out.count("[serve] ") == 2
+
+
+# --------------------------------------------------------------------- #
+# the LM substrate's training path: the card against the CPU
+# --------------------------------------------------------------------- #
+def _leaf_err(got, want):
+    """max over leaves of max|got - want| / max|want|."""
+    worst = 0.0
+    for n, w in want.items():
+        w = w.detach().double().cpu()
+        scale = float(w.abs().max()) or 1.0
+        worst = max(worst, float((got[n].detach().double().cpu() - w)
+                                 .abs().max()) / scale)
+    return worst
+
+
+@pytest.mark.parametrize("arch", [
+    "granite-8b", "starcoder2-3b", "starcoder2-15b", "gemma-7b",
+    "deepseek-moe-16b", "dbrx-132b", "jamba-1.5-large-398b", "rwkv6-7b",
+    "whisper-small", "phi-3-vision-4.2b"])
+def test_train_step_smoke_config_on_the_card_as_on_the_cpu(full_f32, arch):
+    """Each smoke configuration in float32, its CPU-drawn parameters
+    carried to the card: the loss and every gradient leaf, one
+    ``make_train_step`` step in 2 microbatches (loss, grad_norm) within
+    1e-4 relative (a leaf: of its largest |g|); then one ``opt_update``
+    from the CPU's state after that step, with the CPU's gradients, on
+    both: parameters and moments within 1e-6 of each leaf's largest
+    |value|, lr and grad_norm within 1e-6 relative."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models.model import (init_params, loss_fn,
+                                          params_from_numpy, params_to_numpy)
+    from repro_torch.optim import (OptConfig, init_opt_state,
+                                   opt_state_from_numpy, opt_state_to_numpy,
+                                   opt_update)
+    from repro_torch.runtime.train_loop import make_train_step
+
+    cfg = dataclasses.replace(configs.get_smoke(arch), dtype="float32")
+    ocfg = OptConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    tree = params_to_numpy(init_params(cfg, 0, device="cpu"))
+    rng = np.random.default_rng(0)
+    batch = {k: rng.integers(0, cfg.vocab, (4, 16)) for k in ("tokens",
+                                                              "labels")}
+    batch["labels"][1, -4:] = -100
+    if cfg.family == "encdec":
+        batch["frames"] = rng.normal(
+            size=(4, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        batch["patches"] = rng.normal(
+            size=(4, cfg.vision_patches, cfg.vision_d)).astype(np.float32)
+    runs = {}
+    for dev in ("cpu", full_f32):
+        model = params_from_numpy(cfg, tree, dev)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        names, params = zip(*model.named_parameters())
+        loss, _ = loss_fn(cfg, model, b)
+        grads = dict(zip(names, torch.autograd.grad(loss, params)))
+        opt = init_opt_state(model, ocfg)
+        _, opt, met = make_train_step(cfg, ocfg, 2)(model, opt, b)
+        runs[dev] = (loss.detach(), grads, met, model, opt)
+    (cl, cg, cm, cmodel, copt), (gl, gg, gm, _, _) = runs.values()
+    assert float(gl) == pytest.approx(float(cl), rel=1e-4)
+    assert _leaf_err(gg, cg) <= 1e-4
+    for k in ("loss", "grad_norm"):
+        assert float(gm[k]) == pytest.approx(float(cm[k]), rel=1e-4), k
+
+    card = params_from_numpy(cfg, params_to_numpy(cmodel), full_f32)
+    card_opt = opt_state_from_numpy(card, opt_state_to_numpy(copt), ocfg)
+    _, om_card = opt_update(card, {n: g.to(full_f32) for n, g in cg.items()},
+                            card_opt, ocfg)
+    _, om_cpu = opt_update(cmodel, cg, copt, ocfg)
+    assert _leaf_err(dict(card.named_parameters()),
+                     dict(cmodel.named_parameters())) <= 1e-6
+    for k in ("m", "v"):
+        assert _leaf_err(card_opt[k], copt[k]) <= 1e-6, k
+    for k in ("lr", "grad_norm"):
+        assert float(om_card[k]) == pytest.approx(float(om_cpu[k]),
+                                                  rel=1e-6), k
+
+
+def test_train_launcher_on_the_card(card, capsys, tmp_path):
+    from repro_torch.launch import train
+
+    info = train.main(["--arch", "granite-8b", "--smoke", "--steps", "4",
+                       "--microbatches", "2", "--ckpt-dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert out.count("[train] ") == 2 and "(cuda" in out
+    assert all(np.isfinite(r["loss"]) for r in info["history"])
+    assert (tmp_path / "step_00000004" / "manifest.json").exists()

@@ -56,15 +56,24 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
         AQPEngine(make_synthetic_dataset(n=1000, device=None),
                   IndexConfig(backend="torch"))
     assert AQPEngine(ds, IndexConfig(backend="torch")).index.n_tiles == 256
-    # the LM substrate: models, serving state and the launcher
+    # the LM substrate: models, serving state, the launchers, the
+    # training loop over a default-device model and the example
     from repro_torch import configs
-    from repro_torch.launch import serve
+    from repro_torch.examples import train_lm
+    from repro_torch.launch import serve, train
     from repro_torch.models.model import Model, init_params
     from repro_torch.models.serving import init_serve_state
+    from repro_torch.optim import OptConfig
+    from repro_torch.runtime import TrainLoopConfig, train_loop
     cfg = configs.get_smoke("granite-8b")
     for build in (lambda: Model(cfg), lambda: init_params(cfg),
                   lambda: init_serve_state(cfg, 1, 8),
-                  lambda: serve.main(["--arch", "granite-8b", "--smoke"])):
+                  lambda: serve.main(["--arch", "granite-8b", "--smoke"]),
+                  lambda: train.main(["--arch", "granite-8b", "--smoke"]),
+                  lambda: train_loop(cfg, OptConfig(),
+                                     TrainLoopConfig(steps=1), Model(cfg),
+                                     lambda step: {}),
+                  lambda: train_lm.main([])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()
     assert init_params(cfg, device="cpu").tok_embed.device.type == "cpu"
