@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--rows 100000000] [--queries 50]
                           [--ticks 10] [--reps 20] [--chunk-rows 3333334]
-                          [--pan-steps 24] [--lm-layers 0]
+                          [--pan-steps 8] [--lm-layers 0]
                           [--clocks-of TREE]
 
 Phases (each prints its own lines; any failure exits non-zero):
@@ -132,8 +132,8 @@ plain version and timed beside its byte bound.
    in the phase, 8 and 10 in 8d).
    8a: B9's workload (``benchmarks/predictive_exploration.py``) at the
    paper's scale: its linear pan and random walk (0.3 x domain windows),
-   ``--pan-steps`` steps each (B9's full size is 50; cut to 24 by
-   default for time), a reactive and a predicted arm on fresh "cuda"
+   ``--pan-steps`` steps each (B9's full size is 50; cut to 8 by
+   default for time: 24 until phase 13 came), a reactive and a predicted arm on fresh "cuda"
    engines with B9's ``IndexConfig``, 4x4 ``mean(a0)`` heatmaps at
    phi = 0.05 and a budget of 3e6 rows a step (B9's 120 000 at 4e6 rows,
    3 % of the file). Gates: no prefetch reads past its budget or adds a
@@ -243,12 +243,49 @@ plain version and timed beside its byte bound.
    first and below ln(8 192). 12b and 12c run without TF32. Prints
    ``phase 12…`` lines and a ``{"phase12": ...}`` line.
 
-Phases 3 to 5 and 7 to 12 run with every plain ``*_torch`` kernel version
+13. The LM substrate's model sharding (run after phase 12; launch counts
+   reset before it and read after it — the reference shards jnp code and
+   dispatches its experts by ``shard_map`` over jnp, so no kernel of the
+   table is on this path). A one-rank NCCL ``DeviceMesh`` (1, 1) named
+   ("data", "model") is made first (file store in ``kernels/_build/``).
+   13d (first, while phase 12a's state is still on the card):
+   starcoder2-3b's trained parameters and float32 moments (bfloat16 where
+   the temporary directory lacks the room, said so) saved once with
+   ``save_checkpoint`` and restored onto that mesh with
+   ``runtime.elastic.load_for_mesh``: every leaf equal byte for byte;
+   the GB and the seconds of the save and the restore printed. 13a: one
+   MoE layer of deepseek-moe-16b at full width (64 experts top-6, 2
+   shared, d 2 048, d_expert 1 408) in float32 without TF32 on 8 x 2 048
+   tokens, at the least capacity factor where no token drops (each
+   shard's largest per-expert load checked against its capacity):
+   ``moe_ffn_sharded`` over the in-process (data=2, model=8) mesh
+   against ``_moe_ffn_local`` within the reference's rtol = 2e-4 and its
+   atol = 2e-4 taken in units of its test's output RMS (1.851 at d 16:
+   the layer's output is ~25x larger at full width), aux within 0.15,
+   the (1, 1) mesh within 1e-5; compared with deterministic
+   scatter-adds, timed without; each path's ms. 13b: the whole
+   deepseek-moe-16b, 2 x 256 tokens under ``activation_mesh_scope`` of
+   the (2, 8) mesh, every MoE layer at the capacity of all its tokens,
+   against the unsharded forward: in bfloat16 (as 11c) every logit
+   finite, the relative RMS printed beside two unsharded runs' own
+   (ROADMAP C.16: the random-weight model at full depth turns rounding
+   into flipped routing, so either is large); in float32 without TF32
+   within 1e-4 relative RMS; ms of both paths. 13c: the ten smoke
+   configurations in float32 without TF32, their parameters DTensors on
+   the NCCL mesh by ``param_specs`` and the batch by ``batch_specs``:
+   loss within 1e-5 relative, every gradient leaf within 1e-4 of its
+   largest |g|, a 2-microbatch ``make_train_step`` with
+   ``grad_shardings`` and ``mb_shardings`` (loss, grad_norm) within
+   1e-5, one ``opt_update`` on the DTensor leaves within 1e-6, all
+   against the unsharded card path. Prints ``phase 13…`` lines and a
+   ``{"phase13": ...}`` line.
+
+Phases 3 to 5 and 7 to 13 run with every plain ``*_torch`` kernel version
 wrapped in a counter: the card's path must call none of them.
 
 The line before the last is a JSON object describing each kernel (with
-its launches in phases 8 to 12 as ``launches_phase8`` …
-``launches_phase12``); the last line is ``{"ok": true, "device": {...}}``.
+its launches in phases 8 to 13 as ``launches_phase8`` …
+``launches_phase13``); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -3658,10 +3695,13 @@ def train_step_profile(torch, step_fn, model, opt, batch, tries=3):
             "top_ops": {k: [ms, n] for k, ms, n in ops[:12]}}
 
 
-def lm_train_full_width(torch, layers):
+def lm_train_full_width(torch, layers, keep=None):
     """12a: ``LM_TRAIN`` at full width in bfloat16 with remat, drawn from
     seed 0, trained ``steps`` steps through ``runtime.train_loop`` on the
-    launcher's synthetic batches, then one profiled step."""
+    launcher's synthetic batches, then one profiled step. With ``keep``
+    (a dict), the trained model and its optimizer state stay on the card
+    there (``cfg``, ``model``, ``opt``) for phase 13d."""
+    from repro_torch.launch import roofline
     from repro_torch.launch.train import synthetic_batches
     from repro_torch.models.model import init_params, param_count
     from repro_torch.optim import OptConfig
@@ -3724,9 +3764,11 @@ def lm_train_full_width(torch, layers):
            "step_ms_2_on": [s * 1e3 for s in step_s],
            "tokens_s": tokens / mean_s,
            "flop_step": fl, "flop_rate_s": fl["total"] / mean_s,
-           "bf16_peak_share": fl["total"] / mean_s / 989e12,
+           "bf16_peak_share": fl["total"] / mean_s / roofline.PEAK,
            "peak_bytes": peak, "loop_s": wall,
            "stragglers": len(info["stragglers"]), "profile": prof}
+    if keep is not None:
+        keep.update(cfg=cfg, model=model, opt=opt)
     del model, opt, held, batch
     torch.cuda.empty_cache()
     return out
@@ -3890,10 +3932,11 @@ def lm_train_example(torch):
             "seconds": wall, "stragglers": len(info["stragglers"])}
 
 
-def phase_lm_train(torch, build, layers):
+def phase_lm_train(torch, build, layers, keep=None):
     """Phase 12: the LM substrate's training path. 12a ``LM_TRAIN`` at
-    full width, 12b the ten smoke configurations card ≡ CPU, 12c resume
-    after a kill, 12d the example."""
+    full width (its state left in ``keep`` when given), 12b the ten smoke
+    configurations card ≡ CPU, 12c resume after a kill, 12d the
+    example."""
     from repro_torch import configs
     from repro_torch.models.model import param_count
     log(f"== phase 12: the LM substrate's training path, {card_line()}")
@@ -3902,7 +3945,7 @@ def phase_lm_train(torch, build, layers):
     tf32 = torch.backends.cuda.matmul.allow_tf32
     try:
         # 12a
-        full = lm_train_full_width(torch, layers)
+        full = lm_train_full_width(torch, layers, keep)
         log(f"phase 12a: {json.dumps(full)}")
         want = LM_TRAIN_PARAMS if not layers \
             else param_count(lm_config(LM_TRAIN, layers))
@@ -3970,6 +4013,449 @@ def phase_lm_train(torch, build, layers):
     return {"launches": launches, "wall_s": wall}
 
 
+# --------------------------------------------------------------------- #
+# phase 13, the LM substrate's model sharding
+# --------------------------------------------------------------------- #
+
+LM_EP = "deepseek-moe-16b"
+EP_MESH = (2, 8)            # (data, model): 16 in-process shards
+EP_TOKENS = (8, 2048)       # 13a: one MoE layer's batch x sequence
+EP_RTOL = 2e-4              # 13a: tests/test_distributed.py:533-539
+EP_REF_RMS = 1.851          # the RMS of that test's output (d 16): its
+#                             atol is taken in units of it, the layer's
+#                             own output being ~25x larger at full width
+EP_AUX_RTOL = 0.15
+EP_ONE_RTOL = 1e-5          # 13a: (1, 1) mesh, tests/test_models_smoke.py
+EP_MODEL = dict(batch=2, seq=256)   # 13b, as 11c
+EP_MODEL_F32_RMS = 1e-4     # 13b in float32: relative RMS (C.16)
+SHARD_LOSS_RTOL = 1e-5      # 13c: loss, step loss and grad_norm
+SHARD_GRAD_RTOL = 1e-4      # 13c: a gradient leaf, of its largest |g|
+SHARD_OPT_RTOL = 1e-6       # 13c: one opt_update, of each leaf's max |p|
+
+
+def card_ms(torch, fn, reps=3):
+    """The median of ``reps`` timed calls of ``fn`` after one warm-up,
+    CUDA events around each; (ms, the last result)."""
+    import statistics
+    out = fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times), out
+
+
+@contextlib.contextmanager
+def moe_no_drop(moe):
+    """Every MoE layer at the capacity of all its tokens (an expert gets
+    at most one assignment a token): no token drops on any path."""
+    real = moe.capacity
+    moe.capacity = lambda n_tokens, dims: n_tokens
+    try:
+        yield
+    finally:
+        moe.capacity = real
+
+
+def ep_layer(torch):
+    """13a: one MoE layer of ``LM_EP`` at full width in float32, its
+    expert parallelism on the in-process ``EP_MESH`` and on a (1, 1) mesh
+    against the local path, at a capacity factor where no token drops on
+    either path (checked against each shard's largest per-expert load)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.core.mesh import NamedMesh
+    from repro_torch.models import moe as MOE
+    cfg = configs.get(LM_EP)
+    dims = cfg.moe_dims
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = MOE.init_moe(cfg.d_model, dims, torch.float32, device="cuda",
+                     gen=gen)
+    x = torch.randn(*EP_TOKENS, cfg.d_model, generator=gen, device="cuda")
+    n = EP_TOKENS[0] * EP_TOKENS[1]
+    dp = EP_MESH[0]
+    loads = {"local": MOE.expert_loads(p, x, dims, 1),
+             "shard": MOE.expert_loads(p, x, dims, dp)}
+    # the least capacity factor that holds both paths' largest loads
+    cf = max(loads["local"] * dims.n_experts / (n * dims.top_k),
+             loads["shard"] * dims.n_experts / (n // dp * dims.top_k))
+    dims = dataclasses.replace(dims, capacity_factor=cf * 1.001 + 1e-6)
+    caps = {"local": MOE.capacity(n, dims),
+            "shard": MOE.capacity(n // dp, dims)}
+    if caps["local"] < loads["local"] or caps["shard"] < loads["shard"]:
+        raise Failed(f"phase 13a: a token would drop: loads {loads}, "
+                     f"capacities {caps}")
+    mesh = NamedMesh(EP_MESH, ("data", "model"), "cuda")
+    one = NamedMesh((1, 1), ("data", "model"), "cuda")
+    with torch.no_grad():
+        ms_local, _ = card_ms(torch, lambda: MOE._moe_ffn_local(p, x, dims))
+        ms_ep, _ = card_ms(torch, lambda: MOE.moe_ffn_sharded(p, x, dims,
+                                                               mesh))
+    # compared with deterministic scatter-adds: index_add_'s atomics add
+    # a token's expert outputs in a run-dependent order otherwise
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with torch.no_grad():
+            out_l, aux_l = MOE._moe_ffn_local(p, x, dims)
+            out_s, aux_s = MOE.moe_ffn_sharded(p, x, dims, mesh)
+            out_1, aux_1 = MOE.moe_ffn_sharded(p, x, dims, one)
+    finally:
+        torch.use_deterministic_algorithms(det)
+    rms = float(out_l.square().mean().sqrt())
+    atol = EP_RTOL * rms / EP_REF_RMS
+    beyond = int(((out_s - out_l).abs() > EP_RTOL + EP_RTOL
+                  * out_l.abs()).sum())
+    r = {"experts": dims.n_experts, "top_k": dims.top_k,
+         "shared": dims.n_shared, "d_model": cfg.d_model,
+         "d_expert": dims.d_expert, "tokens": list(EP_TOKENS),
+         "mesh": list(EP_MESH), "capacity_factor": dims.capacity_factor,
+         "largest_load": loads, "capacity": caps,
+         "max_abs_err": float((out_s - out_l).abs().max()),
+         "out_rms": rms, "atol": atol, "beyond_abs_2e-4": beyond,
+         "aux": [float(aux_l), float(aux_s)],
+         "one_by_one_max_abs_err": float((out_1 - out_l).abs().max()),
+         "local_ms": ms_local, "expert_parallel_ms": ms_ep}
+    ok = bool(torch.allclose(out_s, out_l, rtol=EP_RTOL, atol=atol)) \
+        and abs(float(aux_s) - float(aux_l)) <= EP_AUX_RTOL * abs(
+            float(aux_l)) \
+        and bool(torch.allclose(out_1, out_l, rtol=EP_ONE_RTOL,
+                                atol=EP_ONE_RTOL)) \
+        and abs(float(aux_1) - float(aux_l)) <= EP_ONE_RTOL * abs(
+            float(aux_l))
+    del p, x, out_l, out_s, out_1
+    torch.cuda.empty_cache()
+    return r, ok
+
+
+def ep_model(torch, layers):
+    """13b: the whole ``LM_EP``, its forward of ``EP_MODEL`` tokens under
+    the in-process ``EP_MESH`` (expert parallelism in every MoE layer)
+    against the unsharded forward, every expert at the capacity of all
+    its tokens: in bfloat16 (as 11c) every logit finite, and its relative
+    RMS printed beside the unsharded forward's own spread between two
+    runs (C.16: at full depth they are alike, routing flips make either
+    large); in float32 without TF32 within ``EP_MODEL_F32_RMS``."""
+    from repro_torch.core.mesh import NamedMesh
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.layers import activation_mesh_scope
+    from repro_torch.models.model import forward, init_params
+    mesh = NamedMesh(EP_MESH, ("data", "model"), "cuda")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg = lm_config(LM_EP, layers, dtype=dtype)
+        torch.backends.cuda.matmul.allow_tf32 = tf32 and dtype != "float32"
+        model = init_params(cfg, 0, device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(3)
+        batch = {"tokens": torch.randint(0, cfg.vocab, (EP_MODEL["batch"],
+                                                        EP_MODEL["seq"]),
+                                         generator=g, device="cuda")}
+
+        def plain():
+            return forward(cfg, model, batch, return_aux=False)
+
+        def sharded():
+            with activation_mesh_scope(mesh):
+                return plain()
+        with torch.no_grad(), moe_no_drop(MOE):
+            first = plain()
+            ms_plain, again = card_ms(torch, plain, reps=2)
+            ms_ep, got = card_ms(torch, sharded, reps=2)
+
+        def rel_rms(a):
+            return float(((a - first).float().square().mean()
+                          / first.float().square().mean()).sqrt())
+        out[dtype] = {"layers": cfg.n_layers,
+                      "finite": bool(torch.isfinite(got).all()
+                                     and torch.isfinite(first).all()),
+                      "rel_rms": rel_rms(got), "plain_spread": rel_rms(again),
+                      "plain_ms": ms_plain, "expert_parallel_ms": ms_ep}
+        del model, first, again, got
+        torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    r = {"arch": LM_EP, "tokens": [EP_MODEL["batch"], EP_MODEL["seq"]],
+         "mesh": list(EP_MESH), **out}
+    return r, out["bfloat16"]["finite"] and out["float32"]["finite"] and \
+        out["float32"]["rel_rms"] <= EP_MODEL_F32_RMS
+
+
+def smoke_batch(torch, cfg, device):
+    rng = np.random.default_rng(0)
+    b = {k: rng.integers(0, cfg.vocab, (4, 16)) for k in ("tokens",
+                                                          "labels")}
+    b["labels"][1, -4:] = -100
+    if cfg.family == "encdec":
+        b["frames"] = rng.normal(
+            size=(4, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        b["patches"] = rng.normal(
+            size=(4, cfg.vision_patches, cfg.vision_d)).astype(np.float32)
+    return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+
+
+def shard_smoke_on_card(torch, arch, mesh):
+    """13c: one smoke configuration in float32 on the card, its parameters
+    DTensors on ``mesh`` placed by ``param_specs`` and its batch by
+    ``batch_specs``: the loss and every gradient leaf, one 2-microbatch
+    ``make_train_step`` with ``grad_shardings`` and ``mb_shardings``, and
+    one ``opt_update`` on the DTensor leaves, each against the unsharded
+    card path with the same parameters and batch."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import sharding as SH
+    from repro_torch.models.layers import activation_mesh_scope
+    from repro_torch.models.model import (init_params, loss_fn,
+                                          params_from_numpy, params_to_numpy)
+    from repro_torch.optim import OptConfig, init_opt_state, opt_update
+    from repro_torch.runtime.train_loop import make_train_step
+    cfg = dataclasses.replace(configs.get_smoke(arch), dtype="float32")
+    ocfg = OptConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    tree = params_to_numpy(init_params(cfg, 0, device="cpu"))
+    batch = smoke_batch(torch, cfg, "cuda")
+
+    def model(sharded):
+        m = params_from_numpy(cfg, tree, "cuda")
+        return SH.distribute_params(m, mesh) if sharded else m
+
+    def grads(m, b):
+        names, params = zip(*m.named_parameters())
+        loss, _ = loss_fn(cfg, m, b)
+        return loss, dict(zip(names, torch.autograd.grad(loss, params)))
+
+    def full(t):
+        t = t.detach()
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    pl = SH.param_placements(model(False), mesh)
+    bspecs = SH.batch_specs(cfg, mesh, 4)
+    mb_pl = {k: SH.placements(SH.P(None, *bspecs[k]), mesh) for k in batch}
+    runs = {}
+    for sharded in (False, True):
+        scope = activation_mesh_scope(mesh) if sharded \
+            else contextlib.nullcontext()
+        b = SH.distribute_batch(cfg, mesh, batch) if sharded else batch
+        with scope:
+            m = model(sharded)
+            loss, g = grads(m, b)
+            g = {n: full(v.redistribute(mesh, pl[n]) if sharded else v)
+                 for n, v in g.items()}
+            m = model(sharded)
+            opt = init_opt_state(m, ocfg)
+            step = make_train_step(cfg, ocfg, 2, grad_shardings=pl,
+                                   mb_shardings=mb_pl) if sharded \
+                else make_train_step(cfg, ocfg, 2)
+            _, opt, met = step(m, opt, b)
+        runs[sharded] = {"loss": full(loss), "grads": g,
+                         "step": {k: full(met[k]) for k in
+                                  ("loss", "grad_norm")}}
+    # one opt_update from the same state with the unsharded gradients
+    plain_g = runs[False]["grads"]
+    upd = {}
+    for sharded in (False, True):
+        m = model(sharded)
+        g = {n: SH.distribute(v, mesh, pl[n]) for n, v in plain_g.items()} \
+            if sharded else plain_g
+        opt = init_opt_state(m, ocfg)
+        with (activation_mesh_scope(mesh) if sharded
+              else contextlib.nullcontext()):
+            opt_update(m, g, opt, ocfg)
+        upd[sharded] = {n: full(p) for n, p in m.named_parameters()}
+
+    def rel(a, b):
+        return abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+    s, u = runs[True], runs[False]
+    errs = {"loss": rel(s["loss"], u["loss"]),
+            "grads": leafwise_err(torch, s["grads"], u["grads"]),
+            "step_loss": rel(s["step"]["loss"], u["step"]["loss"]),
+            "step_grad_norm": rel(s["step"]["grad_norm"],
+                                  u["step"]["grad_norm"]),
+            "opt_params": leafwise_err(torch, upd[True], upd[False])}
+    ok = errs["loss"] <= SHARD_LOSS_RTOL and \
+        errs["step_loss"] <= SHARD_LOSS_RTOL and \
+        errs["step_grad_norm"] <= SHARD_LOSS_RTOL and \
+        errs["grads"] <= SHARD_GRAD_RTOL and \
+        errs["opt_params"] <= SHARD_OPT_RTOL
+    return errs, ok
+
+
+def same_bytes(torch, a, b):
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(ints[a.element_size()]),
+        b.contiguous().view(ints[b.element_size()]))
+
+
+def elastic_full_width(torch, kept, mesh):
+    """13d: phase 12a's ``LM_TRAIN`` state (bfloat16 parameters, float32
+    moments — bfloat16 where the directory has no room for them) saved
+    once to a temporary directory, then restored onto ``mesh`` with
+    ``runtime.elastic.load_for_mesh``: every leaf equal to what was
+    saved, byte for byte, on the card."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.models.model import abstract_params
+    from repro_torch.optim import OptConfig, init_opt_state
+    from repro_torch.runtime.elastic import load_for_mesh
+    from repro_torch.runtime.train_loop import train_state_tree
+    cfg, model, opt = kept["cfg"], kept["model"], kept["opt"]
+    d = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    try:
+        nbytes = sum(t.numel() * t.element_size() for t in
+                     list(model.parameters()) + list(opt["m"].values())
+                     + list(opt["v"].values()))
+        free = shutil.disk_usage(d).free
+        state_dtype = "float32"
+        if nbytes * 1.05 > free:
+            state_dtype = "bfloat16"
+            for k in ("m", "v"):
+                opt[k] = {n: t.to(torch.bfloat16) for n, t in opt[k].items()}
+            nbytes = sum(t.numel() * t.element_size() for t in
+                         list(model.parameters()) + list(opt["m"].values())
+                         + list(opt["v"].values()))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(d, int(opt["step"]), train_state_tree(model, opt),
+                        meta={"model": cfg.name})
+        save_s = time.perf_counter() - t0
+        meta_model = abstract_params(cfg)
+        template = train_state_tree(
+            meta_model, init_opt_state(meta_model,
+                                       OptConfig(state_dtype=state_dtype)),
+            "meta")
+        t0 = time.perf_counter()
+        params, moments, step, meta = load_for_mesh(d, template, cfg, mesh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        ok = step == int(opt["step"]) and meta == {"model": cfg.name} \
+            and int(moments["step"].full_tensor()) == int(opt["step"])
+        bad = []
+        for n, p in model.named_parameters():
+            for got, want in ((params[n], p), (moments["m"][n], opt["m"][n]),
+                              (moments["v"][n], opt["v"][n])):
+                if not same_bytes(torch, got.to_local(), want.detach()):
+                    bad.append(n)
+        del params, moments
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    r = {"arch": cfg.name, "leaves": 3 * len(list(model.parameters())),
+         "GB": nbytes / 1e9, "moments": state_dtype,
+         "disk_free_GB": free / 1e9, "save_s": save_s,
+         "restore_s": restore_s, "save_GB_s": nbytes / 1e9 / save_s,
+         "restore_GB_s": nbytes / 1e9 / restore_s, "unequal": bad[:5]}
+    return r, ok and not bad
+
+
+def phase_sharding(torch, build, layers, kept):
+    """Phase 13: the LM substrate's model sharding. The one-rank NCCL
+    mesh is made first: 13d restores phase 12a's state (handed over in
+    ``kept``, still on the card) onto it before anything else needs the
+    card's memory; then 13a one MoE layer of ``LM_EP`` under expert
+    parallelism at full width, 13b the whole ``LM_EP`` under it, 13c the
+    ten smoke configurations as DTensors on that mesh."""
+    import torch.distributed as tdist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import configs
+    log(f"== phase 13: the LM substrate's model sharding, {card_line()}")
+    t_phase = time.perf_counter()
+    build.reset_launches()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    store = build.BUILD_DIR / f"nccl-store-13-{os.getpid()}"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    if store.exists():
+        store.unlink()
+    tdist.init_process_group("nccl", init_method=f"file://{store}",
+                             world_size=1, rank=0)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        # 13d
+        elastic, ok = elastic_full_width(torch, kept, mesh)
+        kept.clear()
+        torch.cuda.empty_cache()
+        log(f"phase 13d: {json.dumps(elastic)}")
+        if not ok:
+            raise Failed(f"phase 13d: the restored state differs from the "
+                         f"saved one: {elastic}")
+        log(f"phase 13d: {elastic['arch']} {elastic['GB']:.3f} GB "
+            f"({elastic['moments']} moments) saved in "
+            f"{elastic['save_s']:.3f} s and restored onto the (1, 1) NCCL "
+            f"mesh in {elastic['restore_s']:.3f} s, every leaf equal byte "
+            f"for byte (the read was warm: the file was just written)")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        log("float32 products without TF32 in 13a and 13c")
+        # 13a
+        layer, ok = ep_layer(torch)
+        log(f"phase 13a: {json.dumps(layer)}")
+        if not ok:
+            raise Failed(f"phase 13a: expert parallelism differs from the "
+                         f"local path: {layer}")
+        log(f"phase 13a: {LM_EP} MoE layer, {layer['experts']} experts "
+            f"top-{layer['top_k']} at full width over {EP_MESH[0]} x "
+            f"{EP_MESH[1]} in-process shards: max |diff| "
+            f"{layer['max_abs_err']:.3e} (limit rtol {EP_RTOL}, atol "
+            f"{layer['atol']:.3e}: {EP_RTOL} x the output's RMS "
+            f"{layer['out_rms']:.3f} / the reference test's {EP_REF_RMS}; "
+            f"{layer['beyond_abs_2e-4']} elements beyond an absolute "
+            f"{EP_RTOL}), "
+            f"(1, 1) mesh {layer['one_by_one_max_abs_err']:.3e}; local "
+            f"{layer['local_ms']:.3f} ms, expert parallel "
+            f"{layer['expert_parallel_ms']:.3f} ms")
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        # 13b
+        whole, ok = ep_model(torch, layers)
+        log(f"phase 13b: {json.dumps(whole)}")
+        if not ok:
+            raise Failed(f"phase 13b: a logit is not finite, or float32 "
+                         f"expert parallelism is beyond {EP_MODEL_F32_RMS} "
+                         f"relative RMS of the unsharded forward: {whole}")
+        for dt in ("bfloat16", "float32"):
+            log(f"phase 13b: {LM_EP} {dt}, {whole[dt]['layers']} layers, "
+                f"{EP_MODEL['batch']} x {EP_MODEL['seq']} tokens: expert "
+                f"parallel against unsharded {whole[dt]['rel_rms']:.3e} "
+                f"relative RMS (two unsharded runs "
+                f"{whole[dt]['plain_spread']:.3e}); unsharded "
+                f"{whole[dt]['plain_ms']:.3f} ms, expert parallel "
+                f"{whole[dt]['expert_parallel_ms']:.3f} ms")
+        # 13c
+        torch.backends.cuda.matmul.allow_tf32 = False
+        smoke = {}
+        for arch in configs.list_archs():
+            smoke[arch], ok = shard_smoke_on_card(torch, arch, mesh)
+            log(f"phase 13c: {arch} smoke, float32, DTensors on the (1, 1) "
+                f"NCCL mesh against the card: {json.dumps(smoke[arch])}")
+            if not ok:
+                raise Failed(f"phase 13c: {arch} differs ({smoke[arch]}; "
+                             f"limits {SHARD_LOSS_RTOL}, {SHARD_GRAD_RTOL} "
+                             f"a gradient leaf, {SHARD_OPT_RTOL} the update)")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        tdist.destroy_process_group()
+        if store.exists():
+            store.unlink()
+    launches = dict(build.LAUNCHES)
+    wall = time.perf_counter() - t_phase
+    log(f"launches in phase 13: {json.dumps(launches)} (model sharding is "
+        "plain PyTorch: no ported kernel is on this path)")
+    log(f"phase 13 took {wall:.3f} s")
+    print(json.dumps({"phase13": {
+        "seconds": wall, "card": card_line(), "expert_parallel_layer": layer,
+        "expert_parallel_model": whole, "smoke_rel_err": smoke,
+        "elastic": elastic}}), flush=True)
+    return {"launches": launches, "wall_s": wall}
+
+
 class PlainGuard:
     """While active, counts every call of a plain ``*_torch`` kernel
     version: each such function of the kernel modules, and each name
@@ -4014,11 +4500,12 @@ def main(argv=None) -> int:
     ap.add_argument("--chunk-rows", type=int, default=3_333_334,
                     help="rows per chunk of phase 7b (B8's 30 chunks: "
                     "10^8 rows at the default)")
-    ap.add_argument("--pan-steps", type=int, default=24,
-                    help="steps a script of phase 8a (B9's full size: 50)")
+    ap.add_argument("--pan-steps", type=int, default=8,
+                    help="steps a script of phase 8a (B9's full size: 50; "
+                    "24 until phase 13 came)")
     ap.add_argument("--lm-layers", type=int, default=0,
                     help="cut the full-width configurations of phases 11 "
-                    "and 12 to this many (repeated) layers; 0: their "
+                    "to 13 to this many (repeated) layers; 0: their "
                     "published depth")
     ap.add_argument("--clocks-of", metavar="TREE",
                     help="only build the port under TREE/src and print "
@@ -4088,9 +4575,13 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
             launches11 = phase_lm(torch, build, args.lm_layers)["launches"]
             torch.cuda.empty_cache()
-            launches12 = phase_lm_train(torch, build,
-                                        args.lm_layers)["launches"]
-        log(f"plain kernel versions called in phases 3-5 and 7-12: "
+            kept = {}
+            launches12 = phase_lm_train(torch, build, args.lm_layers,
+                                        kept)["launches"]
+            torch.cuda.empty_cache()
+            launches13 = phase_sharding(torch, build, args.lm_layers,
+                                        kept)["launches"]
+        log(f"plain kernel versions called in phases 3-5 and 7-13: "
             f"{json.dumps(guard.calls)}")
         if guard.calls:
             raise Failed("the card's path called a plain kernel version: "
@@ -4110,6 +4601,7 @@ def main(argv=None) -> int:
         row["launches_phase10"] = int(launches10.get(name, 0))
         row["launches_phase11"] = int(launches11.get(name, 0))
         row["launches_phase12"] = int(launches12.get(name, 0))
+        row["launches_phase13"] = int(launches13.get(name, 0))
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

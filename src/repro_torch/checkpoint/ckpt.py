@@ -18,7 +18,9 @@ written by either package loads in the other.
 
 bfloat16, which numpy lacks, is written as the tensor's int16 view with
 the dtype string ``"bfloat16"`` and read back as such: no leaf passes
-through float32.
+through float32. A DTensor leaf (a sharded model on a ``DeviceMesh``)
+is written whole, gathered first: checkpoints hold logical arrays, and
+``load_checkpoint(shardings=...)`` places them on any mesh.
 
 Durability: the step directory is written as ``*.tmp`` and renamed only
 after both files are fsync'd, so a reader never sees a partial
@@ -32,8 +34,13 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import struct
 import threading
-from typing import Any, Dict, Optional
+import warnings
+import zipfile
+import zlib
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -61,16 +68,23 @@ def _map(fn, tree, prefix=()):
     return fn(_SEP.join(prefix), tree)
 
 
+def _logical(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole (logical) value — an all-gather, so every rank
+    of its mesh calls it — or the tensor itself."""
+    from ..models.layers import is_dtensor
+    return t.full_tensor() if is_dtensor(t) else t
+
+
 def _to_host(leaf):
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True)
+        return _logical(leaf.detach()).to("cpu", copy=True)
     return np.array(leaf, copy=True)
 
 
 def _raw(leaf):
     """(bytes as uint8, dtype string, shape) of one leaf."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().to("cpu").contiguous()
+        t = _logical(leaf.detach()).to("cpu").contiguous()
         if t.dtype == torch.bfloat16:
             a, dtype = t.view(torch.int16).numpy(), "bfloat16"
         else:
@@ -79,16 +93,23 @@ def _raw(leaf):
     else:
         a = np.ascontiguousarray(leaf)
         dtype = str(a.dtype)
-    return np.frombuffer(a.tobytes(), np.uint8), dtype, list(a.shape)
+    # a view of the leaf's bytes (C order, as ``tobytes`` gives them)
+    return a.reshape(-1).view(np.uint8), dtype, list(a.shape)
 
 
 def _leaf(raw: np.ndarray, dtype: str, shape, device) -> torch.Tensor:
-    if dtype == "bfloat16":
-        t = torch.from_numpy(np.frombuffer(raw.tobytes(), np.int16).copy()
-                             ).view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(np.frombuffer(raw.tobytes(), dtype).copy())
-    return t.reshape(shape).to(device)
+    """The leaf of a freshly read uint8 array: a view of it, copied once
+    (to the device, or on the host when the read buffer is read-only)."""
+    dev = torch.device(device)
+    if dev.type == "cpu" and not raw.flags.writeable:
+        raw = raw.copy()
+    with warnings.catch_warnings():     # a read-only buffer, copied next
+        warnings.simplefilter("ignore", UserWarning)
+        if dtype == "bfloat16":
+            t = torch.from_numpy(raw.view(np.int16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(raw.view(np.dtype(dtype)))
+    return t.reshape(shape).to(dev)
 
 
 def _step_dir(base: str, step: int) -> str:
@@ -108,22 +129,86 @@ def save_checkpoint(base: str, step: int, tree, meta: Optional[dict] = None):
     for d in os.listdir(base):            # a crashed writer's litter
         if d.endswith(".tmp"):
             shutil.rmtree(os.path.join(base, d), ignore_errors=True)
-    arrays, leaves = {}, {}
-    for key, leaf in _items(tree):
-        arrays[key], dtype, shape = _raw(leaf)
-        leaves[key] = {"dtype": dtype, "shape": shape}
-    manifest = {"step": step, "meta": meta or {}, "leaves": leaves}
+    leaves = {}
+
+    def raw_items():
+        for key, leaf in _items(tree):
+            a, dtype, shape = _raw(leaf)
+            leaves[key] = {"dtype": dtype, "shape": shape}
+            yield key, a
     final = _step_dir(base, step)
     tmp = final + ".tmp"
     os.makedirs(tmp, exist_ok=True)
     _fsynced(os.path.join(tmp, "arrays.npz"),
-             lambda f: np.savez(f, **arrays))
+             lambda f: _write_npz(f, raw_items()))
+    manifest = {"step": step, "meta": meta or {}, "leaves": leaves}
     _fsynced(os.path.join(tmp, "manifest.json"),
              lambda f: f.write(json.dumps(manifest).encode()))
     if os.path.exists(final):
         shutil.rmtree(final)
     os.replace(tmp, final)
     return final
+
+
+def _write_npz(f, items: Iterable[Tuple[str, np.ndarray]]):
+    """``np.savez``'s file (a stored zip of ``<key>.npy`` members), one
+    member at a time as ``items`` yields them (1-D contiguous uint8
+    arrays: a version 1.0 header, as ``write_array`` gives them, then
+    the array's memory in one write)."""
+    fmt = np.lib.format
+    with zipfile.ZipFile(f, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, a in items:
+            with zf.open(key + ".npy", "w", force_zip64=True) as m:
+                fmt.write_array_header_1_0(m, fmt.header_data_from_array_1_0(a))
+                m.write(memoryview(a))
+
+
+class _NpzReader:
+    """The arrays of an ``.npz`` file by key: a stored member's bytes
+    are read from their offset in one call, and its CRC-32 is checked on
+    worker threads (:meth:`verify` waits for them and raises on a
+    mismatch); a compressed member goes through ``zipfile``."""
+
+    def __init__(self, path: str):
+        self._f = open(path, "rb")
+        self._zip = zipfile.ZipFile(self._f)
+        self._pool = ThreadPoolExecutor(4)
+        self._checks = []
+
+    def __getitem__(self, key: str) -> np.ndarray:
+        info = self._zip.getinfo(key + ".npy")
+        if info.compress_type != zipfile.ZIP_STORED:
+            with self._zip.open(info) as m:
+                return np.lib.format.read_array(m, allow_pickle=False)
+        f = self._f
+        f.seek(info.header_offset)
+        name_len, extra_len = struct.unpack("<HH", f.read(30)[26:30])
+        start = info.header_offset + 30 + name_len + extra_len
+        f.seek(start)
+        version = np.lib.format.read_magic(f)
+        shape, fortran, dtype = (
+            np.lib.format.read_array_header_1_0 if version == (1, 0)
+            else np.lib.format.read_array_header_2_0)(f)
+        head_len = f.tell() - start
+        f.seek(start)
+        head = f.read(head_len)
+        a = np.fromfile(f, dtype=dtype, count=int(np.prod(shape)))
+        a = a.reshape(shape, order="F" if fortran else "C")
+        self._checks.append((key, info.CRC, self._pool.submit(
+            lambda: zlib.crc32(a.reshape(-1, order="A").view(np.uint8),
+                               zlib.crc32(head)))))
+        return a
+
+    def verify(self):
+        for key, want, got in self._checks:
+            if got.result() != want:
+                raise ValueError(f"{key}: CRC-32 mismatch in the checkpoint")
+
+    def close(self):
+        self._pool.shutdown()
+        self._zip.close()
+        self._f.close()
 
 
 def latest_step(base: str) -> Optional[int]:
@@ -136,10 +221,16 @@ def latest_step(base: str) -> Optional[int]:
 
 
 def load_checkpoint(base: str, template, step: Optional[int] = None, *,
-                    device="cpu"):
+                    device="cpu", shardings=None):
     """Restore a checkpoint onto ``template``'s structure (its leaves need
     only a ``shape``; ``meta`` tensors will do): each leaf a tensor of
-    the manifest's dtype on ``device``. Returns (tree, step, meta)."""
+    the manifest's dtype on ``device``. Returns (tree, step, meta).
+
+    shardings: optional tree of the same structure whose leaves are
+    ``models.sharding.NamedSharding`` (or None): each restored leaf is
+    placed by its sharding as soon as it is read — elastic restore onto
+    another mesh than the one that saved, since a checkpoint holds
+    logical (global) arrays."""
     step = latest_step(base) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {base}")
@@ -147,14 +238,27 @@ def load_checkpoint(base: str, template, step: Optional[int] = None, *,
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
     leaves = manifest["leaves"]
-    with np.load(os.path.join(d, "arrays.npz")) as raw:
+    raw = _NpzReader(os.path.join(d, "arrays.npz"))
+    try:
         def pick(key, like):
             info = leaves[key]
             if tuple(info["shape"]) != tuple(like.shape):
                 raise ValueError(f"{key}: checkpoint shape {info['shape']} "
                                  f"!= {tuple(like.shape)}")
             return _leaf(raw[key], info["dtype"], info["shape"], device)
-        tree = _map(pick, template)
+        if shardings is None:
+            tree = _map(pick, template)
+        else:
+            flat = dict(_items(shardings))
+
+            def pick_placed(key, like):
+                leaf = pick(key, like)
+                sh = flat.get(key)
+                return leaf if sh is None else sh.place(leaf)
+            tree = _map(pick_placed, template)
+        raw.verify()
+    finally:
+        raw.close()
     return tree, step, manifest["meta"]
 
 

@@ -17,10 +17,27 @@ reduction; the mesh decides where the shards are:
 
 Both shard the same truncated store: ``n`` objects with ``n`` a multiple
 of the shard count (the reference's ``(n // n_dev) * n_dev``).
+
+The LM substrate's model sharding names its mesh axes (``data``,
+``model``, and ``pod`` across pods) and comes in three forms, which
+:func:`axis_sizes` reads alike:
+
+- :class:`AbstractMesh` — names and sizes only, no device (the
+  reference's ``jax.sharding.AbstractMesh``): the 256- and 512-chip
+  production meshes, for specs and abstract step inputs.
+- :class:`NamedMesh` — every ``(data, model)`` (or ``(pod, data,
+  model)``) shard held by this process on one device, in the idiom of
+  :class:`ShardMesh`: a shard is a view of the whole tensor
+  (:meth:`NamedMesh.local`), and a reduction over one named axis folds
+  the shards in shard order (:meth:`NamedMesh.reduce`). The
+  counterpart of ``shard_map`` over a jax mesh, for one card.
+- ``torch.distributed.device_mesh.DeviceMesh`` with the same axis
+  names, holding DTensors: one shard a rank.
 """
 from __future__ import annotations
 
-from typing import Callable, List, Sequence, Tuple
+import itertools
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -122,3 +139,93 @@ def _on(col, lo: int, hi: int, device) -> torch.Tensor:
         return col[lo:hi].to(device=device, dtype=torch.float32)
     return torch.from_numpy(np.ascontiguousarray(
         np.asarray(col[lo:hi], np.float32))).to(device)
+
+
+# --------------------------------------------------------------------- #
+# named meshes (the LM substrate's model sharding)
+# --------------------------------------------------------------------- #
+def axis_sizes(mesh) -> Dict[str, int]:
+    """``{axis name: size}`` of a mesh in mesh order: an
+    :class:`AbstractMesh` or :class:`NamedMesh` (``.shape``), or a
+    ``DeviceMesh`` (``mesh_dim_names`` and its sizes)."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return dict(zip(names, (int(n) for n in mesh.mesh.shape)))
+    return dict(mesh.shape)
+
+
+def axis_names(mesh) -> Tuple[str, ...]:
+    return tuple(axis_sizes(mesh))
+
+
+class AbstractMesh:
+    """A mesh of names and sizes, with no device behind it."""
+
+    def __init__(self, shape: Sequence[int], names: Sequence[str]):
+        if len(shape) != len(names):
+            raise ValueError(f"{len(shape)} sizes for {len(names)} axes")
+        self.axis_names = tuple(names)
+        self.shape = dict(zip(self.axis_names, (int(n) for n in shape)))
+
+    def __repr__(self):
+        return f"{type(self).__name__}({self.shape})"
+
+
+class NamedMesh(AbstractMesh):
+    """Every shard of a named mesh, held by this process on ``device``
+    (the default ``"cuda"`` raises without a card). A coordinate is a
+    tuple of indices, one an axis in mesh order."""
+
+    def __init__(self, shape: Sequence[int], names: Sequence[str],
+                 device="cuda"):
+        super().__init__(shape, names)
+        self.device = resolve_device(device)
+
+    def coords(self) -> List[Tuple[int, ...]]:
+        """Every coordinate, the last axis fastest."""
+        return list(itertools.product(*(range(n)
+                                        for n in self.shape.values())))
+
+    def index(self, coord: Sequence[int], axes) -> Tuple[int, int]:
+        """``(index, count)`` of ``coord`` along the named ``axes``
+        (a name, a tuple of names in mesh order, or None) taken as one
+        axis, the later axis fastest."""
+        names = () if axes is None else (axes,) if isinstance(axes, str) \
+            else tuple(axes)
+        idx, count = 0, 1
+        for a in names:
+            n = self.shape[a]
+            idx = idx * n + coord[self.axis_names.index(a)]
+            count *= n
+        return idx, count
+
+    def local(self, t: torch.Tensor, spec, coord) -> torch.Tensor:
+        """The shard of ``t`` at ``coord`` under ``spec`` (one entry a
+        dimension: None, an axis name or a tuple of names): a view."""
+        for dim, axes in enumerate(spec):
+            i, n = self.index(coord, axes)
+            if n > 1:
+                m = t.shape[dim] // n
+                t = t.narrow(dim, i * m, m)
+        return t
+
+    def reduce(self, parts: Dict[Tuple[int, ...], torch.Tensor], axes,
+               op: str = "sum") -> Dict[Tuple[int, ...], torch.Tensor]:
+        """``psum`` (``op="sum"``) or ``pmean`` (``"mean"``) over the named
+        ``axes`` of one tensor a coordinate: each coordinate gets the fold,
+        in shard order, of the coordinates that differ from it only on
+        ``axes`` (one tensor a group, shared by its members)."""
+        assert op in ("sum", "mean"), op
+        names = (axes,) if isinstance(axes, str) else tuple(axes)
+        pos = [self.axis_names.index(a) for a in names]
+        groups: Dict[Tuple[int, ...], List[Tuple[int, ...]]] = {}
+        for c in sorted(parts):
+            key = tuple(-1 if i in pos else v for i, v in enumerate(c))
+            groups.setdefault(key, []).append(c)
+        out = {}
+        for members in groups.values():
+            r = _fold([parts[c] for c in members], "sum")
+            if op == "mean":
+                r = r / len(members)
+            out.update((c, r) for c in members)
+        return out

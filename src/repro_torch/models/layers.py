@@ -11,9 +11,30 @@ softmax are float32, masks use ``-1e30``.
 Attention stays plain PyTorch that mirrors the reference's jnp:
 ``_gqa_scores_full`` (no cache), ``_gqa_decode`` (a cache, ≤ 8 new
 tokens) and ``chunked_attention`` (the online-softmax loop over KV
-blocks, never more than one ``(q_chunk, kv_chunk)`` logits block). The
-reference's GSPMD hints (``shard_hint``, ``fsdp_use``, the activation
-mesh) are identity on one device and are left out.
+blocks, never more than one ``(q_chunk, kv_chunk)`` logits block).
+
+Sharding hints. The reference's model code stays mesh-agnostic: the
+launcher binds a mesh with :func:`activation_mesh_scope` and a few use
+sites pin a layout with :func:`shard_hint` (batch over the data axes,
+one channel-like dim over ``model``) or :func:`fsdp_use` (gather a
+ZeRO-sharded weight over ``data`` for its product). Here each hint is
+the identity on a plain tensor or with no mesh bound — the in-process
+``NamedMesh`` holds every shard of a plain tensor, so a layout is
+nothing to pin — and on a DTensor it redistributes to the hinted
+placements on its ``DeviceMesh``, dropping axes absent from the mesh or
+not dividing the dim, as the reference does; it never raises. Binding a
+``DeviceMesh`` also lets plain tensors (masks, RoPE tables) meet
+DTensors as replicated operands. Where DTensor has no sharding rule for
+an op on the model's path, the op runs under :func:`gathered`: its
+operands redistributed to ``Replicate`` (what GSPMD does there), its
+results replicated DTensors.
+
+``OPT`` holds the reference's four toggles with its defaults:
+``fsdp_use_hint`` (the hint above), ``mamba_recompute`` (the scans'
+16-step chunks under ``torch.utils.checkpoint``, ``mamba.py`` and
+``rwkv6.py``), ``remat_dots`` (remat saves the products' outputs,
+``model.py``) and ``attn_repeat_k`` (full attention repeats K/V to all
+heads when the heads divide the ``model`` axis and the KV heads do not).
 
 Mixed dtypes promote as jnp promotes them (a bfloat16 model over a
 float32 cache computes its attention in float32): :func:`mm` casts both
@@ -21,6 +42,7 @@ operands of a product to their common type.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable, Dict, Optional
@@ -30,9 +52,179 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core.mesh import axis_sizes
 from repro_torch.data.rawfile import resolve_device
 
 NEG = -1e30        # the reference's mask value (not -inf)
+
+# ------------------------------------------------------------------ #
+# activation sharding hints
+# ------------------------------------------------------------------ #
+_ACT_MESH = None
+
+
+def _is_device_mesh(mesh) -> bool:
+    return getattr(mesh, "mesh_dim_names", None) is not None
+
+
+def is_dtensor(x) -> bool:
+    if type(x) in (torch.Tensor, nn.Parameter) and \
+            type(getattr(x, "data", x)) is torch.Tensor:
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+@contextlib.contextmanager
+def activation_mesh_scope(mesh):
+    """Bind ``mesh`` (any of ``core.mesh``'s forms, or a ``DeviceMesh``)
+    for the hints and ``moe_ffn``'s dispatch while the block runs."""
+    global _ACT_MESH
+    prev = _ACT_MESH
+    _ACT_MESH = mesh
+    try:
+        if _is_device_mesh(mesh):
+            from torch.distributed.tensor.experimental import \
+                implicit_replication
+            with implicit_replication():
+                yield
+        else:
+            yield
+    finally:
+        _ACT_MESH = prev
+
+
+# §Perf hillclimb toggles of the reference (its production defaults).
+OPT = {"fsdp_use_hint": True, "mamba_recompute": True,
+       "remat_dots": False, "attn_repeat_k": False}
+
+
+def fsdp_use(w, *tp_axes):
+    """Use-site hint for a ZeRO/FSDP-sharded weight: gather over data,
+    keep only the TP sharding for this use (``tp_axes``, e.g.
+    ``fsdp_use(wi, None, "model")``)."""
+    if _ACT_MESH is None or not OPT["fsdp_use_hint"]:
+        return w
+    axes = tp_axes if len(tp_axes) == w.dim() \
+        else (None,) * (w.dim() - len(tp_axes)) + tuple(tp_axes)
+    return shard_hint(w, *axes)
+
+
+def shard_hint(x, *axes):
+    """Pin ``x``'s layout; axis entries are mesh-axis names, tuples of
+    them, or None. Drops axes absent from the mesh or not dividing the
+    dim (the hint degrades to replication, never errors). The identity
+    with no mesh bound or on a plain tensor."""
+    if _ACT_MESH is None or not is_dtensor(x):
+        return x
+    from .sharding import placements
+    mesh = x.device_mesh
+    want = placements(_spec(mesh, x.shape, axes), mesh)
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(mesh, want)
+
+
+def _spec(mesh, shape, axes):
+    """``axes`` without the axes absent from ``mesh`` or not dividing
+    their dim (``shard_hint``'s rule)."""
+    sizes = axis_sizes(mesh)
+    spec = []
+    for dim, ax in zip(shape, axes):
+        names = ax if isinstance(ax, tuple) else (ax,) if ax else ()
+        names = tuple(a for a in names if a in sizes)
+        if not names:
+            spec.append(None)
+            continue
+        size = int(np.prod([sizes[a] for a in names]))
+        keep = names if len(names) > 1 else names[0]
+        spec.append(keep if size and dim % size == 0 else None)
+    return spec + [None] * (len(shape) - len(spec))
+
+
+def _hint_model_dim(x, priority):
+    """shard_hint: batch (dim 0) over dp + 'model' on the first divisible
+    dim in ``priority`` (batch-only hint if none divides)."""
+    mesh = _ACT_MESH
+    if mesh is None or "model" not in axis_sizes(mesh):
+        return x
+    tp = axis_sizes(mesh)["model"]
+    axes = [None] * x.dim()
+    axes[0] = ("pod", "data")
+    for i in priority:
+        if x.shape[i] % tp == 0 and x.shape[i] >= tp:
+            axes[i] = "model"
+            break
+    return shard_hint(x, *axes)
+
+
+def _model_axis() -> int:
+    """The bound mesh's ``model`` size (1 with none bound)."""
+    return axis_sizes(_ACT_MESH).get("model", 1) \
+        if _ACT_MESH is not None else 1
+
+
+def shard_local(fn, args, in_axes, out_axes):
+    """``shard_map``'s counterpart on a ``DeviceMesh``: with a DTensor
+    among ``args``, each tensor arg redistributed to its ``in_axes``
+    (one entry a dim: None, an axis name or a tuple; sanitized as
+    ``shard_hint`` sanitizes) and taken local, ``fn`` run on the local
+    shards, and each tensor it returns made a DTensor with its
+    ``out_axes`` entry (taken as given: the caller derives it from the
+    inputs' sanitized specs, :func:`local_spec`; None replicates every
+    output). Autograd flows through both conversions; as in
+    ``shard_map``'s transpose, an operand replicated over a mesh axis that
+    another operand is sharded over gets a gradient that is partial
+    there (summed over that axis). A plain call on plain tensors."""
+    mesh = next((a.device_mesh for a in args if is_dtensor(a)), None)
+    if mesh is None:
+        return fn(*args)
+    from torch.distributed.tensor import DTensor, Partial, distribute_tensor
+
+    from .sharding import placements
+
+    pls = [placements(_spec(mesh, a.shape, ax), mesh)
+           if isinstance(a, torch.Tensor) else None
+           for a, ax in zip(args, in_axes)]
+    split = [any(pl is not None and pl[d].is_shard() for pl in pls)
+             for d in range(mesh.ndim)]
+
+    def local(a, pl):
+        if pl is None:
+            return a
+        if not is_dtensor(a):
+            a = distribute_tensor(a, mesh, pl, src_data_rank=None)
+        grad = [Partial() if split[d] and p.is_replicate() else p
+                for d, p in enumerate(pl)]
+        return a.redistribute(mesh, pl).to_local(grad_placements=grad)
+
+    out = fn(*(local(a, pl) for a, pl in zip(args, pls)))
+    single = not isinstance(out, tuple)
+    outs = (out,) if single else out
+    axes = ((),) * len(outs) if out_axes is None \
+        else (out_axes,) if single else out_axes
+    wrapped = tuple(
+        DTensor.from_local(o, mesh, placements(ax, mesh), run_check=False)
+        if isinstance(o, torch.Tensor) else o for o, ax in zip(outs, axes))
+    return wrapped[0] if single else wrapped
+
+
+def local_spec(x, axes):
+    """The sanitized spec ``shard_local`` gives ``x`` for ``axes`` under
+    the bound mesh (all None with none bound)."""
+    if _ACT_MESH is None:
+        return [None] * x.dim()
+    return _spec(_ACT_MESH, x.shape, axes)
+
+
+def gathered(fn, *args):
+    """``fn(*args)`` where DTensor has no sharding rule for its ops: with
+    a DTensor among ``args``, each tensor redistributed to ``Replicate``
+    and taken local, and each tensor ``fn`` returns a replicated DTensor
+    (``shard_local`` with every axis None). A plain call on plain
+    tensors."""
+    return shard_local(fn, args, [()] * len(args), None)
+
 
 # ------------------------------------------------------------------ #
 # parameter containers and initializers
@@ -188,8 +380,8 @@ class Attention(Leaves):
 
 def embed_lookup(table, ids):
     """The rows of ``table`` at ``ids`` (the reference's one-hot matmul
-    gives the same rows)."""
-    return F.embedding(ids, table)
+    gives the same rows), batch-sharded."""
+    return shard_hint(F.embedding(ids, table), ("pod", "data"), None, None)
 
 
 def _scores(q, k, g):
@@ -198,6 +390,9 @@ def _scores(q, k, g):
     repeated."""
     b, hk, t, d = k.shape
     s = q.shape[2]
+    q, k = _hint_model_dim(q, (1,)), _hint_model_dim(k, (1,))
+    if hk % _model_axis():      # a DTensor's heads cannot fold here
+        q = shard_hint(q, ("pod", "data"), None, None, None)
     lg = mm(q.reshape(b, hk, g * s, d), k.transpose(-1, -2))
     return lg.float().reshape(b, hk, g, s, t)
 
@@ -205,21 +400,45 @@ def _scores(q, k, g):
 def _weighted(p, v, g):
     """(B, Hk, g, S, T) probabilities · (B, Hk, T, D) → (B, Hk, g, S, D)."""
     b, hk, _, s, t = p.shape
+    p, v = _hint_model_dim(p, (1,)), _hint_model_dim(v, (1,))
     out = mm(p.to(v.dtype).reshape(b, hk, g * s, t), v)
     return out.reshape(b, hk, g, s, -1)
 
 
+def _causal(logits, s, t, q_off, device):
+    qpos = torch.arange(s, device=device) + q_off
+    kpos = torch.arange(t, device=device)
+    return torch.where(kpos[None, :] <= qpos[:, None], logits, NEG)
+
+
 def _gqa_scores_full(q, k, v, causal, q_off=0):
-    """Full-matrix GQA attention (small S only). q: (B,H,S,D), kv: (B,Hk,T,D)."""
+    """Full-matrix GQA attention (small S only). q: (B,H,S,D), kv: (B,Hk,T,D).
+
+    Sharding of the score tensor, as the reference's: with
+    ``OPT["attn_repeat_k"]``, heads dividing the ``model`` axis and KV
+    heads not, K/V are repeated to all H heads and the (B,H,S,T) scores
+    shard on H; otherwise the grouped (B,Hk,G,S,T) scores shard Hk, G or
+    S over ``model``, the first that divides."""
     b, h, s, d = q.shape
     hk, t = k.shape[1], k.shape[2]
     g = h // hk
-    logits = _scores(q, k, g) * d ** -0.5
+    tp = _model_axis()
+    if OPT["attn_repeat_k"] and tp > 1 and h % tp == 0 and hk % tp != 0:
+        kr = k.repeat_interleave(g, dim=1)
+        vr = v.repeat_interleave(g, dim=1)
+        dp = ("pod", "data")
+        q = shard_hint(q, dp, "model", None, None)
+        kr = shard_hint(kr, dp, "model", None, None)
+        vr = shard_hint(vr, dp, "model", None, None)
+        logits = mm(q, kr.transpose(-1, -2)).float() * d ** -0.5
+        logits = shard_hint(logits, dp, "model", None, None)
+        if causal:
+            logits = _causal(logits, s, t, q_off, q.device)
+        p = torch.softmax(logits, dim=-1)
+        return mm(p.to(vr.dtype), vr)
+    logits = _hint_model_dim(_scores(q, k, g) * d ** -0.5, (1, 2, 3))
     if causal:
-        qpos = torch.arange(s, device=q.device) + q_off
-        kpos = torch.arange(t, device=q.device)
-        mask = kpos[None, :] <= qpos[:, None]
-        logits = torch.where(mask, logits, NEG)
+        logits = _causal(logits, s, t, q_off, q.device)
     p = torch.softmax(logits, dim=-1)
     return _weighted(p, v, g).reshape(b, h, s, d)
 
@@ -283,12 +502,33 @@ def _gqa_decode(q, k, v, pos, s):
     b, h, _, d = q.shape
     hk, t = k.shape[1], k.shape[2]
     g = h // hk
+    if hk % max(_model_axis(), 1) != 0:
+        # the cache is head-dim-sharded when Hkv < TP: match q to it
+        dp = ("pod", "data")
+        q = shard_hint(q.reshape(b, hk, g, s, d), dp, None, None, None,
+                       "model").reshape(b, h, s, d)
+        k = shard_hint(k, dp, None, None, "model")
+        v = shard_hint(v, dp, None, None, "model")
     logits = _scores(q, k, g) * d ** -0.5
     kpos = torch.arange(t, device=q.device)
     qpos = pos + torch.arange(s, device=q.device)
     logits = torch.where(kpos[None, :] <= qpos[:, None], logits, NEG)
     p = torch.softmax(logits, dim=-1)
     return _weighted(p, v, g).reshape(b, h, s, d)
+
+
+def split_last(t, n, m):
+    """(…, n·m) → (…, n, m). A DTensor whose ``n`` does not divide the
+    ``model`` axis is first gathered over it (a column-sharded product
+    would split a group otherwise)."""
+    if n % _model_axis():
+        t = shard_hint(t, ("pod", "data"), *([None] * (t.dim() - 1)))
+    return t.reshape(*t.shape[:-1], n, m)
+
+
+def _heads(t, n, hd):
+    """(B, S, n·hd) → (B, n, S, hd)."""
+    return split_last(t, n, hd).transpose(1, 2)
 
 
 def attention(p: Attention, x, dims: AttnDims, *, positions, causal=True,
@@ -306,10 +546,10 @@ def attention(p: Attention, x, dims: AttnDims, *, positions, causal=True,
     """
     b, s, _ = x.shape
     h, hk, hd = dims.n_heads, dims.n_kv_heads, dims.head_dim
-    q = mm(x, p.wq).reshape(b, s, h, hd).transpose(1, 2)
+    q = _heads(mm(x, fsdp_use(p.wq, None, "model")), h, hd)
     if kv_override is None:
-        k = mm(x, p.wk).reshape(b, s, hk, hd).transpose(1, 2)
-        v = mm(x, p.wv).reshape(b, s, hk, hd).transpose(1, 2)
+        k = _heads(mm(x, fsdp_use(p.wk, None, "model")), hk, hd)
+        v = _heads(mm(x, fsdp_use(p.wv, None, "model")), hk, hd)
         if use_rope:
             q = apply_rope(q, positions, rope_theta)
             k = apply_rope(k, positions, rope_theta)
@@ -337,12 +577,20 @@ def attention(p: Attention, x, dims: AttnDims, *, positions, causal=True,
         t = k.shape[2]
         use_chunked = chunked if chunked is not None else (s * t > 1 << 22)
         if use_chunked:
-            out = chunked_attention(q, k, v, causal=causal,
-                                    q_chunk=q_chunk, kv_chunk=kv_chunk)
+            def core(q, k, v):
+                return chunked_attention(q, k, v, causal=causal,
+                                         q_chunk=q_chunk, kv_chunk=kv_chunk)
         else:
-            out = _gqa_scores_full(q, k, v, causal)
+            def core(q, k, v):
+                return _gqa_scores_full(q, k, v, causal)
+        # per (batch, head) shard on a DeviceMesh: heads over `model`
+        # when both head counts divide it, else gathered
+        tp = _model_axis()
+        spec = local_spec(q, (("pod", "data"),
+                              "model" if h % tp == hk % tp == 0 else None))
+        out = shard_local(core, (q, k, v), (spec,) * 3, spec)
     out = out.transpose(1, 2).reshape(b, s, h * hd)
-    return mm(out, p.wo), new_cache
+    return mm(out, fsdp_use(p.wo, "model", None)), new_cache
 
 
 def init_cache(batch, dims: AttnDims, max_len, dtype=torch.bfloat16,
@@ -380,7 +628,9 @@ def init_mlp(d_model, d_ff, kind, dtype, device="cuda", gen=None) -> MLP:
 
 
 def mlp(p: MLP, x, kind):
+    wi = fsdp_use(p.wi, None, "model")
+    wo = fsdp_use(p.wo, "model", None)
     if kind in ("swiglu", "geglu"):
         act = F.silu if kind == "swiglu" else gelu
-        return mm(act(mm(x, p.wg)) * mm(x, p.wi), p.wo)
-    return mm(gelu(mm(x, p.wi)), p.wo)
+        return mm(act(mm(x, fsdp_use(p.wg, None, "model"))) * mm(x, wi), wo)
+    return mm(gelu(mm(x, wi)), wo)

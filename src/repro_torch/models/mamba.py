@@ -5,10 +5,14 @@ Recurrence per channel i with state dimension n:
     h_t = exp(Δ_t · A) ⊙ h_{t-1} + (Δ_t · B_t) · x_t
     y_t = C_t · h_t + D ⊙ x_t
 with input-dependent Δ, B, C (selectivity). One sequential scan over
-time serves every call: the reference's time-chunked form (taken with
-no state at ``s >= 64``) is a rematerialisation for the TPU's backward
-and computes the same recurrence forward. Decode keeps O(1) state:
-(conv window, h).
+time computes it. With ``layers.OPT["mamba_recompute"]``, no state and
+``s >= 64`` (the reference's time-chunked form, §Perf H2) the scan runs
+in 16-step chunks, each under ``torch.utils.checkpoint`` when autograd
+records: the backward keeps h once a chunk and recomputes the chunk's
+steps — the same recurrence, the same values. On a ``DeviceMesh`` the
+scan runs per (batch, channel) shard (``layers.shard_local``): batch
+over the data axes, the inner channels over ``model``, as the
+reference pins h. Decode keeps O(1) state: (conv window, h).
 """
 from __future__ import annotations
 
@@ -17,7 +21,12 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from torch.utils.checkpoint import checkpoint
+
+from . import layers as L
 from .layers import Leaves, const, mm, model_device, normal
+
+CHUNK = 16          # the reference's recompute chunk
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,19 +103,47 @@ def mamba_block(p: Mamba, x, dims: MambaDims, *, state=None):
     h = x.new_zeros((b, di, ds), dtype=torch.float32) if state is None \
         else state["h"]
     xf, bf, cf = xs.float(), bmat.float(), cmat.float()
-    ys = []
-    for t in range(s):
-        dt_t = dt[:, t]
-        da_t = torch.exp(dt_t[..., None] * a)                 # (B,di,ds)
-        dbx_t = (dt_t * xf[:, t])[..., None] * bf[:, t, None, :]
-        h = da_t * h + dbx_t
-        ys.append((h @ cf[:, t, :, None])[..., 0])
-    ys = torch.stack(ys, dim=1)                               # (B,S,di)
+    chunked = L.OPT["mamba_recompute"] and state is None and s >= 64
+    if chunked:
+        assert s % CHUNK == 0, (s, CHUNK)
+    dp = ("pod", "data")
+    seq = L.local_spec(dt, (dp, None, "model"))
+    hs = [seq[0], seq[2], None]
+    ys, h = L.shard_local(
+        lambda dt, xf, bf, cf, a, h: _scan(dt, xf, bf, cf, a, h, chunked),
+        (dt, xf, bf, cf, a, h),
+        (seq, seq, (seq[0],), (seq[0],), (seq[2], None), hs), (seq, hs))
     y = (ys + xf * p.D).to(x.dtype)
     y = y * F.silu(z)
     out = mm(y, p.out_proj)
     new_state = None if state is None else {"conv": new_conv, "h": h}
     return out, new_state
+
+
+def _steps(dt, xf, bf, cf, a, h):
+    ys = []
+    for t in range(dt.shape[1]):
+        dt_t = dt[:, t]
+        da_t = torch.exp(dt_t[..., None] * a)                 # (B,di,ds)
+        dbx_t = (dt_t * xf[:, t])[..., None] * bf[:, t, None, :]
+        h = da_t * h + dbx_t
+        ys.append((h @ cf[:, t, :, None])[..., 0])
+    return torch.stack(ys, dim=1), h                          # (B,S,di)
+
+
+def _scan(dt, xf, bf, cf, a, h, chunked):
+    """The recurrence over time from ``h``: (ys (B,S,di), last h); with
+    ``chunked``, 16-step chunks, each recomputed in the backward."""
+    if not chunked:
+        return _steps(dt, xf, bf, cf, a, h)
+    ys = []
+    for i in range(0, dt.shape[1], CHUNK):
+        blk = (dt[:, i:i + CHUNK], xf[:, i:i + CHUNK], bf[:, i:i + CHUNK],
+               cf[:, i:i + CHUNK], a, h)
+        y, h = checkpoint(_steps, *blk, use_reentrant=False) \
+            if torch.is_grad_enabled() else _steps(*blk)
+        ys.append(y)
+    return torch.cat(ys, dim=1), h
 
 
 def init_mamba_state(batch, dims: MambaDims, dtype=torch.bfloat16,

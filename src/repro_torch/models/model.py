@@ -22,7 +22,15 @@ to the token embedding sequence.
 Training differentiates :func:`loss_fn` with ``torch.autograd``; with
 ``cfg.remat`` each superblock (and each encoder layer) runs under
 ``torch.utils.checkpoint``, where the reference wraps its scanned body
-in ``jax.checkpoint``.
+in ``jax.checkpoint``. With ``layers.OPT["remat_dots"]`` the checkpoint
+saves the products' outputs (``aten.mm``/``bmm``) and recomputes the
+rest, the counterpart of ``jax.checkpoint_policies.checkpoint_dots``.
+
+On a ``DeviceMesh`` the parameters are DTensors placed by
+``models.sharding`` and the batch is sharded over the data axes; the
+forward runs under ``layers.activation_mesh_scope`` of that mesh, and
+the loss's label pick runs gathered (``layers.gathered``: DTensor has no
+sharding rule for it).
 
 Entry points build on the card unless asked for another device:
 ``init_params(cfg, seed, device="cpu")`` on the CPU, ``device="meta"``
@@ -37,7 +45,8 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from . import layers as L
 from . import mamba as M
@@ -435,11 +444,27 @@ def encode(cfg: ModelConfig, model: Model, frames):
     return L.apply_norm(model.enc_final_norm, x)
 
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_save_dots)
+
+
 def _remat(cfg: ModelConfig, fn, *args):
     """``fn(*args)``, its activations recomputed in the backward pass
     when ``cfg.remat`` and autograd is recording (the reference wraps
-    each scanned body in ``jax.checkpoint``)."""
+    each scanned body in ``jax.checkpoint``; ``OPT["remat_dots"]``
+    keeps the products' outputs)."""
     if cfg.remat and torch.is_grad_enabled():
+        if L.OPT["remat_dots"]:
+            return checkpoint(fn, *args, use_reentrant=False,
+                              context_fn=_dots_context)
         return checkpoint(fn, *args, use_reentrant=False)
     return fn(*args)
 
@@ -471,6 +496,9 @@ def embed(cfg: ModelConfig, model: Model, tokens, patches=None):
 def logits_of(cfg: ModelConfig, model: Model, x):
     """Final norm and the (tied) head, float32 logits, softcapped."""
     x = L.apply_norm(model.final_norm, x)
+    # batch-shard the pre-logits activations so the head keeps the vocab
+    # axis sharded
+    x = L.shard_hint(x, ("pod", "data"), None, None)
     head = model.tok_embed.T if cfg.tie_embeddings else model.lm_head
     logits = (x @ head.to(x.dtype)).float()
     if cfg.logits_softcap:
@@ -523,9 +551,13 @@ def loss_fn(cfg: ModelConfig, model: Model, batch):
     labels = batch["labels"]
     if cfg.family == "vlm":  # logits cover [patches; text] — text tail only
         logits = logits[:, -labels.shape[1]:]
+    ce = L.gathered(_cross_entropy, logits, labels)
+    return ce + cfg.moe_aux_coef * aux, {"ce": ce, "aux": aux}
+
+
+def _cross_entropy(logits, labels):
     mask = labels >= 0
     safe = torch.where(mask, labels, 0).long()
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.take_along_dim(logits, safe[..., None], dim=-1)[..., 0]
-    ce = ((lse - ll) * mask).sum() / torch.clamp(mask.sum(), min=1)
-    return ce + cfg.moe_aux_coef * aux, {"ce": ce, "aux": aux}
+    return ((lse - ll) * mask).sum() / torch.clamp(mask.sum(), min=1)

@@ -7,10 +7,14 @@ Per head (head size P): state S ∈ R^{P×P};
 with w_t = exp(−exp(w0 + LoRA_w(x̃_t))) data-dependent. Token-shift
 interpolation coefficients are also data-dependent via small LoRAs.
 
-One sequential scan over time carries S (B, H, P, P) in float32; the
-reference's 16-step chunked form (no state, ``s >= 64``) is a
-rematerialisation for the TPU's backward with the same forward. Decode
-is O(1): one state update per token. Channel mixing is the RWKV
+One sequential scan over time carries S (B, H, P, P) in float32. With
+``layers.OPT["mamba_recompute"]``, no state, ``s % 16 == 0`` and
+``s >= 64`` (the reference's chunked form) it runs in 16-step chunks,
+each under ``torch.utils.checkpoint`` when autograd records: one S a
+chunk is kept for the backward, the same values forward. On a
+``DeviceMesh`` the scan runs per (batch, head) shard
+(``layers.shard_local``): heads over ``model``, as the reference pins S.
+Decode is O(1): one state update per token. Channel mixing is the RWKV
 squared-ReLU FFN.
 """
 from __future__ import annotations
@@ -20,7 +24,12 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from torch.utils.checkpoint import checkpoint
+
+from . import layers as L
 from .layers import Leaves, const, group_norm_heads, mm, model_device, normal
+
+CHUNK = 16          # the reference's recompute chunk
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,32 +87,57 @@ def rwkv_tmix(p: RWKVTmix, x, dims: RWKVDims, *, state=None):
     # data-dependent token-shift interpolation (Finch LoRA)
     dx = (x_prev - x).float()
     lora = mm(torch.tanh(mm(x, p.mu_lora_a)), p.mu_lora_b)
-    mix = p.mu[None, None].float() + lora.reshape(b, s, 5, d).float()
+    mix = p.mu[None, None].float() + L.split_last(lora, 5, d).float()
     xf = x.float()
     xr, xk, xv, xw, xg = [(xf + mix[:, :, i] * dx).to(x.dtype)
                           for i in range(5)]
 
-    rr = mm(xr, p.wr).reshape(b, s, h, hs).float()
-    kk = mm(xk, p.wk).reshape(b, s, h, hs).float()
-    vv = mm(xv, p.wv).reshape(b, s, h, hs).float()
+    rr = L.split_last(mm(xr, p.wr), h, hs).float()
+    kk = L.split_last(mm(xk, p.wk), h, hs).float()
+    vv = L.split_last(mm(xv, p.wv), h, hs).float()
     gg = F.silu(mm(xg, p.wg))
-    w = torch.exp(-torch.exp(
+    w = L.split_last(torch.exp(-torch.exp(
         p.w0.float() + mm(torch.tanh(mm(xw, p.w_lora_a)), p.w_lora_b).float()
-    )).reshape(b, s, h, hs)
-    uu = p.u[None, :, :, None]                                 # (1,H,P,1)
-
+    )), h, hs)
     S = x.new_zeros((b, h, hs, hs), dtype=torch.float32) if state is None \
         else state["S"]
-    ys = []
-    for t in range(s):
-        kv = kk[:, t, :, :, None] * vv[:, t, :, None, :]       # (B,H,P,P)
-        ys.append((rr[:, t, :, None, :] @ (S + uu * kv))[..., 0, :])
-        S = w[:, t, :, :, None] * S + kv
-    ys = torch.stack(ys, dim=1).reshape(b, s, h * hs)
+    chunked = L.OPT["mamba_recompute"] and state is None \
+        and s % CHUNK == 0 and s >= 64
+    seq = L.local_spec(rr, (("pod", "data"), None, "model", None))
+    st = [seq[0], seq[2], None, None]
+    ys, S = L.shard_local(
+        lambda rr, kk, vv, w, u, S: _scan(rr, kk, vv, w, u, S, chunked),
+        (rr, kk, vv, w, p.u, S), (seq, seq, seq, seq, (seq[2], None), st),
+        (seq, st))
+    ys = ys.reshape(b, s, h * hs)
     ys = group_norm_heads(ys.to(x.dtype), p.gn_w, p.gn_b, h)
     out = mm(ys * gg, p.wo)
     new_state = None if state is None else {"shift": new_shift, "S": S}
     return out, new_state
+
+
+def _steps(rr, kk, vv, w, u, S):
+    uu = u[None, :, :, None]                                   # (1,H,P,1)
+    ys = []
+    for t in range(rr.shape[1]):
+        kv = kk[:, t, :, :, None] * vv[:, t, :, None, :]       # (B,H,P,P)
+        ys.append((rr[:, t, :, None, :] @ (S + uu * kv))[..., 0, :])
+        S = w[:, t, :, :, None] * S + kv
+    return torch.stack(ys, dim=1), S                           # (B,S,H,P)
+
+
+def _scan(rr, kk, vv, w, u, S, chunked):
+    """The recurrence over time from ``S``: (outputs, last S); with
+    ``chunked``, 16-step chunks, each recomputed in the backward."""
+    if not chunked:
+        return _steps(rr, kk, vv, w, u, S)
+    ys = []
+    for i in range(0, rr.shape[1], CHUNK):
+        blk = tuple(t[:, i:i + CHUNK] for t in (rr, kk, vv, w)) + (u, S)
+        y, S = checkpoint(_steps, *blk, use_reentrant=False) \
+            if torch.is_grad_enabled() else _steps(*blk)
+        ys.append(y)
+    return torch.cat(ys, dim=1), S
 
 
 def rwkv_cmix(p: RWKVCmix, x, *, state=None):

@@ -13,6 +13,11 @@ update is not ``torch.optim.AdamW``'s, whose decoupled decay rounds in
 another order): the pre-clip global norm in float32, the clip scale,
 bias corrections from the float32 step, and ``p32 − lr·(m̂/(√v̂ + eps) +
 wd·p32)`` cast back to the parameter's dtype, in place.
+
+On DTensor parameters (a ``DeviceMesh``, ``models.sharding``) the
+moments take each parameter's placements; the global norm is a DTensor
+reduction, and the elementwise update runs on each leaf's local shard,
+its gradient first reduced to the parameter's placements.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..models.layers import is_dtensor
 from ..models.model import host_numpy, stack_named, to_torch, unstack_named
 
 STATE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -62,17 +68,29 @@ def _device(model: nn.Module) -> torch.device:
 def init_opt_state(model: nn.Module, cfg: OptConfig) -> Dict[str, Any]:
     dt = STATE_DTYPES[cfg.state_dtype]
     named = list(model.named_parameters())
-    return {"m": {n: torch.zeros(p.shape, dtype=dt, device=p.device)
-                  for n, p in named},
-            "v": {n: torch.zeros(p.shape, dtype=dt, device=p.device)
-                  for n, p in named},
+    # zeros_like: a DTensor parameter's moments take its placements
+    return {"m": {n: torch.zeros_like(p, dtype=dt) for n, p in named},
+            "v": {n: torch.zeros_like(p, dtype=dt) for n, p in named},
             "step": torch.zeros((), dtype=torch.int32,
                                 device=_device(model))}
 
 
 def global_norm(tensors) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(t.float()))
-                          for t in tensors))
+    """The float32 norm of all ``tensors`` (a replicated 0-d tensor on
+    DTensor leaves: each leaf's partial sums are all-reduced)."""
+    sq = [torch.sum(torch.square(t.float())) for t in tensors]
+    sq = [s.full_tensor() if is_dtensor(s) else s for s in sq]
+    return torch.sqrt(sum(sq))
+
+
+def _local(t, like=None):
+    """A DTensor's local shard (redistributed to ``like``'s placements
+    first); a plain tensor as it is."""
+    if not is_dtensor(t):
+        return t
+    if like is not None and tuple(t.placements) != tuple(like.placements):
+        t = t.redistribute(like.device_mesh, like.placements)
+    return t.to_local()
 
 
 @torch.no_grad()
@@ -93,8 +111,9 @@ def opt_update(model: nn.Module, grads: Dict[str, torch.Tensor],
     bc1 = 1 - b1 ** step.to(torch.float32)
     bc2 = 1 - b2 ** step.to(torch.float32)
     for name, p in model.named_parameters():
-        m, v = opt_state["m"][name], opt_state["v"][name]
-        g = grads[name].to(torch.float32) * scale
+        m, v = _local(opt_state["m"][name]), _local(opt_state["v"][name])
+        g = _local(grads[name], p).to(torch.float32) * scale
+        p = _local(p)
         m_new = b1 * m.to(torch.float32) + (1 - b1) * g
         v_new = b2 * v.to(torch.float32) + (1 - b2) * torch.square(g)
         mhat = m_new / bc1

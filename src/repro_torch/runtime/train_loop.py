@@ -20,9 +20,15 @@ watchdog, async checkpoints every ``ckpt_every`` steps and a final
 blocking one. It trains a copy of the caller's model, on that model's
 device.
 
-The GSPMD arguments of the reference's ``make_train_step``
-(``grad_shardings``, ``mb_shardings``) pin layouts on a device mesh;
-they come with the port's model sharding.
+On a ``DeviceMesh`` (parameters DTensors placed by
+``models.sharding``, the batch sharded over the data axes),
+``make_train_step``'s ``grad_shardings`` pins each gradient, and the
+accumulator, to its parameter's placements (ZeRO): a ``Partial``
+gradient is reduced to them, a reduce-scatter. ``mb_shardings`` gives
+the placements of each batch leaf's ``(microbatches, B/m, ...)``
+split, which keeps each microbatch sharded over the data axes. Both do
+nothing to plain tensors. The optimizer runs on the DTensor leaves, and
+its moments take the parameters' placements.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ import numpy as np
 import torch
 
 from ..checkpoint import CheckpointManager, latest_step, load_checkpoint
+from ..models.layers import is_dtensor
 from ..models.model import ModelConfig, loss_fn, stack_named, unstack_named
 from ..optim import OptConfig, init_opt_state, opt_update
 from .watchdog import StepWatchdog
@@ -52,6 +59,8 @@ class TrainLoopConfig:
 
 def make_train_step(model_cfg: ModelConfig, opt_cfg: OptConfig,
                     microbatches: int = 1,
+                    grad_shardings: Optional[Dict[str, Any]] = None,
+                    mb_shardings: Optional[Dict[str, Any]] = None,
                     accum_dtype: torch.dtype = torch.float32) -> Callable:
     """Returns ``train_step(model, opt_state, batch) → (model, opt_state,
     metrics)``, which updates ``model`` and ``opt_state`` in place.
@@ -59,27 +68,52 @@ def make_train_step(model_cfg: ModelConfig, opt_cfg: OptConfig,
     batch leaves are (B, ...) tensors on the model's device; with
     ``microbatches`` m, B must divide by m and the step runs m
     accumulation passes of B/m. metrics: ``loss``, ``ce``, ``aux``,
-    ``lr``, ``grad_norm`` (0-d tensors)."""
+    ``lr``, ``grad_norm`` (0-d tensors).
 
-    def single(model, params, batch):
+    grad_shardings: optional ``{parameter name: placements}`` on the
+    parameters' ``DeviceMesh`` (``sharding.param_placements``) — pins
+    each gradient and the accumulator to the parameter's layout (ZeRO).
+
+    mb_shardings: optional ``{batch key: placements}`` for the
+    ``(microbatches, B/m, ...)`` split of each batch leaf (the batch
+    placements with a replicated microbatch axis in front): the split
+    is taken from the gathered batch and re-pinned, so each microbatch
+    stays sharded over the data axes."""
+
+    def pin(name, g):
+        if grad_shardings is None or not is_dtensor(g):
+            return g
+        return g.redistribute(g.device_mesh, grad_shardings[name])
+
+    def split(k, v):
+        m = microbatches
+        if mb_shardings is None or not is_dtensor(v):
+            return v.reshape(m, v.shape[0] // m, *v.shape[1:])
+        from torch.distributed.tensor import Replicate
+        mesh = v.device_mesh
+        v = v.redistribute(mesh, [Replicate()] * mesh.ndim)
+        return v.reshape(m, v.shape[0] // m, *v.shape[1:]).redistribute(
+            mesh, mb_shardings[k])
+
+    def single(model, names, params, batch):
         loss, met = loss_fn(model_cfg, model, batch)
         grads = torch.autograd.grad(loss, params)
-        return loss.detach(), {k: v.detach() for k, v in met.items()}, grads
+        return loss.detach(), {k: v.detach() for k, v in met.items()}, \
+            [pin(n, g) for n, g in zip(names, grads)]
 
     def train_step(model, opt_state, batch):
         names, params = zip(*model.named_parameters())
         if microbatches == 1:
-            loss, met, grads = single(model, params, batch)
+            loss, met, grads = single(model, names, params, batch)
         else:
             m = microbatches
-            mbatch = {k: v.reshape(m, v.shape[0] // m, *v.shape[1:])
-                      for k, v in batch.items()}
-            grads = [torch.zeros(p.shape, dtype=accum_dtype, device=p.device)
-                     for p in params]
+            mbatch = {k: split(k, v) for k, v in batch.items()}
+            grads = [pin(n, torch.zeros_like(p, dtype=accum_dtype))
+                     for n, p in zip(names, params)]
             loss = torch.zeros((), dtype=torch.float32,
                                device=params[0].device)
             for i in range(m):
-                l, _, g = single(model, params,
+                l, _, g = single(model, names, params,
                                  {k: v[i] for k, v in mbatch.items()})
                 for acc, gi in zip(grads, g):
                     acc += (gi / m).to(accum_dtype)

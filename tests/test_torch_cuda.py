@@ -14,7 +14,10 @@ benches B1, B2 and B4-B8 at the smoke size on the ``"cuda"`` backend
 against the same paths on ``"torch"``. The LM substrate's ten smoke
 configurations run on the card against the CPU: serving (``-k lm``) and
 one training step with its gradients and update, and the train
-launcher (``-k train``).
+launcher (``-k train``). Model sharding (``-k shard``): expert
+parallelism over the in-process mesh against the local path, and smoke
+configurations as DTensors on a one-rank NCCL mesh against the plain
+card path.
 """
 import numpy as np
 import pytest
@@ -1172,3 +1175,116 @@ def test_train_launcher_on_the_card(card, capsys, tmp_path):
     assert out.count("[train] ") == 2 and "(cuda" in out
     assert all(np.isfinite(r["loss"]) for r in info["history"])
     assert (tmp_path / "step_00000004" / "manifest.json").exists()
+
+
+# --------------------------------------------------------------------- #
+# the LM substrate's model sharding on the card
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("shape", [(1, 1), (2, 4), (2, 8)])
+def test_shard_expert_parallel_on_the_card(full_f32, shape):
+    """``moe_ffn_sharded`` over the in-process mesh on the card against
+    the local path, no token dropped: the reference's rtol = atol = 2e-4
+    (1e-5 on the (1, 1) mesh), aux within 0.15 (1e-5)."""
+    from repro_torch.core.mesh import NamedMesh
+    from repro_torch.models import moe as MOE
+    dims = MOE.MoEDims(n_experts=16, top_k=3, d_expert=48, n_shared=2,
+                       capacity_factor=16.0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = MOE.init_moe(64, dims, torch.float32, device="cuda", gen=gen)
+    x = torch.randn(4, 32, 64, generator=gen, device="cuda")
+    n = 4 * 32
+    assert MOE.capacity(n // shape[0], dims) >= MOE.expert_loads(
+        p, x, dims, shape[0])
+    want, want_aux = MOE._moe_ffn_local(p, x, dims)
+    got, aux = MOE.moe_ffn_sharded(p, x, dims, NamedMesh(
+        shape, ("data", "model"), "cuda"))
+    tol, aux_tol = (1e-5, 1e-5) if shape == (1, 1) else (2e-4, 0.15)
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    assert float(aux) == pytest.approx(float(want_aux), rel=aux_tol)
+
+
+@pytest.fixture
+def nccl_mesh(card, tmp_path):
+    """A one-rank NCCL ``DeviceMesh`` (1, 1) named ("data", "model")."""
+    import torch.distributed as tdist
+    from torch.distributed.device_mesh import init_device_mesh
+    tdist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                             world_size=1, rank=0)
+    try:
+        yield init_device_mesh("cuda", (1, 1),
+                               mesh_dim_names=("data", "model"))
+    finally:
+        tdist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "deepseek-moe-16b",
+                                  "jamba-1.5-large-398b", "rwkv6-7b",
+                                  "whisper-small", "phi-3-vision-4.2b"])
+def test_shard_smoke_config_on_a_one_rank_mesh(full_f32, nccl_mesh, arch):
+    """A smoke configuration in float32, its parameters DTensors on the
+    NCCL mesh by ``param_specs`` and its batch by ``batch_specs``: the
+    loss within 1e-5 relative and every gradient leaf within 1e-4 of its
+    largest |g| of the unsharded card path; a 2-microbatch
+    ``make_train_step`` with ``grad_shardings`` and ``mb_shardings``
+    (loss, grad_norm) within 1e-5, its moments taking the parameters'
+    placements."""
+    import contextlib
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import sharding as SH
+    from repro_torch.models.layers import activation_mesh_scope
+    from repro_torch.models.model import (abstract_params, init_params,
+                                          loss_fn, params_from_numpy,
+                                          params_to_numpy)
+    from repro_torch.optim import OptConfig, init_opt_state
+    from repro_torch.runtime.train_loop import make_train_step
+    mesh = nccl_mesh
+    cfg = dataclasses.replace(configs.get_smoke(arch), dtype="float32")
+    ocfg = OptConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    tree = params_to_numpy(init_params(cfg, 0, device="cpu"))
+    rng = np.random.default_rng(0)
+    batch = {k: rng.integers(0, cfg.vocab, (4, 16)) for k in ("tokens",
+                                                              "labels")}
+    if cfg.family == "encdec":
+        batch["frames"] = rng.normal(
+            size=(4, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        batch["patches"] = rng.normal(
+            size=(4, cfg.vision_patches, cfg.vision_d)).astype(np.float32)
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in batch.items()}
+    pl = SH.param_placements(abstract_params(cfg), mesh)
+    bspecs = SH.batch_specs(cfg, mesh, 4)
+    mb_pl = {k: SH.placements(SH.P(None, *bspecs[k]), mesh) for k in batch}
+    runs = []
+    for sharded in (False, True):
+        def model():
+            m = params_from_numpy(cfg, tree, "cuda")
+            return SH.distribute_params(m, mesh) if sharded else m
+        b = SH.distribute_batch(cfg, mesh, batch) if sharded else batch
+        with activation_mesh_scope(mesh) if sharded else \
+                contextlib.nullcontext():
+            m = model()
+            names, params = zip(*m.named_parameters())
+            loss, _ = loss_fn(cfg, m, b)
+            grads = torch.autograd.grad(loss, params)
+            grads = {n: (g.redistribute(mesh, pl[n]).full_tensor()
+                         if sharded else g) for n, g in zip(names, grads)}
+            m = model()
+            opt = init_opt_state(m, ocfg)
+            step = make_train_step(cfg, ocfg, 2, grad_shardings=pl,
+                                   mb_shardings=mb_pl) if sharded \
+                else make_train_step(cfg, ocfg, 2)
+            _, opt, met = step(m, opt, b)
+            if sharded:
+                assert all(tuple(opt["m"][n].placements) == pl[n]
+                           for n in names)
+                met = {k: v.full_tensor() if hasattr(v, "full_tensor")
+                       else v for k, v in met.items()}
+        runs.append((loss.detach(), grads, met))
+    (ul, ug, um), (sl, sg, sm) = runs
+    sl = sl.full_tensor()
+    assert float(sl) == pytest.approx(float(ul), rel=1e-5)
+    assert _leaf_err(sg, ug) <= 1e-4
+    for k in ("loss", "grad_norm"):
+        assert float(sm[k]) == pytest.approx(float(um[k]), rel=1e-5), k

@@ -79,6 +79,48 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
     assert init_params(cfg, device="cpu").tok_embed.device.type == "cpu"
 
 
+def test_sharding_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch,
+                                                               tmp_path):
+    """The model sharding's entry points — the host mesh, the in-process
+    mesh, ``load_for_mesh`` and ``build_step`` on the host mesh — want
+    the card by default and raise without one; the production meshes are
+    device-free."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.core.mesh import NamedMesh
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import steps
+    from repro_torch.runtime.elastic import load_for_mesh
+    cfg = configs.get_smoke("granite-8b")
+    for build in (lambda: lmesh.make_host_mesh(),
+                  lambda: NamedMesh((1, 1), ("data", "model")),
+                  lambda: load_for_mesh(str(tmp_path), None, cfg,
+                                        NamedMesh((1, 1),
+                                                  ("data", "model"))),
+                  lambda: steps.build_step(cfg, "train_4k",
+                                           lmesh.make_host_mesh())):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+    assert not dist.is_initialized()
+    assert NamedMesh((1, 1), ("data", "model"), "cpu").device.type == "cpu"
+    fn, args, _, _ = steps.build_step(cfg, "train_4k",
+                                      lmesh.make_production_mesh())
+    assert args[0].tok_embed.device.type == "meta"
+
+
+def test_sharding_modules_import_without_a_device_or_a_group(tmp_path):
+    env = dict(os.environ, PATH=str(tmp_path), CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(ROOT / "src"))
+    code = ("import torch.distributed as d, repro_torch.launch.mesh, "
+            "repro_torch.launch.steps, repro_torch.models.sharding, "
+            "repro_torch.runtime.elastic; "
+            "assert not d.is_initialized()")
+    subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                   timeout=120)
+
+
 @pytest.mark.parametrize("device,backend", [(None, "np"), ("cpu", "torch")])
 def test_prediction_entry_points_match_reference(device, backend,
                                                  monkeypatch):
