@@ -277,8 +277,18 @@ plain version and timed beside its byte bound.
    largest |g|, a 2-microbatch ``make_train_step`` with
    ``grad_shardings`` and ``mb_shardings`` (loss, grad_norm) within
    1e-5, one ``opt_update`` on the DTensor leaves within 1e-6, all
-   against the unsharded card path. Prints ``phase 13…`` lines and a
-   ``{"phase13": ...}`` line.
+   against the unsharded card path. 13e, serving under a mesh on the same
+   NCCL mesh: 13e-i the ten smoke configurations in float32 without
+   TF32, prefill of 8 tokens and 3 decode steps with DTensor parameters
+   (``param_specs``) and state (``serve_state_specs``) through
+   ``launch.steps.build_step``'s prefill and decode functions, the logits
+   and every state leaf within 1e-5 of its largest |value| of the plain
+   card path; 13e-ii granite-8b at full width in bfloat16 (depth cut by
+   ``--lm-layers``) takes 11a's 8 x 2 048 prompt and 8 decode tokens
+   through ``launch.serve.serve`` plain and with ``mesh=``: every logit
+   finite, the mesh's last logits within 1e-2 relative RMS of the plain
+   path's on the same weights, prefill ms and ms a decode token both
+   ways. Prints ``phase 13…`` lines and a ``{"phase13": ...}`` line.
 
 Phases 3 to 5 and 7 to 13 run with every plain ``*_torch`` kernel version
 wrapped in a counter: the card's path must call none of them.
@@ -4356,13 +4366,131 @@ def elastic_full_width(torch, kept, mesh):
     return r, ok and not bad
 
 
+SERVE_MESH_RTOL = 1e-5      # 13e-i: a logit or state leaf, of its max
+SERVE_MESH_BF16_RMS = 1e-2  # 13e-ii: bfloat16 logits, relative RMS
+SERVE_MESH_GEN = 8          # 13e-ii: decode tokens after the prompt
+
+
+def serve_smoke_on_mesh(torch, arch, mesh, device="cuda"):
+    """13e-i: one smoke configuration in float32, prefill of 8 tokens and
+    3 decode steps: on the card's plain path, and with DTensor parameters
+    (``param_specs``) and state (``init_serve_state(..., mesh=)``, placed
+    by ``serve_state_specs``) through ``launch.steps.build_step``'s
+    prefill and decode functions on ``mesh``. The largest error of the
+    logits and of every state leaf, each of its largest |value|."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import sharding as SH
+    from repro_torch.models.model import (init_params, params_from_numpy,
+                                          params_to_numpy)
+    from repro_torch.models.serving import (decode_step, init_serve_state,
+                                            prefill_step,
+                                            serve_state_to_numpy)
+    cfg = dataclasses.replace(configs.get_smoke(arch), dtype="float32")
+    tree = params_to_numpy(init_params(cfg, 0, device="cpu"))
+    g = torch.Generator().manual_seed(5)
+    b, n = 4, 11
+    toks = torch.randint(0, cfg.vocab, (b, n), generator=g).to(device)
+    extras = {}
+    if cfg.family == "encdec":
+        extras["frames"] = torch.randn((b, cfg.encoder_seq, cfg.d_model),
+                                       generator=g).to(device)
+    if cfg.family == "vlm":
+        extras["patches"] = torch.randn((b, cfg.vision_patches,
+                                         cfg.vision_d), generator=g).to(device)
+    max_len = n + 1 + (cfg.vision_patches if cfg.family == "vlm" else 0)
+    bspecs = SH.batch_specs(cfg, mesh, b)
+    runs = {}
+    for sharded in (False, True):
+        model = params_from_numpy(cfg, tree, device)
+        if sharded:
+            SH.distribute_params(model, mesh)
+            prefill = build_step(cfg, "prefill_32k", mesh)[0]
+            decode = build_step(cfg, "decode_32k", mesh)[0]
+
+            def put(k, t):
+                return SH.distribute(t, mesh, SH.placements(bspecs[k], mesh))
+        else:
+            def prefill(m, t, s, e):
+                return prefill_step(cfg, m, t, s, e)
+
+            def decode(m, t, s):
+                return decode_step(cfg, m, t, s)
+
+            def put(k, t):
+                return t
+        state = init_serve_state(cfg, b, max_len, torch.float32,
+                                 device=device,
+                                 mesh=mesh if sharded else None)
+        lg, state = prefill(model, put("tokens", toks[:, :8]), state,
+                            {k: put(k, v) for k, v in extras.items()})
+        logits = [lg]
+        for i in range(8, n):
+            lg, state = decode(model, put("tokens", toks[:, i:i + 1]), state)
+            logits.append(lg)
+        whole = [t.full_tensor() if hasattr(t, "full_tensor") else t
+                 for t in logits]
+        runs[sharded] = ({f"logits{i}": t for i, t in enumerate(whole)},
+                         {i: torch.as_tensor(v) for i, v in enumerate(
+                             lm_leaves(serve_state_to_numpy(state)))})
+    errs = {"logits": leafwise_err(torch, runs[True][0], runs[False][0]),
+            "state": leafwise_err(torch, runs[True][1], runs[False][1])}
+    return errs, max(errs.values()) <= SERVE_MESH_RTOL
+
+
+def serve_full_on_mesh(torch, mesh, layers, device="cuda"):
+    """13e-ii: ``LM_FULL`` at full width in bfloat16 takes phase 11's
+    ``LM_SERVE`` prompt and ``SERVE_MESH_GEN`` decode tokens, first on
+    the plain card path, then with the same weights distributed onto
+    ``mesh`` (in place) and its state by ``serve_state_specs``: each
+    path's prefill ms and ms a decode token (after a warm-up of each),
+    every logit finite, and the relative RMS of the mesh's logits
+    against the plain path's."""
+    from repro_torch.launch import serve
+    from repro_torch.models.model import init_params
+    cfg = lm_config(LM_FULL, layers)
+    b, s = LM_SERVE["batch"], LM_SERVE["prompt_len"]
+    model = init_params(cfg, 0, device=device)
+    out = {"arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.n_layers,
+           "batch": b, "prompt_len": s, "decode_steps": SERVE_MESH_GEN - 1}
+    logits = {}
+    for sharded in (False, True):
+        m = mesh if sharded else None
+        serve.serve(cfg, b, 16, 2, device, model=model, mesh=m)
+        r = serve.serve(cfg, b, s, SERVE_MESH_GEN, device, model=model,
+                        mesh=m)
+        key = "mesh" if sharded else "plain"
+        out[f"{key}_finite"] = r["finite"]
+        out[f"{key}_prefill_ms"] = r["prefill_s"] * 1e3
+        out[f"{key}_decode_ms_per_token"] = r["decode_s"] * 1e3 / (
+            SERVE_MESH_GEN - 1)
+        out[f"{key}_ids"] = r["ids"][0].tolist()
+        logits[key] = r["logits"].float()
+        del r
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    d = logits["mesh"] - logits["plain"]
+    out["rel_rms"] = float(d.square().mean().sqrt()
+                           / logits["plain"].square().mean().sqrt())
+    del model, logits
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    ok = out["plain_finite"] and out["mesh_finite"] and \
+        out["rel_rms"] <= SERVE_MESH_BF16_RMS
+    return out, ok
+
+
 def phase_sharding(torch, build, layers, kept):
     """Phase 13: the LM substrate's model sharding. The one-rank NCCL
     mesh is made first: 13d restores phase 12a's state (handed over in
     ``kept``, still on the card) onto it before anything else needs the
     card's memory; then 13a one MoE layer of ``LM_EP`` under expert
     parallelism at full width, 13b the whole ``LM_EP`` under it, 13c the
-    ten smoke configurations as DTensors on that mesh."""
+    ten smoke configurations as DTensors on that mesh, 13e serving under
+    that mesh (the smoke configurations, then ``LM_FULL`` at full
+    width)."""
     import torch.distributed as tdist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -4439,6 +4567,35 @@ def phase_sharding(torch, build, layers, kept):
                 raise Failed(f"phase 13c: {arch} differs ({smoke[arch]}; "
                              f"limits {SHARD_LOSS_RTOL}, {SHARD_GRAD_RTOL} "
                              f"a gradient leaf, {SHARD_OPT_RTOL} the update)")
+        # 13e-i
+        t13e = time.perf_counter()
+        served = {}
+        for arch in configs.list_archs():
+            served[arch], ok = serve_smoke_on_mesh(torch, arch, mesh)
+            log(f"phase 13e-i: {arch} smoke, float32, prefill 8 + 3 decode "
+                f"steps with DTensor parameters and state on the (1, 1) "
+                f"NCCL mesh against the card: {json.dumps(served[arch])}")
+            if not ok:
+                raise Failed(f"phase 13e-i: {arch} differs "
+                             f"({served[arch]}; limit {SERVE_MESH_RTOL})")
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        # 13e-ii
+        full, ok = serve_full_on_mesh(torch, mesh, layers)
+        full["seconds_13e"] = time.perf_counter() - t13e
+        log(f"phase 13e-ii: {json.dumps(full)}")
+        if not ok:
+            raise Failed(f"phase 13e-ii: a logit is not finite, or the "
+                         f"mesh's logits are beyond {SERVE_MESH_BF16_RMS} "
+                         f"relative RMS of the plain path: {full}")
+        log(f"phase 13e-ii: {full['arch']} {full['dtype']}, "
+            f"{full['layers']} layers, {full['batch']} x "
+            f"{full['prompt_len']} prompt + {full['decode_steps']} decode "
+            f"tokens: prefill {full['plain_prefill_ms']:.3f} ms plain, "
+            f"{full['mesh_prefill_ms']:.3f} ms on the mesh; decode "
+            f"{full['plain_decode_ms_per_token']:.3f} / "
+            f"{full['mesh_decode_ms_per_token']:.3f} ms a token; logits "
+            f"{full['rel_rms']:.3e} relative RMS apart; 13e took "
+            f"{full['seconds_13e']:.3f} s")
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
         tdist.destroy_process_group()
@@ -4452,7 +4609,8 @@ def phase_sharding(torch, build, layers, kept):
     print(json.dumps({"phase13": {
         "seconds": wall, "card": card_line(), "expert_parallel_layer": layer,
         "expert_parallel_model": whole, "smoke_rel_err": smoke,
-        "elastic": elastic}}), flush=True)
+        "elastic": elastic, "serve_mesh_smoke_rel_err": served,
+        "serve_mesh_full_width": full}}), flush=True)
     return {"launches": launches, "wall_s": wall}
 
 

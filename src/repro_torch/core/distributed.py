@@ -681,18 +681,23 @@ def make_refine_epoch(mesh: ShardMesh, cfg: DistConfig,
             c_new.copy_(c)
             j = slot_of[c.to(torch.int64)]
             idx = torch.nonzero(j >= 0).squeeze(1)
+            torch._check(idx.shape[0] <= c.shape[0])   # for fake sizes
             jj = j[idx]
             xq, yq = x[idx], y[idx]
-            cx = torch.zeros(len(idx), dtype=torch.int64, device=dev)
+            cx = torch.zeros_like(jj)
             for i in range(1, gx):
                 cx += (xq >= xe[jj, i]).to(torch.int64)
-            cy = torch.zeros(len(idx), dtype=torch.int64, device=dev)
+            cy = torch.zeros_like(jj)
             for i in range(1, gy):
                 cy += (yq >= ye[jj, i]).to(torch.int64)
             ckey = jj * k + cy * gx + cx
             c_new[idx] = (state.n_tiles + ckey).to(torch.int32)
             vq = v[idx]
-            ccnt = torch.bincount(ckey, minlength=kp * k)
+            # a scatter of fixed length (every key < kp·k), where bincount's
+            # length would depend on the data
+            ccnt = torch.zeros(kp * k, dtype=torch.int64,
+                               device=dev).index_add_(0, ckey,
+                                                      torch.ones_like(ckey))
             cmn = torch.full((kp * k,), POS, dtype=F32,
                              device=dev).scatter_reduce_(0, ckey, vq, "amin")
             cmx = torch.full((kp * k,), NEG, dtype=F32,

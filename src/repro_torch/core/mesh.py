@@ -150,7 +150,13 @@ def axis_sizes(mesh) -> Dict[str, int]:
     ``DeviceMesh`` (``mesh_dim_names`` and its sizes)."""
     names = getattr(mesh, "mesh_dim_names", None)
     if names is not None:
-        return dict(zip(names, (int(n) for n in mesh.mesh.shape)))
+        # a DeviceMesh builds its ``mesh`` tensor anew on each read:
+        # read it once a mesh
+        sizes = getattr(mesh, "_axis_sizes", None)
+        if sizes is None:
+            sizes = dict(zip(names, (int(n) for n in mesh.mesh.shape)))
+            mesh._axis_sizes = sizes
+        return dict(sizes)
     return dict(mesh.shape)
 
 

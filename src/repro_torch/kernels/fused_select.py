@@ -259,12 +259,17 @@ def fused_count_val(cell, xs, ys, vals, window, cap: int, nb: int,
     p = torch.from_numpy(rescaled_params(window, bx, by)).to(xs.device)
     inq = ((xs >= p[0]) & (xs <= p[2]) & (ys >= p[1]) & (ys <= p[3]))
     idx = torch.nonzero(inq).squeeze(1)
+    torch._check(idx.shape[0] <= xs.shape[0])      # for fake sizes
     xq, yq = xs[idx], ys[idx]
     _, wid = window_bin_ids_params(xq, yq, p.expand(xq.shape + (6,)),
                                    bx, by)
     key = cell[idx].to(torch.int64) * nb + wid
     vq = vals[idx]
-    cnt = torch.bincount(key, minlength=cap * nb)
+    # every key < cap·nb: a scatter of fixed length, where bincount's
+    # length would depend on the data
+    cnt = torch.zeros(cap * nb, dtype=torch.int64,
+                      device=xs.device).index_add_(0, key,
+                                                   torch.ones_like(key))
     if agg == "sum":
         val = torch.zeros(cap * nb, dtype=torch.float64,
                           device=xs.device).index_add_(0, key, vq.double())

@@ -6,8 +6,9 @@ Two modes, as in the reference:
 1. **The LM cells' three-term analysis** (:func:`analyze_cell`). From a
    dry-run record of one (arch × shape × mesh) cell — its per-device
    matmul FLOPs, HBM traffic and collective bytes (the reference's
-   ``launch.dryrun`` JSON records; the port's own dry run is ROADMAP
-   queue A item 11.4) — the per-device time lower bounds
+   ``launch.dryrun`` JSON records, which the port's
+   ``repro_torch.launch.dryrun`` writes with the same keys, by default to
+   ``experiments/dryrun_torch``) — the per-device time lower bounds
 
        compute    = matmul_FLOPs_per_device / PEAK
        memory     = HBM_traffic_per_device  / HBM
@@ -162,4 +163,5 @@ def print_table(dryrun_dir: str, mesh_filter: str = "pod16x16"):
 
 if __name__ == "__main__":
     import sys
-    print_table(sys.argv[1] if len(sys.argv) > 1 else "experiments/dryrun")
+    print_table(sys.argv[1] if len(sys.argv) > 1
+                else "experiments/dryrun_torch")

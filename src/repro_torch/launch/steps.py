@@ -66,12 +66,15 @@ def _is_device_mesh(mesh) -> bool:
 
 
 def build_step(cfg: ModelConfig, shape_name: str, mesh,
-               opt_cfg: OptConfig = None):
-    """Returns (fn, example_args (abstract), in_specs, out_specs)."""
+               opt_cfg: OptConfig = None, *, size_of: ModelConfig = None):
+    """Returns (fn, example_args (abstract), in_specs, out_specs).
+    ``size_of`` (default ``cfg``) is the configuration whose parameter
+    count picks the moments' dtype (the dry run builds cut-down depths
+    of a configuration)."""
     shape = SHAPES[shape_name]
     if opt_cfg is None:
         # ≥50B params: bf16 optimizer moments (halves ZeRO state)
-        big = param_count(cfg) > 50e9
+        big = param_count(size_of or cfg) > 50e9
         opt_cfg = OptConfig(state_dtype="bfloat16" if big else "float32")
     else:
         big = False

@@ -99,6 +99,32 @@ OPT = {"fsdp_use_hint": True, "mamba_recompute": True,
        "remat_dots": False, "attn_repeat_k": False}
 
 
+# The dry run's trip count (``launch.dryrun``): with an int, a time scan
+# (``mamba.py``, ``rwkv6.py``) runs only its first ``SCAN_STEPS`` steps and
+# leaves the rest of its outputs zero. A step costs the same at every
+# step, so the dry run runs two counts and extrapolates to the whole
+# sequence, as the reference's HLO analysis multiplies a loop body by its
+# trip count. None (the default) runs every step.
+SCAN_STEPS = None
+
+
+def scan_prefix(n: int, *seqs):
+    """The first ``SCAN_STEPS`` steps (dim 1) of each of ``seqs`` (all of
+    them with no count set): ``(steps run, the views)``."""
+    run = n if SCAN_STEPS is None else min(n, SCAN_STEPS)
+    if run == n:
+        return n, seqs
+    return run, tuple(t[:, :run] for t in seqs)
+
+
+def zero_filled(ys, n: int):
+    """``ys`` (steps on dim 1) with zero steps after it up to ``n``."""
+    if ys.shape[1] == n:
+        return ys
+    pad = ys.new_zeros((ys.shape[0], n - ys.shape[1], *ys.shape[2:]))
+    return torch.cat([ys, pad], dim=1)
+
+
 def fsdp_use(w, *tp_axes):
     """Use-site hint for a ZeRO/FSDP-sharded weight: gather over data,
     keep only the TP sharding for this use (``tp_axes``, e.g.
@@ -309,14 +335,25 @@ def apply_norm(p: Norm, x):
     return layer_norm(x, p.w, p.b)
 
 
+def _mean_last(t):
+    """The mean over the last dim, kept. On a DTensor it is the sum over
+    ``n``: a sum over a sharded dim is ``Partial("sum")``, the placement
+    the backward's gradients come in, where ``mean`` would make a
+    ``Partial("avg")`` that no ``Partial("sum")`` gradient may be
+    redistributed to (ROADMAP C.15c)."""
+    if is_dtensor(t):
+        return t.sum(-1, keepdim=True) / t.shape[-1]
+    return t.mean(-1, keepdim=True)
+
+
 def _var(xf):
-    mu = xf.mean(-1, keepdim=True)
-    return mu, (xf - mu).square().mean(-1, keepdim=True)
+    mu = _mean_last(xf)
+    return mu, _mean_last((xf - mu).square())
 
 
 def rms_norm(x, w, eps=1e-6):
     xf = x.float()
-    var = xf.square().mean(-1, keepdim=True)
+    var = _mean_last(xf.square())
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w.to(x.dtype)
 
 
@@ -328,12 +365,22 @@ def layer_norm(x, w, b, eps=1e-5):
 
 
 def group_norm_heads(x, w, b, n_heads, eps=1e-5):
-    """GroupNorm over per-head channels (RWKV output norm). x: (..., d)."""
-    shp = x.shape
-    xf = x.float().reshape(*shp[:-1], n_heads, shp[-1] // n_heads)
-    mu, var = _var(xf)
-    xf = (xf - mu) * torch.rsqrt(var + eps)
-    return (xf.reshape(shp) * w + b).to(x.dtype)
+    """GroupNorm over per-head channels (RWKV output norm). x: (..., d).
+    On a DeviceMesh it runs per shard, whole heads over ``model`` when
+    they divide it, else gathered (a head split or merged across
+    shards has no DTensor view, ROADMAP C.17)."""
+    hs = x.shape[-1] // n_heads
+    ax = "model" if n_heads % _model_axis() == 0 else None
+    spec = local_spec(x, (("pod", "data"),) + (None,) * (x.dim() - 2)
+                      + (ax,))
+
+    def norm(x, w, b):
+        shp = x.shape
+        xf = x.float().reshape(*shp[:-1], shp[-1] // hs, hs)
+        mu, var = _var(xf)
+        xf = (xf - mu) * torch.rsqrt(var + eps)
+        return (xf.reshape(shp) * w + b).to(x.dtype)
+    return shard_local(norm, (x, w, b), (spec, spec[-1:], spec[-1:]), spec)
 
 
 # ------------------------------------------------------------------ #
@@ -556,6 +603,13 @@ def attention(p: Attention, x, dims: AttnDims, *, positions, causal=True,
     else:
         k, v = kv_override
 
+    # per (batch, head) shard on a DeviceMesh: heads over `model` when
+    # both head counts divide it, else gathered; the heads are merged
+    # per shard too, so the merge's backward never unflattens a
+    # model-sharded dim that the heads do not divide (ROADMAP C.17)
+    tp = _model_axis()
+    spec = local_spec(q, (("pod", "data"),
+                          "model" if h % tp == hk % tp == 0 else None))
     new_cache = None
     if cache is not None:
         pos = int(cache_pos)
@@ -563,16 +617,18 @@ def attention(p: Attention, x, dims: AttnDims, *, positions, causal=True,
         if pos < 0 or pos + s > ck.shape[2]:
             raise ValueError(f"KV cache overflow: {s} token(s) at position "
                              f"{pos} in a cache of {ck.shape[2]}")
-        ck[:, :, pos:pos + s] = k
-        cv[:, :, pos:pos + s] = v
+        _write_cache(ck, cv, k, v, pos)
         new_cache = {"k": ck, "v": cv}
+        k, v = ck, cv
         if s <= 8:
-            out = _gqa_decode(q, ck, cv, pos, s)
+            def core(q, k, v):
+                return _gqa_decode(q, k, v, pos, s)
         else:
-            out = chunked_attention(q, ck, cv, causal=causal, q_off=pos,
-                                    kv_len=pos + s,
-                                    q_chunk=min(max(8, s), q_chunk),
-                                    kv_chunk=kv_chunk)
+            def core(q, k, v):
+                return chunked_attention(q, k, v, causal=causal, q_off=pos,
+                                         kv_len=pos + s,
+                                         q_chunk=min(max(8, s), q_chunk),
+                                         kv_chunk=kv_chunk)
     else:
         t = k.shape[2]
         use_chunked = chunked if chunked is not None else (s * t > 1 << 22)
@@ -583,14 +639,27 @@ def attention(p: Attention, x, dims: AttnDims, *, positions, causal=True,
         else:
             def core(q, k, v):
                 return _gqa_scores_full(q, k, v, causal)
-        # per (batch, head) shard on a DeviceMesh: heads over `model`
-        # when both head counts divide it, else gathered
-        tp = _model_axis()
-        spec = local_spec(q, (("pod", "data"),
-                              "model" if h % tp == hk % tp == 0 else None))
-        out = shard_local(core, (q, k, v), (spec,) * 3, spec)
-    out = out.transpose(1, 2).reshape(b, s, h * hd)
+
+    def merged(q, k, v):
+        o = core(q, k, v)
+        return o.transpose(1, 2).reshape(o.shape[0], o.shape[2], -1)
+    out = shard_local(merged, (q, k, v), (spec,) * 3,
+                      (spec[0], None, spec[1]))
     return mm(out, fsdp_use(p.wo, "model", None)), new_cache
+
+
+def _write_cache(ck, cv, k, v, pos):
+    """``k``, ``v`` into the caches at ``pos``, in place. On a
+    ``DeviceMesh`` each shard writes its own block of its own local
+    cache (the sequence axis is never sharded), so the cache DTensors
+    keep their placements and hold the new tokens."""
+    from .sharding import spec_of
+    cspec = spec_of(ck)
+
+    def write(ck, cv, k, v):
+        ck[:, :, pos:pos + k.shape[2]] = k
+        cv[:, :, pos:pos + v.shape[2]] = v
+    shard_local(write, (ck, cv, k, v), (cspec,) * 4, None)
 
 
 def init_cache(batch, dims: AttnDims, max_len, dtype=torch.bfloat16,

@@ -121,29 +121,35 @@ def mamba_block(p: Mamba, x, dims: MambaDims, *, state=None):
 
 
 def _steps(dt, xf, bf, cf, a, h):
+    # unbind, not an index a step: an index's backward writes a zero
+    # tensor of the whole sequence for every step
     ys = []
-    for t in range(dt.shape[1]):
-        dt_t = dt[:, t]
+    for dt_t, x_t, b_t, c_t in zip(*(t.unbind(1) for t in (dt, xf, bf,
+                                                           cf))):
         da_t = torch.exp(dt_t[..., None] * a)                 # (B,di,ds)
-        dbx_t = (dt_t * xf[:, t])[..., None] * bf[:, t, None, :]
+        dbx_t = (dt_t * x_t)[..., None] * b_t[:, None, :]
         h = da_t * h + dbx_t
-        ys.append((h @ cf[:, t, :, None])[..., 0])
+        ys.append((h @ c_t[:, :, None])[..., 0])
     return torch.stack(ys, dim=1), h                          # (B,S,di)
 
 
 def _scan(dt, xf, bf, cf, a, h, chunked):
     """The recurrence over time from ``h``: (ys (B,S,di), last h); with
-    ``chunked``, 16-step chunks, each recomputed in the backward."""
+    ``chunked``, 16-step chunks, each recomputed in the backward (the
+    first ``layers.SCAN_STEPS`` steps only, when set)."""
+    n = dt.shape[1]
+    run, (dt, xf, bf, cf) = L.scan_prefix(n, dt, xf, bf, cf)
     if not chunked:
-        return _steps(dt, xf, bf, cf, a, h)
+        ys, h = _steps(dt, xf, bf, cf, a, h)
+        return L.zero_filled(ys, n), h
     ys = []
-    for i in range(0, dt.shape[1], CHUNK):
+    for i in range(0, run, CHUNK):
         blk = (dt[:, i:i + CHUNK], xf[:, i:i + CHUNK], bf[:, i:i + CHUNK],
                cf[:, i:i + CHUNK], a, h)
         y, h = checkpoint(_steps, *blk, use_reentrant=False) \
             if torch.is_grad_enabled() else _steps(*blk)
         ys.append(y)
-    return torch.cat(ys, dim=1), h
+    return L.zero_filled(torch.cat(ys, dim=1), n), h
 
 
 def init_mamba_state(batch, dims: MambaDims, dtype=torch.bfloat16,

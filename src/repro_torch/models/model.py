@@ -29,8 +29,9 @@ rest, the counterpart of ``jax.checkpoint_policies.checkpoint_dots``.
 On a ``DeviceMesh`` the parameters are DTensors placed by
 ``models.sharding`` and the batch is sharded over the data axes; the
 forward runs under ``layers.activation_mesh_scope`` of that mesh, and
-the loss's label pick runs gathered (``layers.gathered``: DTensor has no
-sharding rule for it).
+the loss's label pick runs per data shard, its logits gathered over
+``model`` only (``layers.shard_local``: DTensor has no sharding rule
+for it).
 
 Entry points build on the card unless asked for another device:
 ``init_params(cfg, seed, device="cpu")`` on the CPU, ``device="meta"``
@@ -551,13 +552,21 @@ def loss_fn(cfg: ModelConfig, model: Model, batch):
     labels = batch["labels"]
     if cfg.family == "vlm":  # logits cover [patches; text] — text tail only
         logits = logits[:, -labels.shape[1]:]
-    ce = L.gathered(_cross_entropy, logits, labels)
+    # the label pick per data shard (DTensor has no sharding rule for
+    # it): the logits gathered over ``model`` only, each shard's tokens'
+    # losses kept batch-sharded, then summed over every token
+    spec = L.local_spec(logits, (("pod", "data"), None, None))
+    nll = L.shard_local(_token_nll, (logits, labels), (spec, spec[:2]),
+                        spec[:2])
+    ce = L.shard_hint(nll.sum() / torch.clamp((labels >= 0).sum(), min=1))
     return ce + cfg.moe_aux_coef * aux, {"ce": ce, "aux": aux}
 
 
-def _cross_entropy(logits, labels):
+def _token_nll(logits, labels):
+    """Each token's negative log-likelihood of its label (0 where the
+    label is masked)."""
     mask = labels >= 0
     safe = torch.where(mask, labels, 0).long()
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.take_along_dim(logits, safe[..., None], dim=-1)[..., 0]
-    return ((lse - ll) * mask).sum() / torch.clamp(mask.sum(), min=1)
+    return (lse - ll) * mask

@@ -105,11 +105,13 @@ def rwkv_tmix(p: RWKVTmix, x, dims: RWKVDims, *, state=None):
         and s % CHUNK == 0 and s >= 64
     seq = L.local_spec(rr, (("pod", "data"), None, "model", None))
     st = [seq[0], seq[2], None, None]
+    def scan(rr, kk, vv, w, u, S):      # heads merged per shard
+        ys, S = _scan(rr, kk, vv, w, u, S, chunked)
+        return ys.reshape(ys.shape[0], ys.shape[1], -1), S
     ys, S = L.shard_local(
-        lambda rr, kk, vv, w, u, S: _scan(rr, kk, vv, w, u, S, chunked),
-        (rr, kk, vv, w, p.u, S), (seq, seq, seq, seq, (seq[2], None), st),
-        (seq, st))
-    ys = ys.reshape(b, s, h * hs)
+        scan, (rr, kk, vv, w, p.u, S),
+        (seq, seq, seq, seq, (seq[2], None), st), ((seq[0], None, seq[2]),
+                                                   st))
     ys = group_norm_heads(ys.to(x.dtype), p.gn_w, p.gn_b, h)
     out = mm(ys * gg, p.wo)
     new_state = None if state is None else {"shift": new_shift, "S": S}
@@ -119,25 +121,31 @@ def rwkv_tmix(p: RWKVTmix, x, dims: RWKVDims, *, state=None):
 def _steps(rr, kk, vv, w, u, S):
     uu = u[None, :, :, None]                                   # (1,H,P,1)
     ys = []
-    for t in range(rr.shape[1]):
-        kv = kk[:, t, :, :, None] * vv[:, t, :, None, :]       # (B,H,P,P)
-        ys.append((rr[:, t, :, None, :] @ (S + uu * kv))[..., 0, :])
-        S = w[:, t, :, :, None] * S + kv
+    # unbind, not an index a step: an index's backward writes a zero
+    # tensor of the whole sequence for every step
+    for r_t, k_t, v_t, w_t in zip(*(t.unbind(1) for t in (rr, kk, vv, w))):
+        kv = k_t[:, :, :, None] * v_t[:, :, None, :]           # (B,H,P,P)
+        ys.append((r_t[:, :, None, :] @ (S + uu * kv))[..., 0, :])
+        S = w_t[:, :, :, None] * S + kv
     return torch.stack(ys, dim=1), S                           # (B,S,H,P)
 
 
 def _scan(rr, kk, vv, w, u, S, chunked):
     """The recurrence over time from ``S``: (outputs, last S); with
-    ``chunked``, 16-step chunks, each recomputed in the backward."""
+    ``chunked``, 16-step chunks, each recomputed in the backward (the
+    first ``layers.SCAN_STEPS`` steps only, when set)."""
+    n = rr.shape[1]
+    run, (rr, kk, vv, w) = L.scan_prefix(n, rr, kk, vv, w)
     if not chunked:
-        return _steps(rr, kk, vv, w, u, S)
+        ys, S = _steps(rr, kk, vv, w, u, S)
+        return L.zero_filled(ys, n), S
     ys = []
-    for i in range(0, rr.shape[1], CHUNK):
+    for i in range(0, run, CHUNK):
         blk = tuple(t[:, i:i + CHUNK] for t in (rr, kk, vv, w)) + (u, S)
         y, S = checkpoint(_steps, *blk, use_reentrant=False) \
             if torch.is_grad_enabled() else _steps(*blk)
         ys.append(y)
-    return torch.cat(ys, dim=1), S
+    return L.zero_filled(torch.cat(ys, dim=1), n), S
 
 
 def rwkv_cmix(p: RWKVCmix, x, *, state=None):

@@ -6,6 +6,15 @@ index, then one state dict per superblock in the list ``blocks`` (the
 reference stacks them on a leading ``n_super`` axis), and for whisper
 the cross K/V per superblock in ``cross``. ``pos`` is a Python int.
 
+On a ``DeviceMesh`` (``init_serve_state(..., mesh=)``) every leaf is a
+DTensor placed by ``sharding.serve_state_specs``, and ``serve_forward``
+runs on DTensor parameters under ``layers.activation_mesh_scope``: each
+shard writes its own block of its KV cache in place
+(``layers._write_cache``), and every other leaf of the new state (the
+Mamba window and SSM state, the RWKV shifts and matrix state, whisper's
+cross K/V) is a new tensor, redistributed to its old leaf's placements.
+No leaf is written by a slice assignment on a DTensor.
+
 Per-mixer state:
   attn  → KV cache (B, Hkv, T, hd), written IN PLACE at ``pos``;
   mamba → conv window (B, dc−1, di) + SSM state (B, di, ds): O(1) in T;
@@ -40,9 +49,19 @@ def _init_sub_state(cfg: ModelConfig, mix, ffn, batch, max_len, dtype,
 
 
 def init_serve_state(cfg: ModelConfig, batch: int, max_len: int,
-                     dtype=torch.bfloat16, *, device="cuda") \
+                     dtype=torch.bfloat16, *, device="cuda", mesh=None) \
         -> Dict[str, Any]:
-    dev = L.model_device(device)
+    """The zero state of ``batch`` sequences of up to ``max_len`` tokens;
+    with a ``DeviceMesh`` ``mesh``, its leaves distributed by
+    ``serve_state_specs`` (``device`` must be the mesh's)."""
+    state = _init_state(cfg, batch, max_len, dtype, L.model_device(device))
+    if mesh is None:
+        return state
+    from .sharding import distribute_serve_state
+    return distribute_serve_state(mesh, state, cfg)
+
+
+def _init_state(cfg: ModelConfig, batch, max_len, dtype, dev):
     state: Dict[str, Any] = {"pos": 0}
     if cfg.n_head_layers:
         state["head"] = {
@@ -132,7 +151,21 @@ def serve_forward(cfg: ModelConfig, model: Model, tokens, state,
         new_state["blocks"].append(ns)
 
     logits = logits_of(cfg, model, x[:, -1:])[:, 0]
-    return logits, new_state
+    return logits, _placed_like(new_state, state)
+
+
+def _placed_like(new, old):
+    """``new``'s DTensor leaves redistributed to the placements of
+    ``old``'s (the identity on plain states)."""
+    if isinstance(new, dict):
+        return {k: _placed_like(v, old[k]) if k in old else v
+                for k, v in new.items()}
+    if isinstance(new, list):
+        return [_placed_like(n, o) for n, o in zip(new, old)]
+    if L.is_dtensor(old) and L.is_dtensor(new) and \
+            tuple(new.placements) != tuple(old.placements):
+        return new.redistribute(old.device_mesh, old.placements)
+    return new
 
 
 def prefill_step(cfg: ModelConfig, model, tokens, state, extras=None):
@@ -164,8 +197,12 @@ def _unstack(tree, n):
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
-    """A copy on the host (a CPU cache is written in place later)."""
-    t = t.detach().to("cpu", copy=True)
+    """A copy on the host (a CPU cache is written in place later); a
+    DTensor leaf gathered whole first (a collective)."""
+    t = t.detach()
+    if L.is_dtensor(t):
+        t = t.full_tensor()
+    t = t.to("cpu", copy=True)
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
@@ -181,9 +218,11 @@ def serve_state_to_numpy(state) -> Dict[str, Any]:
     return out
 
 
-def serve_state_from_numpy(tree, device="cuda") -> Dict[str, Any]:
+def serve_state_from_numpy(tree, device="cuda", mesh=None) \
+        -> Dict[str, Any]:
     """A reference state (leaves as numpy, superblocks stacked) as the
-    port's."""
+    port's; with a ``DeviceMesh`` ``mesh``, distributed by
+    ``serve_state_specs``."""
     dev = L.model_device(device)
 
     def put(a):
@@ -197,5 +236,8 @@ def serve_state_from_numpy(tree, device="cuda") -> Dict[str, Any]:
     state["blocks"] = _unstack(blocks, n)
     if "cross" in tree:
         state["cross"] = _unstack(_map(put, tree["cross"]), n)
-    return state
+    if mesh is None:
+        return state
+    from .sharding import distribute_serve_state
+    return distribute_serve_state(mesh, state)
 

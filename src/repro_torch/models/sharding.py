@@ -231,6 +231,19 @@ def placements(spec, mesh) -> tuple:
     return tuple(out)
 
 
+def spec_of(t) -> P:
+    """The spec of a DTensor's placements (the inverse of
+    :func:`placements`): each dim the axes sharding it, in mesh order;
+    all None for a plain tensor."""
+    axes = [[] for _ in range(t.dim())]
+    mesh = getattr(t, "device_mesh", None)
+    if mesh is not None and hasattr(t, "placements"):
+        for name, pl in zip(axis_names(mesh), t.placements):
+            if pl.is_shard():
+                axes[pl.dim].append(name)
+    return P(*(tuple(a) if a else None for a in axes))
+
+
 def param_placements(model, mesh) -> Dict[str, tuple]:
     """``{parameter name: placements}`` of ``model``'s parameters on a
     ``DeviceMesh``."""
@@ -270,6 +283,23 @@ def distribute_batch(cfg: ModelConfig, mesh, batch):
     specs = batch_specs(cfg, mesh, b)
     return {k: distribute(v, mesh, placements(specs[k], mesh))
             for k, v in batch.items()}
+
+
+def distribute_serve_state(mesh, state, cfg: ModelConfig = None):
+    """Each tensor leaf of a serve state as a DTensor on ``mesh`` placed
+    by :func:`serve_state_specs` (each rank its own chunk of its own
+    full leaf); ``pos`` stays an int."""
+    specs = serve_state_specs(cfg, mesh, state)
+
+    def walk(node, spec):
+        if isinstance(node, dict):
+            return {k: walk(v, spec[k]) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, sp) for v, sp in zip(node, spec)]
+        if not isinstance(node, torch.Tensor):
+            return node
+        return distribute(node, mesh, placements(spec, mesh))
+    return walk(state, specs)
 
 
 class NamedSharding:

@@ -17,7 +17,9 @@ one training step with its gradients and update, and the train
 launcher (``-k train``). Model sharding (``-k shard``): expert
 parallelism over the in-process mesh against the local path, and smoke
 configurations as DTensors on a one-rank NCCL mesh against the plain
-card path.
+card path. Serving under a mesh (``-k serve_mesh``): prefill and decode
+of smoke configurations with DTensor parameters and state on that mesh
+against the plain card path.
 """
 import numpy as np
 import pytest
@@ -1288,3 +1290,63 @@ def test_shard_smoke_config_on_a_one_rank_mesh(full_f32, nccl_mesh, arch):
     assert _leaf_err(sg, ug) <= 1e-4
     for k in ("loss", "grad_norm"):
         assert float(sm[k]) == pytest.approx(float(um[k]), rel=1e-5), k
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "starcoder2-3b",
+                                  "jamba-1.5-large-398b", "rwkv6-7b",
+                                  "whisper-small"])
+def test_serve_mesh_smoke_config_on_a_one_rank_mesh(full_f32, nccl_mesh,
+                                                    arch):
+    """A smoke configuration in float32: prefill of 8 tokens and 3 decode
+    steps with DTensor parameters and state (``init_serve_state(...,
+    mesh=)``) through ``build_step``'s prefill and decode functions on
+    the NCCL mesh: every logit and state leaf within 1e-5 of its largest
+    |value| of the plain card path, the state placed by
+    ``serve_state_specs``."""
+    import torch_serve_cases as cases
+    import torch_shard_cases as shard
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import sharding as SH
+    from repro_torch.models.model import params_from_numpy
+    from repro_torch.models.serving import (decode_step, init_serve_state,
+                                            prefill_step,
+                                            serve_state_to_numpy)
+    mesh = nccl_mesh
+    cfg = cases.smoke_cfg(arch)
+    tree = shard.model_np(cfg)
+    toks, extras = cases.inputs_np(cfg)
+    specs = SH.batch_specs(cfg, mesh, cases.B)
+    runs = {}
+    for sharded in (False, True):
+        model = params_from_numpy(cfg, tree, "cuda")
+        state = init_serve_state(cfg, cases.B, cases.MAX_LEN, torch.float32,
+                                 device="cuda",
+                                 mesh=mesh if sharded else None)
+        if sharded:
+            SH.distribute_params(model, mesh)
+            fns = (build_step(cfg, "prefill_32k", mesh)[0],
+                   build_step(cfg, "decode_32k", mesh)[0])
+
+            def put(k, t):
+                return SH.distribute(t.cuda(), mesh,
+                                     SH.placements(specs[k], mesh))
+        else:
+            fns = (lambda m, t, s, e: prefill_step(cfg, m, t, s, e),
+                   lambda m, t, s: decode_step(cfg, m, t, s))
+
+            def put(k, t):
+                return t.cuda()
+        logits, state = cases.run(cfg, model, state, toks, extras, *fns,
+                                  put)
+        if sharded:
+            assert cases.placed_as_specs(state, mesh)
+        runs[sharded] = ([(lg.full_tensor() if hasattr(lg, "full_tensor")
+                           else lg).cpu() for lg in logits],
+                         cases.flat_state(serve_state_to_numpy(state)))
+    for got, want in zip(runs[True][0], runs[False][0]):
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))
+    for k, want in runs[False][1].items():
+        got = runs[True][1][k]
+        assert np.abs(got - want).max() <= 1e-5 * max(np.abs(want).max(),
+                                                      1e-30), k

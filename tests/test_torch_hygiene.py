@@ -115,7 +115,9 @@ def test_sharding_modules_import_without_a_device_or_a_group(tmp_path):
                PYTHONPATH=str(ROOT / "src"))
     code = ("import torch.distributed as d, repro_torch.launch.mesh, "
             "repro_torch.launch.steps, repro_torch.models.sharding, "
-            "repro_torch.runtime.elastic; "
+            "repro_torch.runtime.elastic, repro_torch.launch.hlo_analysis, "
+            "repro_torch.launch.dryrun, repro_torch.launch.dryrun_aqp, "
+            "repro_torch.launch.perf_cell; "
             "assert not d.is_initialized()")
     subprocess.run([sys.executable, "-c", code], env=env, check=True,
                    timeout=120)
@@ -195,7 +197,7 @@ def test_chip_smoke_fails_without_card_or_repo(tmp_path, alone):
 
 
 CORE_FILES = sorted(
-    p for d in ("core", "benchmarks", "examples")
+    p for d in ("core", "benchmarks", "examples", "launch")
     for p in (ROOT / "src" / "repro_torch" / d).glob("*.py")) + [
     ROOT / "src" / "repro_torch" / "data" / "chunked.py"]
 KERNEL_MODULES = ("segment_agg", "fused_select", "bin_agg", "window_agg")
@@ -208,8 +210,9 @@ SHARED_HELPERS = {"agg4", "window_bin_ids", "edge_cell_ids", "segment_ids"}
 @pytest.mark.parametrize("path", CORE_FILES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_core_reaches_kernels_through_ops(path):
-    """No module of ``repro_torch/core``, ``repro_torch/benchmarks`` or
-    ``repro_torch/examples`` (nor the chunked storage of
+    """No module of ``repro_torch/core``, ``repro_torch/benchmarks``,
+    ``repro_torch/examples`` or ``repro_torch/launch`` (nor the chunked
+    storage of
     ``repro_torch/data``) imports a plain kernel version
     (a name ending in ``_torch`` from a kernel module) or reaches one as
     an attribute: the core reaches every kernel through ``ops`` with its

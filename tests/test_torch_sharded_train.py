@@ -21,6 +21,11 @@ own sharded loss on 8 fake jax devices (a mesh of ``Auto`` axes, built
 here) — against the unsharded reference they stay within the
 reference's own ``test_model_train_step_8dev_mesh`` tolerance (5e-2).
 
+For starcoder2-3b, starcoder2-15b and whisper-small (float32 smoke;
+ROADMAP C.17 and C.15c): the sharded loss within 1e-5 relative and
+every gradient within 1e-4 of its leaf's largest |g| of the plain CPU
+path, and the loss within 1e-4 of the reference's sharded loss.
+
 Also: one ``opt_update`` on the DTensor leaves equals the plain one
 (1e-6 of each leaf's largest |p|); the ranks' expert-parallel MoE layer
 equals the in-process mesh's (1e-6); the ``fsdp_use_hint`` toggle leaves
@@ -47,6 +52,10 @@ from repro_torch.runtime.train_loop import make_train_step
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MOE_ARCHS = ("deepseek-moe-16b", "jamba-1.5-large-398b")
+# the reference's sharded loss is computed for these, in one microbatch
+REF_ARCHS = MOE_ARCHS + cases.GRAD_ARCHS
+REF_MICROBATCHES = {**cases.MICROBATCHES,
+                    **{a: 1 for a in cases.GRAD_ARCHS}}
 
 REF_SHARDED = """
     import jax, numpy as np
@@ -85,8 +94,10 @@ REF_SHARDED = """
             b = {k: flat_b[part * n:(part + 1) * n] for k, flat_b in
                  np.load(f"{DIR}/{arch}.batch.npz").items()}
             bs = batch_specs(cfg, mesh, n)
-            b = {k: jax.device_put(jnp.asarray(v, jnp.int32),
-                                   NamedSharding(mesh, bs[k]))
+            b = {k: jax.device_put(
+                     jnp.asarray(v, jnp.float32 if k == "frames"
+                                 else jnp.int32),
+                     NamedSharding(mesh, bs[k]))
                  for k, v in b.items()}
             with mesh:
                 losses.append(float(jax.jit(f)(params, b)))
@@ -106,19 +117,19 @@ def flat_tree(tree, prefix=""):
 @pytest.fixture(scope="module")
 def record(tmp_path_factory):
     """Rank 0's record of the 8-rank spawn, and the reference's sharded
-    losses of the MoE configurations (a subprocess on 8 fake devices,
-    run beside the spawn)."""
+    losses of the MoE and ``GRAD_ARCHS`` configurations (a subprocess on
+    8 fake devices, run beside the spawn)."""
     import torch.multiprocessing as mp
     d = tmp_path_factory.mktemp("sharded")
-    for arch in MOE_ARCHS:
+    for arch in REF_ARCHS:
         cfg = cases.smoke_cfg(arch)
         np.savez(d / f"{arch}.npz", **dict(flat_tree(cases.model_np(cfg))))
-        np.savez(d / f"{arch}.batch.npz", **cases.batch_np(cfg))
+        np.savez(d / f"{arch}.batch.npz", **cases.grad_batch_np(cfg))
     env = dict(os.environ,
                XLA_FLAGS="--xla_force_host_platform_device_count=8",
                PYTHONPATH=os.path.join(ROOT, "src"))
-    code = f"ARCHS = {MOE_ARCHS!r}\nDIR = {str(d)!r}\n" \
-        f"MICROBATCHES = {cases.MICROBATCHES!r}\n" + \
+    code = f"ARCHS = {REF_ARCHS!r}\nDIR = {str(d)!r}\n" \
+        f"MICROBATCHES = {REF_MICROBATCHES!r}\n" + \
         textwrap.dedent(REF_SHARDED)
     ref = subprocess.Popen([sys.executable, "-c", code], env=env,
                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -233,3 +244,25 @@ def test_fsdp_use_hint_off_keeps_the_sharded_loss(record):
 
 def test_sharded_state_restores_on_the_ranks_byte_for_byte(record):
     assert int(record["elastic:equal"][0]) == 1
+
+
+def plain_grads(arch):
+    cfg = cases.smoke_cfg(arch)
+    model = params_from_numpy(cfg, cases.model_np(cfg), "cpu")
+    batch = {k: torch.from_numpy(v)
+             for k, v in cases.grad_batch_np(cfg).items()}
+    return cases.batch_grads(cfg, model, batch)
+
+
+@pytest.mark.parametrize("arch", cases.GRAD_ARCHS)
+def test_sharded_gradients_equal_plain(record, arch):
+    loss, grads = plain_grads(arch)
+    assert rel(record[f"{arch}:grad:loss"], loss) <= 1e-5
+    for n, g in grads.items():
+        assert leaf_err(record[f"{arch}:grad:{n}"], g.numpy()) <= 1e-4, n
+
+
+@pytest.mark.parametrize("arch", cases.GRAD_ARCHS)
+def test_sharded_gradient_loss_equals_reference(record, arch):
+    assert rel(record[f"{arch}:grad:loss"],
+               record[f"{arch}:ref_sharded_loss"]) <= 1e-4

@@ -14,8 +14,13 @@ distributed). For granite also the sharded loss with the
 ``fsdp_use_hint`` toggle on and off, and the stepped state saved (the
 checkpoint holds it whole) and restored onto the ranks' mesh with
 ``runtime.elastic.load_for_mesh``: each rank's shards against its own,
-byte for byte. Then the expert-parallel MoE layer of ``moe_case`` on the
-ranks. Every value is saved whole (``full_tensor``) by rank 0.
+byte for byte. Then, for each configuration of ``GRAD_ARCHS``, the
+sharded loss and the gradient of every parameter (``batch_grads`` on
+``distribute_params`` / ``distribute_batch``): starcoder2's 6 heads and
+2 KV heads do not divide the model axis (ROADMAP C.17), and whisper's
+encoder and cross-attention are what C.15c broke. Then the
+expert-parallel MoE layer of ``moe_case`` on the ranks. Every value is
+saved whole (``full_tensor``) by rank 0.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ ARCHS = ("granite-8b", "deepseek-moe-16b", "jamba-1.5-large-398b",
 # two microbatches exercise mb_shardings; the heavier two take one
 MICROBATCHES = {"granite-8b": 2, "deepseek-moe-16b": 2,
                 "jamba-1.5-large-398b": 1, "rwkv6-7b": 1}
+GRAD_ARCHS = ("starcoder2-3b", "starcoder2-15b", "whisper-small")
 MESH = (2, 4)
 OPT = dict(lr=1e-3, warmup_steps=0, total_steps=10)
 
@@ -43,6 +49,15 @@ def batch_np(cfg, n=4, seq=16):
     b = {k: rng.integers(0, cfg.vocab, (n, seq)) for k in ("tokens",
                                                            "labels")}
     b["labels"][1, -4:] = -100
+    return b
+
+
+def grad_batch_np(cfg):
+    """``batch_np`` with whisper's encoder input (float32 frames)."""
+    b = batch_np(cfg)
+    if cfg.family == "encdec":
+        b["frames"] = np.random.default_rng(2).normal(
+            size=(4, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
     return b
 
 
@@ -192,6 +207,18 @@ def rank_main(rank, world, store, out_path):
                                    for n, g in g_plain.items()}, opt, ocfg)
             for n, p in model.named_parameters():
                 rec[f"{arch}:opt:param:{n}"] = full(p)
+        for arch in GRAD_ARCHS:
+            cfg = smoke_cfg(arch)
+            batch = {k: torch.from_numpy(v)
+                     for k, v in grad_batch_np(cfg).items()}
+            model = SH.distribute_params(
+                params_from_numpy(cfg, model_np(cfg), "cpu"), mesh)
+            with activation_mesh_scope(mesh):
+                loss, grads = batch_grads(
+                    cfg, model, SH.distribute_batch(cfg, mesh, batch))
+            rec[f"{arch}:grad:loss"] = full(loss)
+            for n, g in grads.items():
+                rec[f"{arch}:grad:{n}"] = full(g)
         dims, p, x = moe_case()
         SH.distribute_params(p, mesh, {
             n: SH.placements(SH.leaf_spec("moe." + n, t.shape, mesh), mesh)
