@@ -24,10 +24,20 @@ nothing to pin — and on a DTensor it redistributes to the hinted
 placements on its ``DeviceMesh``, dropping axes absent from the mesh or
 not dividing the dim, as the reference does; it never raises. Binding a
 ``DeviceMesh`` also lets plain tensors (masks, RoPE tables) meet
-DTensors as replicated operands. Where DTensor has no sharding rule for
-an op on the model's path, the op runs under :func:`gathered`: its
-operands redistributed to ``Replicate`` (what GSPMD does there), its
-results replicated DTensors.
+DTensors as replicated operands.
+
+The layout. GSPMD lays the reference's whole step out from those few
+hints; DTensor chooses op by op, and left alone it repeats on every
+``model`` rank work that the reference splits (ROADMAP C.18). So on a
+``DeviceMesh`` each sublayer lays its work out explicitly and runs it
+per shard (:func:`shard_local`, shard_map's counterpart): the residual
+stream stays batch-sharded and replicated over ``model`` between
+sublayers, the embedding is vocab-parallel (:func:`embed_lookup`), the
+MLPs column- then row-parallel (:func:`tp_ffn`), attention over whole
+heads or over the query positions (:func:`attention`), and each
+row-parallel output is a partial sum (:class:`Summed`) all-reduced back
+to the stream (:func:`to_stream`). Where DTensor has no sharding rule
+for an op (the MoE's dispatch), the op runs under :func:`gathered`.
 
 ``OPT`` holds the reference's four toggles with its defaults:
 ``fsdp_use_hint`` (the hint above), ``mamba_recompute`` (the scans'
@@ -190,6 +200,19 @@ def _model_axis() -> int:
         if _ACT_MESH is not None else 1
 
 
+class Summed(tuple):
+    """An ``out_axes`` entry of :func:`shard_local` for an output that is
+    a partial sum over ``model`` (each model rank holds its own part,
+    ``Partial("sum")``), laid out by the spec over the other axes."""
+
+
+def summed(spec, split: bool):
+    """``spec`` as a :class:`Summed` entry when ``split`` (the product
+    behind it contracts a dim sharded over a ``model`` axis of more than
+    one rank), else as it is."""
+    return Summed(spec) if split and _model_axis() > 1 else spec
+
+
 def shard_local(fn, args, in_axes, out_axes):
     """``shard_map``'s counterpart on a ``DeviceMesh``: with a DTensor
     among ``args``, each tensor arg redistributed to its ``in_axes``
@@ -197,17 +220,25 @@ def shard_local(fn, args, in_axes, out_axes):
     ``shard_hint`` sanitizes) and taken local, ``fn`` run on the local
     shards, and each tensor it returns made a DTensor with its
     ``out_axes`` entry (taken as given: the caller derives it from the
-    inputs' sanitized specs, :func:`local_spec`; None replicates every
-    output). Autograd flows through both conversions; as in
-    ``shard_map``'s transpose, an operand replicated over a mesh axis that
-    another operand is sharded over gets a gradient that is partial
-    there (summed over that axis). A plain call on plain tensors."""
+    inputs' sanitized specs, :func:`local_spec`; a :class:`Summed` entry
+    is also partial over ``model``; None replicates every output).
+    Autograd flows through both conversions; as in ``shard_map``'s
+    transpose, an operand replicated over a mesh axis that another
+    operand is sharded over gets a gradient that is partial there
+    (summed over that axis). A plain call on plain tensors."""
     mesh = next((a.device_mesh for a in args if is_dtensor(a)), None)
     if mesh is None:
         return fn(*args)
     from torch.distributed.tensor import DTensor, Partial, distribute_tensor
 
     from .sharding import placements
+
+    def out_placements(ax):
+        pl = placements(ax, mesh)
+        if isinstance(ax, Summed):
+            pl = tuple(Partial() if n == "model" else p
+                       for n, p in zip(mesh.mesh_dim_names, pl))
+        return pl
 
     pls = [placements(_spec(mesh, a.shape, ax), mesh)
            if isinstance(a, torch.Tensor) else None
@@ -230,7 +261,7 @@ def shard_local(fn, args, in_axes, out_axes):
     axes = ((),) * len(outs) if out_axes is None \
         else (out_axes,) if single else out_axes
     wrapped = tuple(
-        DTensor.from_local(o, mesh, placements(ax, mesh), run_check=False)
+        DTensor.from_local(o, mesh, out_placements(ax), run_check=False)
         if isinstance(o, torch.Tensor) else o for o, ax in zip(outs, axes))
     return wrapped[0] if single else wrapped
 
@@ -241,6 +272,83 @@ def local_spec(x, axes):
     if _ACT_MESH is None:
         return [None] * x.dim()
     return _spec(_ACT_MESH, x.shape, axes)
+
+
+# ------------------------------------------------------------------ #
+# the explicit tensor-parallel layout
+# ------------------------------------------------------------------ #
+# Between sublayers the residual stream is batch-sharded over the data
+# axes and replicated over ``model`` (the reference pins it so after the
+# embedding). Each sublayer runs its products on each rank's own shard
+# (``shard_local``): a column-parallel product on its own columns, a
+# row-parallel one on its own rows, whose partial sums (``Summed``) are
+# all-reduced back to the stream's layout; nothing is left for DTensor
+# to lay out op by op.
+DP = ("pod", "data")
+
+
+def stream_spec(x):
+    """The residual stream's sanitized spec for ``x``: batch over the
+    data axes, every other dim whole."""
+    return local_spec(x, (DP,))
+
+
+def to_stream(x):
+    """``x`` in the stream's layout: a partial sum over ``model``
+    all-reduced, a dim sharded over it gathered (the identity on a plain
+    tensor)."""
+    return shard_hint(x, DP)
+
+
+def shard_start(n: int, *tensors, axis: str = "model") -> int:
+    """Where this rank's chunk starts of a dim of ``n`` split evenly over
+    ``axis`` of the ``DeviceMesh`` of the first DTensor of ``tensors``
+    (0 with none)."""
+    mesh = next((t.device_mesh for t in tensors if is_dtensor(t)), None)
+    if mesh is None:
+        return 0
+    size = mesh.size(mesh.mesh_dim_names.index(axis))
+    return mesh.get_local_rank(axis) * (n // size)
+
+
+def col_gathered(x, w):
+    """``x @ w`` replicated over ``model``: each model rank makes its own
+    columns of the product (``w`` column-parallel), then they are
+    gathered. A plain product on plain tensors."""
+    w = fsdp_use(w, None, "model")
+    xs, ws = stream_spec(x), local_spec(w, (None, "model"))
+    out = shard_local(mm, (x, w), (xs, ws), xs[:-1] + ws[-1:])
+    return to_stream(out)
+
+
+def row_parallel(t, w):
+    """``t @ w`` for ``t`` in the stream's layout: each model rank
+    contracts its own columns of ``t`` with its own rows of ``w``
+    (row-parallel), and the partial sums are all-reduced to the stream's
+    layout."""
+    w = fsdp_use(w, "model", None)
+    ws = local_spec(w, ("model", None))
+    ts = stream_spec(t)
+    out = shard_local(mm, (t, w), (ts[:-1] + ws[:1], ws),
+                      summed(ts, ws[0] is not None))
+    return to_stream(out)
+
+
+def tp_ffn(body, x, cols, row):
+    """``body(x, *cols, row)`` on each model rank, Megatron's layout:
+    ``x`` in the stream's layout, each of ``cols`` column-parallel and
+    ``row`` row-parallel over ``model``, so that every rank makes its own
+    hidden columns of each product, forward and backward; the output's
+    partial sums are all-reduced to the stream's layout."""
+    xs = stream_spec(x)
+    cols = [fsdp_use(w, None, "model") for w in cols]
+    row = fsdp_use(row, "model", None)
+    rs = local_spec(row, ("model", None))
+    out = shard_local(
+        body, (x, *cols, row),
+        (xs, *(local_spec(w, (None, "model")) for w in cols), rs),
+        summed(xs, rs[0] is not None))
+    return to_stream(out)
 
 
 def gathered(fn, *args):
@@ -371,16 +479,19 @@ def group_norm_heads(x, w, b, n_heads, eps=1e-5):
     shards has no DTensor view, ROADMAP C.17)."""
     hs = x.shape[-1] // n_heads
     ax = "model" if n_heads % _model_axis() == 0 else None
-    spec = local_spec(x, (("pod", "data"),) + (None,) * (x.dim() - 2)
-                      + (ax,))
+    spec = local_spec(x, (DP,) + (None,) * (x.dim() - 2) + (ax,))
+    return shard_local(lambda x, w, b: group_norm_local(x, w, b, hs, eps),
+                       (x, w, b), (spec, spec[-1:], spec[-1:]), spec)
 
-    def norm(x, w, b):
-        shp = x.shape
-        xf = x.float().reshape(*shp[:-1], shp[-1] // hs, hs)
-        mu, var = _var(xf)
-        xf = (xf - mu) * torch.rsqrt(var + eps)
-        return (xf.reshape(shp) * w + b).to(x.dtype)
-    return shard_local(norm, (x, w, b), (spec, spec[-1:], spec[-1:]), spec)
+
+def group_norm_local(x, w, b, head_size, eps=1e-5):
+    """:func:`group_norm_heads` on a plain tensor of whole heads of
+    ``head_size`` channels each."""
+    shp = x.shape
+    xf = x.float().reshape(*shp[:-1], shp[-1] // head_size, head_size)
+    mu, var = _var(xf)
+    xf = (xf - mu) * torch.rsqrt(var + eps)
+    return (xf.reshape(shp) * w + b).to(x.dtype)
 
 
 # ------------------------------------------------------------------ #
@@ -427,8 +538,28 @@ class Attention(Leaves):
 
 def embed_lookup(table, ids):
     """The rows of ``table`` at ``ids`` (the reference's one-hot matmul
-    gives the same rows), batch-sharded."""
-    return shard_hint(F.embedding(ids, table), ("pod", "data"), None, None)
+    picks the same rows), in the stream's layout. ``F.embedding`` on
+    plain tensors. On a ``DeviceMesh`` with the table sharded over
+    ``model`` by vocabulary, the lookup is vocab-parallel: each model rank
+    looks up the ids in its own range of rows and gives zeros for the
+    rest, a partial sum all-reduced to the stream's layout, where every
+    row comes from one rank bit for bit; the backward is each rank's
+    scatter into its own rows."""
+    if not is_dtensor(table) and not is_dtensor(ids):
+        return F.embedding(ids, table)
+    ts, ids_spec = local_spec(table, ("model", None)), local_spec(ids, (DP,))
+    lo = shard_start(table.shape[0], table, ids) if ts[0] else 0
+
+    def lookup(ids, table):
+        if ts[0] is None:
+            return F.embedding(ids, table)
+        local = ids - lo
+        hit = (local >= 0) & (local < table.shape[0])
+        rows = F.embedding(torch.where(hit, local, 0), table)
+        return torch.where(hit[..., None], rows, 0)
+    out = shard_local(lookup, (ids, table), (ids_spec, ts),
+                      summed(ids_spec + [None], ts[0] is not None))
+    return to_stream(out)
 
 
 def _scores(q, k, g):
@@ -437,9 +568,6 @@ def _scores(q, k, g):
     repeated."""
     b, hk, t, d = k.shape
     s = q.shape[2]
-    q, k = _hint_model_dim(q, (1,)), _hint_model_dim(k, (1,))
-    if hk % _model_axis():      # a DTensor's heads cannot fold here
-        q = shard_hint(q, ("pod", "data"), None, None, None)
     lg = mm(q.reshape(b, hk, g * s, d), k.transpose(-1, -2))
     return lg.float().reshape(b, hk, g, s, t)
 
@@ -447,75 +575,91 @@ def _scores(q, k, g):
 def _weighted(p, v, g):
     """(B, Hk, g, S, T) probabilities · (B, Hk, T, D) → (B, Hk, g, S, D)."""
     b, hk, _, s, t = p.shape
-    p, v = _hint_model_dim(p, (1,)), _hint_model_dim(v, (1,))
     out = mm(p.to(v.dtype).reshape(b, hk, g * s, t), v)
     return out.reshape(b, hk, g, s, -1)
 
 
-def _causal(logits, s, t, q_off, device):
-    qpos = torch.arange(s, device=device) + q_off
-    kpos = torch.arange(t, device=device)
+def _causal(logits, qpos, t):
+    """``logits`` (…, S, T) with key ``j`` masked for the query at
+    position ``qpos[i]`` where ``j > qpos[i]``."""
+    kpos = torch.arange(t, device=logits.device)
     return torch.where(kpos[None, :] <= qpos[:, None], logits, NEG)
 
 
-def _gqa_scores_full(q, k, v, causal, q_off=0):
-    """Full-matrix GQA attention (small S only). q: (B,H,S,D), kv: (B,Hk,T,D).
+def _positions(qpos, s, q_off, device):
+    return torch.arange(s, device=device) + q_off if qpos is None else qpos
 
-    Sharding of the score tensor, as the reference's: with
-    ``OPT["attn_repeat_k"]``, heads dividing the ``model`` axis and KV
-    heads not, K/V are repeated to all H heads and the (B,H,S,T) scores
-    shard on H; otherwise the grouped (B,Hk,G,S,T) scores shard Hk, G or
-    S over ``model``, the first that divides."""
+
+def _repeat_k(h, hk):
+    """``OPT["attn_repeat_k"]``'s case: the heads divide the bound
+    ``model`` axis (larger than 1) and the KV heads do not."""
+    tp = _model_axis()
+    return OPT["attn_repeat_k"] and tp > 1 and h % tp == 0 and hk % tp != 0
+
+
+def _gqa_scores_full(q, k, v, causal, q_off=0, qpos=None, repeat=None):
+    """Full-matrix GQA attention (small S only). q: (B,H,S,D), kv: (B,Hk,T,D).
+    ``qpos``: the queries' positions (default ``q_off + arange(S)``), which
+    the causal mask reads.
+
+    With ``repeat`` (default :func:`_repeat_k` of these heads), K/V are
+    repeated to all H heads and the (B,H,S,T) scores computed per head
+    (the reference's ``OPT["attn_repeat_k"]`` path); otherwise the
+    grouped (B,Hk,G,S,T) scores. The caller lays the work out over
+    ``model`` (:func:`attention`)."""
     b, h, s, d = q.shape
     hk, t = k.shape[1], k.shape[2]
     g = h // hk
-    tp = _model_axis()
-    if OPT["attn_repeat_k"] and tp > 1 and h % tp == 0 and hk % tp != 0:
+    qpos = _positions(qpos, s, q_off, q.device)
+    if repeat is None:
+        repeat = _repeat_k(h, hk)
+    if repeat:
         kr = k.repeat_interleave(g, dim=1)
         vr = v.repeat_interleave(g, dim=1)
-        dp = ("pod", "data")
-        q = shard_hint(q, dp, "model", None, None)
-        kr = shard_hint(kr, dp, "model", None, None)
-        vr = shard_hint(vr, dp, "model", None, None)
         logits = mm(q, kr.transpose(-1, -2)).float() * d ** -0.5
-        logits = shard_hint(logits, dp, "model", None, None)
         if causal:
-            logits = _causal(logits, s, t, q_off, q.device)
+            logits = _causal(logits, qpos, t)
         p = torch.softmax(logits, dim=-1)
         return mm(p.to(vr.dtype), vr)
-    logits = _hint_model_dim(_scores(q, k, g) * d ** -0.5, (1, 2, 3))
+    logits = _scores(q, k, g) * d ** -0.5
     if causal:
-        logits = _causal(logits, s, t, q_off, q.device)
+        logits = _causal(logits, qpos, t)
     p = torch.softmax(logits, dim=-1)
     return _weighted(p, v, g).reshape(b, h, s, d)
 
 
 def chunked_attention(q, k, v, *, causal=True, q_off=0, kv_len=None,
-                      q_chunk=512, kv_chunk=1024):
+                      q_chunk=512, kv_chunk=1024, qpos=None):
     """Online-softmax (flash) attention over KV chunks; GQA-aware.
 
     q: (B, H, S, D); k, v: (B, Hkv, T, D). ``kv_len``: the valid length
-    of the KV sequence (decode with a preallocated cache). Never
-    materializes more than (B, Hkv, g, q_chunk, kv_chunk) logits.
+    of the KV sequence (decode with a preallocated cache). ``qpos``: the
+    queries' positions (default ``q_off + arange(S)``), which the causal
+    mask reads. Never materializes more than (B, Hkv, g, q_chunk,
+    kv_chunk) logits.
     """
     b, h, s, d = q.shape
     hk, t = k.shape[1], k.shape[2]
     g = h // hk
     scale = d ** -0.5
-    q = F.pad(q, (0, 0, 0, (-s) % q_chunk))
+    dev = q.device
+    qpos = _positions(qpos, s, q_off, dev)
+    s_pad = (-s) % q_chunk
+    q = F.pad(q, (0, 0, 0, s_pad))
+    if s_pad:           # the padded rows' positions (their rows are cut)
+        qpos = torch.cat([qpos, qpos[-1] + 1 + torch.arange(s_pad,
+                                                            device=dev)])
     t_pad = (-t) % kv_chunk
     if t_pad:
         k = F.pad(k, (0, 0, 0, t_pad))
         v = F.pad(v, (0, 0, 0, t_pad))
     sq, tk = q.shape[2], k.shape[2]
     valid_t = t if kv_len is None else kv_len
-    dev = q.device
-    ar_q = torch.arange(q_chunk, device=dev)
     ar_k = torch.arange(kv_chunk, device=dev)
     outs = []
     for qi in range(sq // q_chunk):
         qblk = q[:, :, qi * q_chunk:(qi + 1) * q_chunk]
-        qpos = qi * q_chunk + ar_q + q_off
+        qp = qpos[qi * q_chunk:(qi + 1) * q_chunk]
         acc = torch.zeros((b, hk, g, q_chunk, d), dtype=torch.float32,
                           device=dev)
         m = torch.full((b, hk, g, q_chunk), -math.inf, dtype=torch.float32,
@@ -528,7 +672,7 @@ def chunked_attention(q, k, v, *, causal=True, q_off=0, kv_len=None,
             lg = _scores(qblk, k[:, :, sl], g) * scale
             msk = kpos[None, :] < valid_t
             if causal:
-                msk = msk & (kpos[None, :] <= qpos[:, None])
+                msk = msk & (kpos[None, :] <= qp[:, None])
             lg = torch.where(msk, lg, NEG)
             m_new = torch.maximum(m, lg.amax(-1))
             p = torch.exp(lg - m_new[..., None])
@@ -541,27 +685,23 @@ def chunked_attention(q, k, v, *, causal=True, q_off=0, kv_len=None,
     return out[:, :, :s]
 
 
-def _gqa_decode(q, k, v, pos, s):
+def _gqa_decode(q, k, v, qpos):
     """Masked full-cache attention for small decode blocks (s ≤ 8).
 
-    q: (B, H, s, D); k/v: (B, Hkv, T, D). Valid keys: index ≤ pos+i.
+    q: (B, H, s, D); k/v: (B, Hkv, T, D). Valid keys: index ≤ qpos[i]
+    (the queries' positions, ``pos + arange(s)``).
     """
-    b, h, _, d = q.shape
-    hk, t = k.shape[1], k.shape[2]
-    g = h // hk
-    if hk % max(_model_axis(), 1) != 0:
-        # the cache is head-dim-sharded when Hkv < TP: match q to it
-        dp = ("pod", "data")
-        q = shard_hint(q.reshape(b, hk, g, s, d), dp, None, None, None,
-                       "model").reshape(b, h, s, d)
-        k = shard_hint(k, dp, None, None, "model")
-        v = shard_hint(v, dp, None, None, "model")
-    logits = _scores(q, k, g) * d ** -0.5
-    kpos = torch.arange(t, device=q.device)
-    qpos = pos + torch.arange(s, device=q.device)
-    logits = torch.where(kpos[None, :] <= qpos[:, None], logits, NEG)
-    p = torch.softmax(logits, dim=-1)
+    b, h, s, d = q.shape
+    g = h // k.shape[1]
+    p = _decode_probs(_scores(q, k, g), qpos, d)
     return _weighted(p, v, g).reshape(b, h, s, d)
+
+
+def _decode_probs(logits, qpos, d):
+    """The decode pass's softmax of (B, Hk, g, s, T) ``logits`` (before
+    the ``d ** -0.5`` scale), keys past each query masked."""
+    return torch.softmax(_causal(logits * d ** -0.5, qpos, logits.shape[-1]),
+                         dim=-1)
 
 
 def split_last(t, n, m):
@@ -573,9 +713,28 @@ def split_last(t, n, m):
     return t.reshape(*t.shape[:-1], n, m)
 
 
-def _heads(t, n, hd):
-    """(B, S, n·hd) → (B, n, S, hd)."""
-    return split_last(t, n, hd).transpose(1, 2)
+def _heads(t, hd):
+    """(B, S, n·hd) → (B, n, S, hd) on a plain tensor (or a DTensor
+    replicated over ``model``)."""
+    return t.reshape(*t.shape[:-1], t.shape[-1] // hd, hd).transpose(1, 2)
+
+
+def heads_of(t, hd, positions=None, rope=None):
+    """(B, S, n·hd) → (B, n, S, hd), RoPE'd at ``positions`` when ``rope``
+    is given; on a DTensor (batch over the data axes, replicated over
+    ``model``) per shard, so that no DTensor view meets the transposed
+    local gradient in the backward."""
+    spec = stream_spec(t)
+
+    def split(t, ps):
+        h = _heads(t, hd)
+        return h if rope is None else rope(h, ps)
+    return shard_local(split, (t, positions), (spec, (None,)), spec + [None])
+
+
+def _merged(o):
+    """(B, n, S, hd) → (B, S, n·hd)."""
+    return o.transpose(1, 2).reshape(o.shape[0], o.shape[2], -1)
 
 
 def attention(p: Attention, x, dims: AttnDims, *, positions, causal=True,
@@ -590,62 +749,192 @@ def attention(p: Attention, x, dims: AttnDims, *, positions, causal=True,
     raises (the reference's ``dynamic_update_slice`` clamps it instead,
     ROADMAP C.11). Returns (out, new_cache), new_cache holding the
     cache's own tensors. kv_override: (k, v) for cross-attention.
+    ``positions`` (S,): the new tokens' positions (RoPE and the causal
+    mask).
+
+    On a ``DeviceMesh`` the work splits over ``model`` as the reference's
+    layout splits it (the score tensor over Hk, else over the query
+    sequence S; the reference's grouped G is taken as S, which no
+    configuration's heads meet on the meshes used), each layout run per
+    shard (``shard_local``), so that no DTensor view splits or merges a
+    head across shards (ROADMAP C.17):
+
+    - ``heads`` (the KV heads divide the axis, or the cache is sharded on
+      them): q/k/v column-parallel over whole heads, the scores and the
+      cache on each rank's own heads, ``wo`` row-parallel;
+    - ``hd`` (a decode block, s ≤ 8, on a cache sharded on its head dim,
+      the reference's rule when Hkv < TP): q/k/v column-parallel and
+      gathered, each rank scores its own head-dim slice against its own
+      cache slice, the scores summed over ``model``, the weighted values
+      gathered, ``wo`` row-parallel;
+    - ``rows`` (otherwise): k/v column-parallel and gathered, and each
+      rank runs the queries of its own positions (S sharded beside q, the
+      causal mask built from them) through q, the scores and ``wo`` with
+      the weights gathered; S not dividing the axis runs whole on every
+      rank, as the reference's hint degrades to batch only.
     """
     b, s, _ = x.shape
     h, hk, hd = dims.n_heads, dims.n_kv_heads, dims.head_dim
-    q = _heads(mm(x, fsdp_use(p.wq, None, "model")), h, hd)
-    if kv_override is None:
-        k = _heads(mm(x, fsdp_use(p.wk, None, "model")), hk, hd)
-        v = _heads(mm(x, fsdp_use(p.wv, None, "model")), hk, hd)
-        if use_rope:
-            q = apply_rope(q, positions, rope_theta)
-            k = apply_rope(k, positions, rope_theta)
-    else:
-        k, v = kv_override
-
-    # per (batch, head) shard on a DeviceMesh: heads over `model` when
-    # both head counts divide it, else gathered; the heads are merged
-    # per shard too, so the merge's backward never unflattens a
-    # model-sharded dim that the heads do not divide (ROADMAP C.17)
-    tp = _model_axis()
-    spec = local_spec(q, (("pod", "data"),
-                          "model" if h % tp == hk % tp == 0 else None))
-    new_cache = None
+    pos = ck = cv = None
     if cache is not None:
         pos = int(cache_pos)
         ck, cv = cache["k"], cache["v"]
         if pos < 0 or pos + s > ck.shape[2]:
             raise ValueError(f"KV cache overflow: {s} token(s) at position "
                              f"{pos} in a cache of {ck.shape[2]}")
-        _write_cache(ck, cv, k, v, pos)
-        new_cache = {"k": ck, "v": cv}
-        k, v = ck, cv
-        if s <= 8:
-            def core(q, k, v):
-                return _gqa_decode(q, k, v, pos, s)
-        else:
-            def core(q, k, v):
-                return chunked_attention(q, k, v, causal=causal, q_off=pos,
-                                         kv_len=pos + s,
-                                         q_chunk=min(max(8, s), q_chunk),
-                                         kv_chunk=kv_chunk)
-    else:
-        t = k.shape[2]
-        use_chunked = chunked if chunked is not None else (s * t > 1 << 22)
-        if use_chunked:
-            def core(q, k, v):
-                return chunked_attention(q, k, v, causal=causal,
-                                         q_chunk=q_chunk, kv_chunk=kv_chunk)
-        else:
-            def core(q, k, v):
-                return _gqa_scores_full(q, k, v, causal)
+    t = s if kv_override is None else kv_override[0].shape[2]
+    use_chunked = chunked if chunked is not None else (s * t > 1 << 22)
+    repeat = _repeat_k(h, hk)
 
-    def merged(q, k, v):
-        o = core(q, k, v)
-        return o.transpose(1, 2).reshape(o.shape[0], o.shape[2], -1)
-    out = shard_local(merged, (q, k, v), (spec,) * 3,
-                      (spec[0], None, spec[1]))
-    return mm(out, fsdp_use(p.wo, "model", None)), new_cache
+    def core(q, k, v, qpos, kv_len=None):
+        if cache is not None and s <= 8:
+            return _gqa_decode(q, k, v, qpos)
+        if cache is not None:
+            return chunked_attention(
+                q, k, v, causal=causal, qpos=qpos, kv_len=kv_len,
+                q_chunk=min(max(8, q.shape[2]), q_chunk), kv_chunk=kv_chunk)
+        if use_chunked:
+            return chunked_attention(q, k, v, causal=causal, qpos=qpos,
+                                     q_chunk=q_chunk, kv_chunk=kv_chunk)
+        return _gqa_scores_full(q, k, v, causal, qpos=qpos, repeat=repeat)
+
+    rope = (lambda t, ps: apply_rope(t, ps, rope_theta)) \
+        if use_rope and kv_override is None else None
+    layout = _attn_layout(x, hk, cache)
+    if layout == "heads":
+        out = _attn_heads(p, x, hd, positions, rope, kv_override, cache,
+                          pos, core)
+    elif layout == "hd":
+        out = _attn_hd(p, x, dims, positions, rope, ck, cv, pos)
+    else:
+        out = _attn_rows(p, x, hd, positions, rope, kv_override, cache,
+                         pos, core)
+    return out, (None if ck is None else {"k": ck, "v": cv})
+
+
+def _model_dim(t):
+    """The dim of ``t`` sharded over ``model`` (None: none)."""
+    from .sharding import spec_of
+    return next((i for i, ax in enumerate(spec_of(t))
+                 if ax == "model" or isinstance(ax, tuple)
+                 and "model" in ax), None)
+
+
+def _attn_layout(x, hk, cache):
+    """:func:`attention`'s layout: ``heads``, ``hd`` or ``rows``."""
+    tp = _model_axis()
+    if not is_dtensor(x) or tp == 1:
+        return "heads"
+    if cache is None:
+        return "heads" if hk % tp == 0 else "rows"
+    cdim = _model_dim(cache["k"])
+    if cdim == 1:
+        return "heads"
+    return "hd" if cdim == 3 and x.shape[1] <= 8 else "rows"
+
+
+def _attn_heads(p, x, hd, positions, rope, kv_override, cache, pos,
+                core):
+    """Each rank its own heads, from the projections to ``wo``."""
+    xs = stream_spec(x)
+    wq, wo = fsdp_use(p.wq, None, "model"), fsdp_use(p.wo, "model", None)
+    cols = local_spec(wq, (None, "model"))
+    rows = local_spec(wo, ("model", None))
+    if kv_override is None:
+        kv = (fsdp_use(p.wk, None, "model"), fsdp_use(p.wv, None, "model"))
+        kv_axes = (local_spec(kv[0], (None, "model")),) * 2
+    else:
+        kv = kv_override
+        kv_axes = (local_spec(kv[0], (DP, "model")),) * 2
+    args = (x, wq, wo, positions, *kv)
+    axes = (xs, cols, rows, (None,), *kv_axes)
+    if cache is not None:
+        from .sharding import spec_of
+        args += (cache["k"], cache["v"])
+        axes += (spec_of(cache["k"]),) * 2
+
+    def body(x, wq, wo, qpos, k, v, ck=None, cv=None):
+        q = _heads(mm(x, wq), hd)
+        if kv_override is None:
+            k, v = _heads(mm(x, k), hd), _heads(mm(x, v), hd)
+            if rope is not None:
+                q, k = rope(q, qpos), rope(k, qpos)
+        kv_len = None
+        if ck is not None:
+            ck[:, :, pos:pos + k.shape[2]] = k
+            cv[:, :, pos:pos + v.shape[2]] = v
+            k, v, kv_len = ck, cv, pos + q.shape[2]
+        return mm(_merged(core(q, k, v, qpos, kv_len)), wo)
+    out = shard_local(body, args, axes, summed(xs, rows[0] is not None))
+    return to_stream(out)
+
+
+def _attn_hd(p, x, dims: AttnDims, positions, rope, ck, cv, pos):
+    """A decode block on a cache sharded on its head dim: each rank
+    scores its own head-dim slice, the scores are summed over ``model``
+    (the reference's partial-sum contraction), and each rank weights its
+    own slice of V."""
+    h, hk, hd = dims.n_heads, dims.n_kv_heads, dims.head_dim
+    g = h // hk
+    q, k = (heads_of(col_gathered(x, w), hd, positions, rope)
+            for w in (p.wq, p.wk))
+    v = heads_of(col_gathered(x, p.wv), hd)
+    from .sharding import spec_of
+    cspec = list(spec_of(ck))
+    lo = shard_start(hd, ck)
+    rep = stream_spec(q)
+
+    def scores(q, k, v, qpos, ck, cv):
+        n = ck.shape[3]
+        ck[:, :, pos:pos + k.shape[2]] = k[..., lo:lo + n]
+        cv[:, :, pos:pos + v.shape[2]] = v[..., lo:lo + n]
+        return _scores(q[..., lo:lo + n], ck, g)
+    lg = shard_local(scores, (q, k, v, positions, ck, cv),
+                     (rep, rep, rep, (None,), cspec, cspec),
+                     summed(cspec[:1] + [None] * 4, True))
+
+    def weighted(lg, qpos, cv):
+        o = _weighted(_decode_probs(lg, qpos, hd), cv, g)
+        b, _, _, s, n = o.shape
+        return o.reshape(b, h, s, n).transpose(1, 2)      # (B, s, H, n)
+    o = shard_local(weighted, (to_stream(lg), positions, cv),
+                    (cspec[:1] + [None] * 4, (None,), cspec),
+                    cspec[:1] + [None, None, "model"])
+    o = to_stream(o)
+    return row_parallel(o.reshape(*o.shape[:2], h * hd), p.wo)
+
+
+def _attn_rows(p, x, hd, positions, rope, kv_override, cache, pos, core):
+    """Each rank the queries of its own positions: k/v column-parallel
+    and gathered (and written into the cache), then q, the scores and
+    ``wo`` on the rank's rows with the weights gathered over ``model``."""
+    if kv_override is None:
+        k = heads_of(col_gathered(x, p.wk), hd, positions, rope)
+        v = heads_of(col_gathered(x, p.wv), hd)
+    else:
+        k, v = (to_stream(t) for t in kv_override)
+    if cache is not None:
+        # the keys are the cache's valid prefix: the block written into it,
+        # after the cached tokens (gathered); the keys past it that the
+        # whole cache would hold are masked there and add nothing
+        ck, cv = cache["k"], cache["v"]
+        _write_cache(ck, cv, k, v, pos)
+        k, v = k.to(ck.dtype), v.to(cv.dtype)
+        if pos:
+            k = torch.cat([to_stream(ck[:, :, :pos]), k], 2)
+            v = torch.cat([to_stream(cv[:, :, :pos]), v], 2)
+    rs = local_spec(x, (DP, "model"))
+    ks = stream_spec(k)
+    wq, wo = fsdp_use(p.wq, None, None), fsdp_use(p.wo, None, None)
+
+    def body(x, wq, wo, k, v, qpos):
+        q = _heads(mm(x, wq), hd)
+        if rope is not None:
+            q = rope(q, qpos)
+        return mm(_merged(core(q, k, v, qpos)), wo)
+    out = shard_local(body, (x, wq, wo, k, v, positions),
+                      (rs, (None, None), (None, None), ks, ks, rs[1:2]), rs)
+    return to_stream(out)
 
 
 def _write_cache(ck, cv, k, v, pos):
@@ -697,9 +986,11 @@ def init_mlp(d_model, d_ff, kind, dtype, device="cuda", gen=None) -> MLP:
 
 
 def mlp(p: MLP, x, kind):
-    wi = fsdp_use(p.wi, None, "model")
-    wo = fsdp_use(p.wo, "model", None)
+    """The dense MLP, ``wi`` and ``wg`` column-parallel and ``wo``
+    row-parallel over ``model`` (:func:`tp_ffn`)."""
     if kind in ("swiglu", "geglu"):
         act = F.silu if kind == "swiglu" else gelu
-        return mm(act(mm(x, fsdp_use(p.wg, None, "model"))) * mm(x, wi), wo)
-    return mm(gelu(mm(x, wi)), wo)
+        return tp_ffn(lambda x, wi, wg, wo: mm(act(mm(x, wg)) * mm(x, wi), wo),
+                      x, (p.wi, p.wg), p.wo)
+    return tp_ffn(lambda x, wi, wo: mm(gelu(mm(x, wi)), wo), x, (p.wi,),
+                  p.wo)

@@ -10,7 +10,7 @@ time computes it. With ``layers.OPT["mamba_recompute"]``, no state and
 in 16-step chunks, each under ``torch.utils.checkpoint`` when autograd
 records: the backward keeps h once a chunk and recomputes the chunk's
 steps — the same recurrence, the same values. On a ``DeviceMesh`` the
-scan runs per (batch, channel) shard (``layers.shard_local``): batch
+block runs per (batch, channel) shard (``layers.shard_local``): batch
 over the data axes, the inner channels over ``model``, as the
 reference pins h. Decode keeps O(1) state: (conv window, h).
 """
@@ -86,38 +86,65 @@ def mamba_block(p: Mamba, x, dims: MambaDims, *, state=None):
 
     state: None (returns None) or dict(conv=(B,dc-1,di), h=(B,di,ds))
     for stepwise decode.
-    """
-    b, s, _ = x.shape
+
+    On a ``DeviceMesh`` each model rank runs its own inner channels (when
+    they divide the axis): its columns of ``in_proj`` for x and z (the
+    weight gathered, the rank's channels taken from both halves), the
+    conv, and ``x_proj`` row-parallel, whose partial sums are all-reduced;
+    then ``dt_proj`` column-parallel, the scan, and ``out_proj``
+    row-parallel, all-reduced to the stream's layout."""
     di, ds, dr = dims.d_inner, dims.d_state, dims.dt_rank
-    xs, z = mm(x, p.in_proj).chunk(2, dim=-1)
+    s = x.shape[1]
+    split = di % L._model_axis() == 0
+    cx = "model" if split else None
+    xs = L.stream_spec(x)
+    chs, hs = xs[:1] + [None, cx], xs[:1] + [cx, None]
+    lo = L.shard_start(di, x, p.in_proj) if split else 0
 
-    conv_state = None if state is None else state["conv"]
-    xs, new_conv = _causal_conv(xs, p.conv_w, p.conv_b, conv_state)
-    xs = F.silu(xs)
+    def front(x, w, conv_w, conv_b, x_proj, conv_state=None):
+        n = conv_w.shape[1]
+        if n == di:
+            xz, z = mm(x, w).chunk(2, dim=-1)
+        else:
+            xz, z = mm(x, w[:, lo:lo + n]), mm(x, w[:, di + lo:di + lo + n])
+        xz, new_conv = _causal_conv(xz, conv_w, conv_b, conv_state)
+        xz = F.silu(xz)
+        return xz, z, mm(xz, x_proj), new_conv
+    args = (x, L.fsdp_use(p.in_proj, None, None), p.conv_w, p.conv_b,
+            p.x_proj)
+    axes = (xs, (None, None), (None, cx), (cx,), (cx, None))
+    if state is not None:
+        args, axes = args + (state["conv"],), axes + (chs,)
+    xz, z, proj, new_conv = L.shard_local(
+        front, args, axes, (chs, chs, L.summed(xs, split), chs))
+    proj = L.to_stream(proj)
 
-    proj = mm(xs, p.x_proj)                                   # (B,S,dr+2ds)
-    dt_r, bmat, cmat = proj.split([dr, ds, ds], dim=-1)
-    dt = F.softplus(mm(dt_r, p.dt_proj) + p.dt_bias).float()  # (B,S,di)
-    a = -torch.exp(p.A_log)                                   # (di,ds)
-
-    h = x.new_zeros((b, di, ds), dtype=torch.float32) if state is None \
-        else state["h"]
-    xf, bf, cf = xs.float(), bmat.float(), cmat.float()
     chunked = L.OPT["mamba_recompute"] and state is None and s >= 64
     if chunked:
         assert s % CHUNK == 0, (s, CHUNK)
-    dp = ("pod", "data")
-    seq = L.local_spec(dt, (dp, None, "model"))
-    hs = [seq[0], seq[2], None]
-    ys, h = L.shard_local(
-        lambda dt, xf, bf, cf, a, h: _scan(dt, xf, bf, cf, a, h, chunked),
-        (dt, xf, bf, cf, a, h),
-        (seq, seq, (seq[0],), (seq[0],), (seq[2], None), hs), (seq, hs))
-    y = (ys + xf * p.D).to(x.dtype)
-    y = y * F.silu(z)
-    out = mm(y, p.out_proj)
+    dtype = x.dtype
+
+    def back(xz, z, proj, dt_proj, dt_bias, a_log, d_skip, out_proj,
+             h=None):
+        dt_r, bmat, cmat = proj.split([dr, ds, ds], dim=-1)
+        dt = F.softplus(mm(dt_r, dt_proj) + dt_bias).float()  # (B,S,di)
+        a = -torch.exp(a_log)                                  # (di,ds)
+        if h is None:
+            h = xz.new_zeros((xz.shape[0], xz.shape[2], ds),
+                             dtype=torch.float32)
+        xf, bf, cf = xz.float(), bmat.float(), cmat.float()
+        ys, h = _scan(dt, xf, bf, cf, a, h, chunked)
+        y = (ys + xf * d_skip).to(dtype)
+        y = y * F.silu(z)
+        return mm(y, out_proj), h
+    args = (xz, z, proj, L.fsdp_use(p.dt_proj, None, "model"), p.dt_bias,
+            p.A_log, p.D, L.fsdp_use(p.out_proj, "model", None))
+    axes = (chs, chs, xs, (None, cx), (cx,), (cx, None), (cx,), (cx, None))
+    if state is not None:
+        args, axes = args + (state["h"],), axes + (hs,)
+    out, h = L.shard_local(back, args, axes, (L.summed(xs, split), hs))
     new_state = None if state is None else {"conv": new_conv, "h": h}
-    return out, new_state
+    return L.to_stream(out), new_state
 
 
 def _steps(dt, xf, bf, cf, a, h):

@@ -471,14 +471,24 @@ def _remat(cfg: ModelConfig, fn, *args):
 
 
 def cross_kv(cfg: ModelConfig, p: L.Attention, h_enc, dtype=None):
-    """A decoder layer's cross K/V from the encoder's output."""
-    bb, tt, _ = h_enc.shape
-    hk, hd = cfg.n_kv_heads, cfg.hd
-    k = L.mm(h_enc, p.wk).reshape(bb, tt, hk, hd).transpose(1, 2)
-    v = L.mm(h_enc, p.wv).reshape(bb, tt, hk, hd).transpose(1, 2)
-    if dtype is not None:
-        k, v = k.to(dtype), v.to(dtype)
-    return k, v
+    """A decoder layer's cross K/V (B, Hk, T, hd) from the encoder's
+    output. On a ``DeviceMesh`` each model rank projects its own KV heads
+    when they divide the axis; otherwise the projections are
+    column-parallel and gathered (``layers.col_gathered``)."""
+    hd = cfg.hd
+    if L.is_dtensor(h_enc) and cfg.n_kv_heads % L._model_axis():
+        k, v = (L.heads_of(L.col_gathered(h_enc, w), hd)
+                for w in (p.wk, p.wv))
+    else:
+        xs = L.stream_spec(h_enc)
+        wk, wv = (L.fsdp_use(w, None, "model") for w in (p.wk, p.wv))
+        cols = L.local_spec(wk, (None, "model"))
+        spec = xs[:1] + [cols[1], None, None]
+        k, v = L.shard_local(
+            lambda h, wk, wv: (L._heads(L.mm(h, wk), hd),
+                               L._heads(L.mm(h, wv), hd)),
+            (h_enc, wk, wv), (xs, cols, cols), (spec, spec))
+    return (k, v) if dtype is None else (k.to(dtype), v.to(dtype))
 
 
 def embed(cfg: ModelConfig, model: Model, tokens, patches=None):
@@ -489,9 +499,16 @@ def embed(cfg: ModelConfig, model: Model, tokens, patches=None):
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
     if patches is not None:
-        x = torch.cat([L.mm(patches.to(cfg.tdtype), model.patch_proj), x],
-                      dim=1)
+        x = torch.cat([L.col_gathered(patches.to(cfg.tdtype),
+                                      model.patch_proj), x], dim=1)
     return x
+
+
+def dec_positions(model: Model, positions):
+    """Whisper's learned decoder position embeddings at ``positions``,
+    whole over ``model`` (the table is sharded on d), so that the stream
+    they join stays replicated there."""
+    return L.shard_hint(model.dec_pos_embed[positions], None, None)
 
 
 def logits_of(cfg: ModelConfig, model: Model, x):
@@ -522,7 +539,7 @@ def forward(cfg: ModelConfig, model: Model, batch, *, return_aux=True):
     enc_out = None
     if cfg.family == "encdec":
         enc_out = encode(cfg, model, batch["frames"])
-        x = x + model.dec_pos_embed[positions]
+        x = x + dec_positions(model, positions)
 
     def run_block(subs, h, aux):
         for p in subs:

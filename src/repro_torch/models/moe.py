@@ -112,15 +112,11 @@ def _moe_ffn_local(p: MoE, x, dims: MoEDims):
 
 
 def _shared(p: MoE, x):
-    """The shared experts: a dense gated MLP over every token (rows kept
-    batch-sharded, the weights used as ``layers.mlp`` uses its own)."""
-    b, s, d = x.shape
-    dp = ("pod", "data")
-    xt = L.shard_hint(x.reshape(b * s, d), dp, None)
-    h = F.silu(mm(xt, L.fsdp_use(p.shared_wg, None, "model"))) * \
-        mm(xt, L.fsdp_use(p.shared_wi, None, "model"))
-    out = mm(h, L.fsdp_use(p.shared_wo, "model", None))
-    return L.shard_hint(out, dp, None).reshape(b, s, d)
+    """The shared experts: a dense gated MLP over every token, laid out
+    as ``layers.mlp`` (``layers.tp_ffn``)."""
+    def body(x, wi, wg, wo):
+        return mm(F.silu(mm(x, wg)) * mm(x, wi), wo)
+    return L.tp_ffn(body, x, (p.shared_wi, p.shared_wg), p.shared_wo)
 
 
 def _expert_shard(xt, router, wi, wg, wo, dims: MoEDims, e_base: int,

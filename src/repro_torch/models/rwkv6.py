@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
-from .layers import Leaves, const, group_norm_heads, mm, model_device, normal
+from .layers import Leaves, const, mm, model_device, normal
 
 CHUNK = 16          # the reference's recompute chunk
 
@@ -78,44 +78,65 @@ def _shifted(x, shift):
 
 
 def rwkv_tmix(p: RWKVTmix, x, dims: RWKVDims, *, state=None):
-    """x: (B, S, d) → (y, new_state); state: dict(shift=(B,d), S=(B,H,P,P))."""
+    """x: (B, S, d) → (y, new_state); state: dict(shift=(B,d), S=(B,H,P,P)).
+
+    On a ``DeviceMesh``: the token-shift LoRAs are column-parallel and
+    gathered; then each model rank runs its own heads (when they divide
+    the axis) from the r/k/v/g/decay projections (column-parallel) through
+    the scan and the group norm to ``wo`` (row-parallel), whose partial
+    sums are all-reduced to the stream's layout."""
     b, s, d = x.shape
     h, hs = dims.n_heads, dims.head_size
-    x_prev = _shifted(x, None if state is None else state["shift"])
+    x_prev = _shifted(x, None if state is None else L.to_stream(
+        state["shift"]))
     new_shift = x[:, -1]
 
     # data-dependent token-shift interpolation (Finch LoRA)
     dx = (x_prev - x).float()
-    lora = mm(torch.tanh(mm(x, p.mu_lora_a)), p.mu_lora_b)
+    lora = L.col_gathered(torch.tanh(L.col_gathered(x, p.mu_lora_a)),
+                          p.mu_lora_b)
     mix = p.mu[None, None].float() + L.split_last(lora, 5, d).float()
     xf = x.float()
     xr, xk, xv, xw, xg = [(xf + mix[:, :, i] * dx).to(x.dtype)
                           for i in range(5)]
-
-    rr = L.split_last(mm(xr, p.wr), h, hs).float()
-    kk = L.split_last(mm(xk, p.wk), h, hs).float()
-    vv = L.split_last(mm(xv, p.wv), h, hs).float()
-    gg = F.silu(mm(xg, p.wg))
-    w = L.split_last(torch.exp(-torch.exp(
-        p.w0.float() + mm(torch.tanh(mm(xw, p.w_lora_a)), p.w_lora_b).float()
-    )), h, hs)
-    S = x.new_zeros((b, h, hs, hs), dtype=torch.float32) if state is None \
-        else state["S"]
+    ww = torch.tanh(L.col_gathered(xw, p.w_lora_a))
     chunked = L.OPT["mamba_recompute"] and state is None \
         and s % CHUNK == 0 and s >= 64
-    seq = L.local_spec(rr, (("pod", "data"), None, "model", None))
-    st = [seq[0], seq[2], None, None]
-    def scan(rr, kk, vv, w, u, S):      # heads merged per shard
+
+    split = h % L._model_axis() == 0
+    hx = "model" if split else None
+    xs = L.stream_spec(x)
+    st = xs[:1] + [hx, None, None]
+    cols = [L.fsdp_use(w, None, "model")
+            for w in (p.wr, p.wk, p.wv, p.wg, p.w_lora_b)]
+    wo = L.fsdp_use(p.wo, "model", None)
+    args = (xr, xk, xv, xg, ww, *cols, p.w0, p.u, p.gn_w, p.gn_b, wo)
+    axes = (xs,) * 5 + ((None, hx),) * 5 + ((hx,), (hx, None), (hx,),
+                                             (hx,), (hx, None))
+    if state is not None:
+        args, axes = args + (state["S"],), axes + (st,)
+
+    def heads(xr, xk, xv, xg, ww, wr, wk, wv, wg, wlb, w0, u, gn_w, gn_b,
+              wo, S=None):
+        n = u.shape[0]
+
+        def split_heads(t):
+            return t.reshape(*t.shape[:-1], n, hs)
+        rr = split_heads(mm(xr, wr)).float()
+        kk = split_heads(mm(xk, wk)).float()
+        vv = split_heads(mm(xv, wv)).float()
+        gg = F.silu(mm(xg, wg))
+        w = split_heads(torch.exp(-torch.exp(w0.float()
+                                             + mm(ww, wlb).float())))
+        if S is None:
+            S = xr.new_zeros((xr.shape[0], n, hs, hs), dtype=torch.float32)
         ys, S = _scan(rr, kk, vv, w, u, S, chunked)
-        return ys.reshape(ys.shape[0], ys.shape[1], -1), S
-    ys, S = L.shard_local(
-        scan, (rr, kk, vv, w, p.u, S),
-        (seq, seq, seq, seq, (seq[2], None), st), ((seq[0], None, seq[2]),
-                                                   st))
-    ys = group_norm_heads(ys.to(x.dtype), p.gn_w, p.gn_b, h)
-    out = mm(ys * gg, p.wo)
+        ys = ys.reshape(ys.shape[0], ys.shape[1], -1)
+        ys = L.group_norm_local(ys.to(xr.dtype), gn_w, gn_b, hs)
+        return mm(ys * gg, wo), S
+    out, S = L.shard_local(heads, args, axes, (L.summed(xs, split), st))
     new_state = None if state is None else {"shift": new_shift, "S": S}
-    return out, new_state
+    return L.to_stream(out), new_state
 
 
 def _steps(rr, kk, vv, w, u, S):
@@ -149,12 +170,16 @@ def _scan(rr, kk, vv, w, u, S, chunked):
 
 
 def rwkv_cmix(p: RWKVCmix, x, *, state=None):
-    """Squared-ReLU channel mix with token shift."""
-    x_prev = _shifted(x, state)
+    """Squared-ReLU channel mix with token shift; ``wk`` column-parallel
+    and ``wv`` row-parallel over ``model`` (``layers.tp_ffn``)."""
+    x_prev = _shifted(x, None if state is None else L.to_stream(state))
     new_shift = x[:, -1]
     xk = x + p.mu_k.to(x.dtype) * (x_prev - x)
-    kk = torch.square(F.relu(mm(xk, p.wk)))
-    return mm(kk, p.wv), (None if state is None else new_shift)
+
+    def body(xk, wk, wv):
+        return mm(torch.square(F.relu(mm(xk, wk))), wv)
+    return L.tp_ffn(body, xk, (p.wk,), p.wv), \
+        (None if state is None else new_shift)
 
 
 def init_rwkv_state(batch, d_model, dims: RWKVDims, dtype=torch.bfloat16,

@@ -34,8 +34,8 @@ from . import layers as L
 from . import mamba as M
 from . import rwkv6 as R
 from .model import (Model, ModelConfig, _run_sublayer, _super_kinds,
-                    _leaves, cross_kv, embed, encode, logits_of,
-                    to_torch)
+                    _leaves, cross_kv, dec_positions, embed, encode,
+                    logits_of, to_torch)
 
 
 def _init_sub_state(cfg: ModelConfig, mix, ffn, batch, max_len, dtype,
@@ -132,7 +132,7 @@ def serve_forward(cfg: ModelConfig, model: Model, tokens, state,
         else:
             cross = state["cross"]
         new_state["cross"] = cross
-        x = x + model.dec_pos_embed[positions]
+        x = x + dec_positions(model, positions)
 
     if cfg.n_head_layers:
         new_state["head"] = {}

@@ -12,12 +12,17 @@ process group stays clean:
   a 2-rank fake group an all-gather outside a 5-step loop and an
   all-reduce inside it give the golden test's bytes and FLOPs. One
   sharded product counts 1/TP of the unsharded one;
-- the CLI on two smoke cells: starcoder2-3b's train cell (6 heads on a
+- the CLI on three smoke cells: starcoder2-3b's train cell (6 heads on a
   16-way model axis: ROADMAP C.17's guard) on the single-pod mesh, and
-  granite-8b's decode cell on a ``(2, 4)`` mesh. Each record has the
-  reference's keys and ``status`` "ok", ``roofline.analyze_cell`` reads
-  it, and its matmul FLOPs × devices lie within 5 % of the count the
-  step's products must make (``expected_flops``);
+  granite-8b's decode cell and gemma-7b's train cell on a ``(2, 4)``
+  mesh. Each record has the reference's keys and ``status`` "ok",
+  ``roofline.analyze_cell`` reads it, and its matmul FLOPs × devices lie
+  within 5 % of the count the step's products must make
+  (``expected_flops``: the work split over every device, ROADMAP C.18);
+- the reference's dry run of the same three cells
+  (``tools/reference_dryrun.py``: XLA's fake CPU devices, ``Auto``
+  axes, in one subprocess beside the others): the port's matmul FLOPs a
+  device within 10 % of the reference's, cell by cell;
 - a spec forced not to divide its dim makes the CLI exit nonzero;
 - ``perf_cell.measure`` with ``fsdp_use_hint`` off, the toggle restored;
 - the AQP dry run on a fake group of 8 ranks.
@@ -102,9 +107,22 @@ MISMATCH = """
 """
 
 
+REFERENCE = """
+    import runpy
+    tool = runpy.run_path(TOOL)["main"]
+    tool(["--smoke", "--archs", "starcoder2-3b", "--shapes", "train_4k",
+          "--mesh", "single", "--out", OUT])
+    for arch, shape in (("granite-8b", "decode_32k"),
+                        ("gemma-7b", "train_4k")):
+        tool(["--smoke", "--archs", arch, "--shapes", shape,
+              "--mesh-shape", "2x4", "--out", OUT])
+"""
+
+
 def _py(code, out):
-    return [sys.executable, "-c",
-            f"OUT = {str(out)!r}\n" + textwrap.dedent(code)]
+    tool = os.path.join(ROOT, "tools", "reference_dryrun.py")
+    return [sys.executable, "-c", f"OUT = {str(out)!r}\nTOOL = {tool!r}\n"
+            + textwrap.dedent(code)]
 
 
 def _cli(out, *args):
@@ -122,10 +140,15 @@ def runs(tmp_path_factory):
                       "train_4k", "--mesh", "single"),
         "decode": _cli(d / "decode", "--archs", "granite-8b", "--shapes",
                        "decode_32k", "--mesh-shape", "2x4"),
+        "gemma": _cli(d / "gemma", "--archs", "gemma-7b", "--shapes",
+                      "train_4k", "--mesh-shape", "2x4"),
         "golden": _py(GOLDEN, d / "aqp"),
         "mismatch": _py(MISMATCH, d / "mismatch"),
+        "reference": _py(REFERENCE, d / "reference"),
     }
-    procs = {k: subprocess.Popen(c, env=env, cwd=str(d),
+    jax_env = dict(env, JAX_PLATFORMS="cpu")
+    procs = {k: subprocess.Popen(c, env=jax_env if k == "reference" else env,
+                                 cwd=str(d),
                                  stdout=subprocess.PIPE,
                                  stderr=subprocess.PIPE, text=True)
              for k, c in cmds.items()}
@@ -196,14 +219,13 @@ def test_a_sharded_product_counts_its_share(runs):
     assert shard == whole / 2
 
 
-def expected_flops(cfg, shape_name, tp):
+def expected_flops(cfg, shape_name):
     """The FLOPs the cell's products make over all devices, 2 a
     multiply-add: each weight matrix's product per token (fwd; train:
     also the superblocks' remat forward and the backward's two), and
     attention's QKᵀ and PV over the whole key length (the port scores
-    every key and masks) — once a rank of a ``tp``-way model axis where
-    the heads do not divide it, since attention then runs gathered,
-    whole heads on every model rank."""
+    every key and masks), each counted once: the layout splits the work
+    over the model axis whether or not the heads divide it."""
     sh = SHAPES[shape_name]
     from repro_torch.models.model import abstract_params
     model = abstract_params(cfg)
@@ -212,23 +234,28 @@ def expected_flops(cfg, shape_name, tp):
     blocks = sum(p.numel() for n, p in model.named_parameters()
                  if p.dim() == 2 and n.startswith("blocks."))
     b, h, hd, layers = sh.batch, cfg.n_heads, cfg.hd, cfg.n_layers
-    rep = tp if h % tp or cfg.n_kv_heads % tp else 1
     if sh.kind == "train":
         tok = b * sh.seq
         attn = 2 * 2 * b * sh.seq * sh.seq * h * hd * layers
-        return 6 * dense * tok + 2 * blocks * tok + 4 * attn * rep
+        return 6 * dense * tok + 2 * blocks * tok + 4 * attn
     attn = 2 * 2 * b * sh.seq * h * hd * layers
-    return 2 * dense * b + attn * rep
+    return 2 * dense * b + attn
 
 
-@pytest.mark.parametrize("name,fname,arch,shape,tp", [
-    ("train", "starcoder2-3b-smoke__train_4k__pod16x16.json",
-     "starcoder2-3b", "train_4k", 16),
-    ("decode", "granite-smoke__decode_32k__mesh2x4.json", "granite-8b",
-     "decode_32k", 4)])
+# (run, record, arch, shape, the mesh's model axis)
+CELLS = [("train", "starcoder2-3b-smoke__train_4k__pod16x16.json",
+          "starcoder2-3b", "train_4k", 16),
+         ("decode", "granite-smoke__decode_32k__mesh2x4.json",
+          "granite-8b", "decode_32k", 4),
+         ("gemma", "gemma-smoke__train_4k__mesh2x4.json", "gemma-7b",
+          "train_4k", 4)]
+
+
+@pytest.mark.parametrize("name,fname,arch,shape,tp", CELLS)
 def test_smoke_cell_records(runs, name, fname, arch, shape, tp):
     rec = _record(runs, name, fname)
     assert set(rec) == KEYS and rec["status"] == "ok"
+    assert rec["mesh"].endswith(f"x{tp}")
     assert set(rec["memory"]) == MEM_KEYS
     assert set(rec["hlo_analysis"]) == ANA_KEYS
     assert rec["devices"] == (256 if name == "train" else 8)
@@ -240,7 +267,17 @@ def test_smoke_cell_records(runs, name, fname, arch, shape, tp):
     assert rec["hlo_analysis"]["collective_bytes"] > 0
     cfg = configs.get_smoke(arch)
     got = rec["hlo_analysis"]["matmul_flops"] * rec["devices"]
-    assert got == pytest.approx(expected_flops(cfg, shape, tp), rel=0.05)
+    assert got == pytest.approx(expected_flops(cfg, shape), rel=0.05)
+
+
+@pytest.mark.parametrize("name,fname,arch,shape,tp", CELLS)
+def test_smoke_cell_flops_equal_the_reference(runs, name, fname, arch,
+                                              shape, tp):
+    """The port splits each cell's work over the devices as the
+    reference's compiled step does (ROADMAP C.18)."""
+    port = _record(runs, name, fname)["hlo_analysis"]["matmul_flops"]
+    ref = _record(runs, "reference", fname)["hlo_analysis"]["matmul_flops"]
+    assert port == pytest.approx(ref, rel=0.10)
 
 
 def test_forced_sharding_mismatch_exits_nonzero(runs):
