@@ -289,13 +289,35 @@ plain version and timed beside its byte bound.
    finite, the mesh's last logits within 1e-2 relative RMS of the plain
    path's on the same weights, prefill ms and ms a decode token both
    ways. Prints ``phase 13…`` lines and a ``{"phase13": ...}`` line.
+   13f (after 13e, reported, not gated): the dry run's memory estimate
+   against the card. Phase 12a's training step (starcoder2-3b at full
+   width, 4 x 4 096 tokens in 2 microbatches, remat) and one granite-8b
+   prefill of 13e's shape (8 x 2 048, bfloat16), each built by
+   ``launch.steps.build_step`` and run once on a one-rank NCCL mesh:
+   ``torch.cuda.max_memory_allocated`` of the step; and
+   ``launch.dryrun.measure_cell``'s estimate of the same step on fake
+   tensors over a fake group of one rank (``total_bytes``, and
+   ``temp_bytes`` beside the step's own peak over what was allocated
+   before it). Prints both and their ratio, and a ``{"phase13f": ...}``
+   line.
+
+10b. The property sweep on the card (run after phase 10, inside the
+   counter below): the sweep's sessions of ``CARD_SESSIONS``
+   (``repro_torch.benchmarks.property_sweep``: the reference harness's
+   random windows, aggregates, phi, bin grids and phi_b policies) on its
+   dataset at 10^6 rows, ``"cuda"`` against port ``"np"``, batched, on
+   the parity contract after every query and at the end (counts and
+   extrema equal, sums within 1e-12 * sum|v|, ``perm``, reads and the
+   tile table equal); the launches each kernel row made (the kernels
+   line's ``launches_sweep``). Prints a ``{"sweep": ...}`` line.
 
 Phases 3 to 5 and 7 to 13 run with every plain ``*_torch`` kernel version
 wrapped in a counter: the card's path must call none of them.
 
 The line before the last is a JSON object describing each kernel (with
 its launches in phases 8 to 13 as ``launches_phase8`` …
-``launches_phase13``); the last line is ``{"ok": true, "device": {...}}``.
+``launches_phase13``, and in 10b as ``launches_sweep``); the last line
+is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -4614,6 +4636,183 @@ def phase_sharding(torch, build, layers, kept):
     return {"launches": launches, "wall_s": wall}
 
 
+SWEEP_BUDGET_S = 60.0        # 10b: the card sweep's time
+
+
+def phase_sweep(torch, build):
+    """10b: the property sweep's card sessions, ``"cuda"`` against port
+    ``"np"`` on the parity contract."""
+    from repro_torch.benchmarks import property_sweep
+    log(f"== phase 10b: the property sweep on the card, {card_line()}")
+    build.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        done = property_sweep.sessions(n=10 ** 6, device="cuda",
+                                       backend="cuda")
+    except AssertionError as e:
+        raise Failed(f"phase 10b: the card breaks the parity contract: "
+                     f"{e}") from e
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    for d in done:
+        log(f"phase 10b: op seed {d['op_seed']} "
+            f"({'phi_b policies' if d['policies'] else 'uniform phi'}), "
+            f"{len(d['ops'])} operations ({'; '.join(d['ops'])}): "
+            f"\"cuda\" = \"np\" on the parity contract, "
+            f"{d['objects_read']} objects read, {d['tiles']} tiles")
+    log(f"launches in phase 10b: {json.dumps(launches)}")
+    log(f"phase 10b took {wall:.3f} s (budget {SWEEP_BUDGET_S} s)")
+    if not any(launches.values()):
+        raise Failed("phase 10b: no kernel launched")
+    print(json.dumps({"sweep": {"seconds": wall, "rows": 10 ** 6,
+                                "sessions": done, "launches": launches,
+                                "card": card_line()}}), flush=True)
+    return {"launches": launches, "wall_s": wall}
+
+
+MEM_TRAIN = dict(batch=4, seq=4096, microbatches=2)     # phase 12a's step
+MEM_PREFILL = dict(batch=8, seq=2048)                   # 13e's prompt
+
+
+def _mesh_group(torch, build, tag):
+    """A one-rank NCCL process group (file store in the build
+    directory) and its (1, 1) ``DeviceMesh``; returns (mesh, store)."""
+    import torch.distributed as tdist
+    from torch.distributed.device_mesh import init_device_mesh
+    store = build.BUILD_DIR / f"nccl-store-{tag}-{os.getpid()}"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    if store.exists():
+        store.unlink()
+    tdist.init_process_group("nccl", init_method=f"file://{store}",
+                             world_size=1, rank=0)
+    return init_device_mesh("cuda", (1, 1),
+                            mesh_dim_names=("data", "model")), store
+
+
+def _measured_peak(torch, fn, *args):
+    """``fn(*args)`` once: (the bytes allocated before, the peak of
+    ``max_memory_allocated`` during it)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del out
+    return before, peak
+
+
+def phase_memory_estimate(torch, build, layers):
+    """13f: the dry run's memory estimate of two steps against their
+    peak on the card (one-rank NCCL mesh). Reported, not gated."""
+    import torch.distributed as tdist
+
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.core.mesh import AbstractMesh
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.train import synthetic_batches
+    from repro_torch.models import sharding as SH
+    from repro_torch.models.model import init_params
+    from repro_torch.models.serving import init_serve_state
+    from repro_torch.optim import OptConfig, init_opt_state
+    log(f"== phase 13f: the dry run's memory estimate against the card, "
+        f"{card_line()}")
+    t0 = time.perf_counter()
+    cells = {
+        "train": (lm_config(LM_TRAIN, layers, remat=True),
+                  ShapeCell("phase12a", "train", MEM_TRAIN["seq"],
+                            MEM_TRAIN["batch"]), MEM_TRAIN["microbatches"]),
+        "prefill": (lm_config(LM_FULL, layers),
+                    ShapeCell("phase13e", "prefill", MEM_PREFILL["seq"],
+                              MEM_PREFILL["batch"]), None)}
+    out = {}
+    mesh, store = _mesh_group(torch, build, "13f")
+    try:
+        for kind, (cfg, cell, mb) in cells.items():
+            fn = steps.build_step(cfg, cell, mesh, microbatches=mb)[0]
+            model = SH.distribute_params(init_params(cfg, 0, device="cuda"),
+                                         mesh)
+            if kind == "train":
+                opt = init_opt_state(model, OptConfig())
+                batch = SH.distribute_batch(cfg, mesh, {
+                    k: v.to("cuda", torch.int32) for k, v in
+                    synthetic_batches(cfg, cell.batch, cell.seq)(0).items()})
+                args = (model, opt, batch)
+            else:
+                state = init_serve_state(cfg, cell.batch, cell.seq,
+                                         torch.bfloat16, device="cuda",
+                                         mesh=mesh)
+                toks = torch.randint(0, cfg.vocab, (cell.batch, cell.seq),
+                                     generator=torch.Generator()
+                                     .manual_seed(0))
+                args = (model, SH.distribute_batch(
+                    cfg, mesh, {"tokens": toks.to("cuda", torch.int32)}
+                )["tokens"], state, {})
+            before, peak = _measured_peak(torch, fn, *args)
+            out[kind] = {"arch": cfg.name, "layers": cfg.n_layers,
+                         "batch": cell.batch, "seq": cell.seq,
+                         "microbatches": mb, "measured_peak_bytes": peak,
+                         "allocated_before_bytes": before}
+            del fn, model, args
+            if kind == "train":
+                del opt, batch
+            else:
+                del state, toks
+            torch.cuda.empty_cache()
+    finally:
+        tdist.destroy_process_group()
+        if store.exists():
+            store.unlink()
+    fake = dryrun.fake_device_mesh(AbstractMesh((1, 1), ("data", "model")))
+    try:
+        for kind, (cfg, cell, mb) in cells.items():
+            t = time.perf_counter()
+            nums = dryrun.measure_cell(cfg, cell, fake, microbatches=mb)
+            mem = {k: int(round(nums[k])) for k in (
+                "argument_bytes", "output_bytes", "temp_bytes",
+                "alias_bytes", "temp_bytes_1_2")}
+            o = out[kind]
+            o.update(mem)
+            o["estimate_bytes"] = dryrun.total_bytes(mem)
+            o["estimate_1_2_bytes"] = dryrun.total_bytes(
+                mem, "temp_bytes_1_2")
+            o["estimate_s"] = time.perf_counter() - t
+            o["ratio"] = o["estimate_bytes"] / o["measured_peak_bytes"]
+            o["ratio_1_2"] = o["estimate_1_2_bytes"] / \
+                o["measured_peak_bytes"]
+            own = o["measured_peak_bytes"] - o["allocated_before_bytes"]
+            o["step_own_peak_bytes"] = own
+            o["temp_ratio"] = o["temp_bytes"] / own if own else None
+            log(f"phase 13f {kind}: {o['arch']}, {o['layers']} layers, "
+                f"{o['batch']} x {o['seq']}"
+                + (f" in {mb} microbatches" if mb else "")
+                + f": estimate {o['estimate_bytes'] / 2**30:.3f} GiB "
+                f"(argument {mem['argument_bytes'] / 2**30:.3f} + temp "
+                f"{mem['temp_bytes'] / 2**30:.3f} + output "
+                f"{mem['output_bytes'] / 2**30:.3f} - alias "
+                f"{mem['alias_bytes'] / 2**30:.3f}; "
+                f"{o['estimate_1_2_bytes'] / 2**30:.3f} by the line "
+                f"through 1 and 2 superblocks), measured peak "
+                f"{peak_gib(o['measured_peak_bytes'])} GiB "
+                f"(allocated before {peak_gib(o['allocated_before_bytes'])}"
+                f" GiB), ratio {o['ratio']:.4f}; the step's own peak "
+                f"{peak_gib(own)} GiB against temp, ratio "
+                f"{o['temp_ratio']:.4f}")
+    finally:
+        tdist.destroy_process_group()
+    wall = time.perf_counter() - t0
+    log(f"phase 13f took {wall:.3f} s")
+    print(json.dumps({"phase13f": {"seconds": wall, "card": card_line(),
+                                   **out}}), flush=True)
+    return out
+
+
+def peak_gib(nbytes):
+    return f"{nbytes / 2**30:.3f}"
+
+
 class PlainGuard:
     """While active, counts every call of a plain ``*_torch`` kernel
     version: each such function of the kernel modules, and each name
@@ -4731,6 +4930,8 @@ def main(argv=None) -> int:
                                            windows)["launches"]
             del ds
             torch.cuda.empty_cache()
+            launches_sweep = phase_sweep(torch, build)["launches"]
+            torch.cuda.empty_cache()
             launches11 = phase_lm(torch, build, args.lm_layers)["launches"]
             torch.cuda.empty_cache()
             kept = {}
@@ -4739,6 +4940,8 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
             launches13 = phase_sharding(torch, build, args.lm_layers,
                                         kept)["launches"]
+            torch.cuda.empty_cache()
+            phase_memory_estimate(torch, build, args.lm_layers)
         log(f"plain kernel versions called in phases 3-5 and 7-13: "
             f"{json.dumps(guard.calls)}")
         if guard.calls:
@@ -4760,6 +4963,7 @@ def main(argv=None) -> int:
         row["launches_phase11"] = int(launches11.get(name, 0))
         row["launches_phase12"] = int(launches12.get(name, 0))
         row["launches_phase13"] = int(launches13.get(name, 0))
+        row["launches_sweep"] = int(launches_sweep.get(name, 0))
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

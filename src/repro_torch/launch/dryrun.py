@@ -32,7 +32,8 @@ port's own estimates stand in for XLA's ``memory_analysis``, per device:
 - ``output_bytes``: the local shards of the step's results (the train
   step updates parameters and moments in place and returns them);
 - ``temp_bytes``: the peak of the bytes held at once by the tensors the
-  step made (``analyze_step``'s peak of live fake storage);
+  step made (``analyze_step``'s peak of live fake storage; an argument
+  written in place makes none);
 - ``alias_bytes``: the donated buffers, the reference's donation —
   train arguments 0 and 1 (parameters, moments), serving argument 2
   (the state);
@@ -45,8 +46,8 @@ where Mamba or RWKV scans run over a sequence, at two scan lengths
 the configuration's depth and sequence. FLOPs, collectives and
 arguments come out exact (a superblock and a scan step cost the same
 every time); HBM traffic within ~3 % (a 128-step check, rwkv6 smoke);
-the peak is an estimate, extrapolated over superblocks only and never
-below the runs' own.
+the peak is an estimate, extrapolated over superblocks only, from 2 and
+3 of them, and never below the runs' own.
 
 ``compile_s`` is the seconds to build and run the cell's step.
 ``cost_analysis`` holds the step's ``flops_static`` and
@@ -76,7 +77,7 @@ import json
 import os
 import time
 import traceback
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -147,7 +148,10 @@ def strided_sizes_on_host():
     ``StepCounter`` leaves it out."""
     from torch._subclasses.fake_tensor import unset_fake_temporarily
     from torch.distributed.tensor.placement_types import _StridedShard
-    orig = _StridedShard.local_shard_size_and_offset
+    orig = getattr(_StridedShard, "local_shard_size_and_offset", None)
+    if orig is None:        # a PyTorch that sizes them another way
+        yield
+        return
 
     def on_host(self, *args, **kwargs):
         with unset_fake_temporarily(), planning():
@@ -221,13 +225,14 @@ def local_bytes(tree) -> int:
 K1, K2 = 16, 32      # the scans' two trip counts (multiples of CHUNK)
 
 
-def _measure(cfg, shape_name: str, mesh, size_of) -> Dict[str, Any]:
+def _measure(cfg, shape_name, mesh, size_of,
+             microbatches=None) -> Dict[str, Any]:
     """One run of the cell's step: its numbers, flat (the memory
     estimates and the Analysis)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
-    kind = SHAPES[shape_name].kind
-    fn, args, in_specs, _ = steps_mod.build_step(cfg, shape_name, mesh,
-                                                 size_of=size_of)
+    kind = steps_mod.shape_of(shape_name).kind
+    fn, args, in_specs, _ = steps_mod.build_step(
+        cfg, shape_name, mesh, size_of=size_of, microbatches=microbatches)
     donate = (0, 1) if kind == "train" else (2,)
     with FakeTensorMode(allow_non_fake_inputs=True), \
             strided_sizes_on_host():
@@ -263,7 +268,8 @@ def _cut(cfg, blocks: int):
     return dataclasses.replace(cfg, **kw)
 
 
-def measure_cell(cfg, shape_name: str, mesh) -> Dict[str, Any]:
+def measure_cell(cfg, shape_name, mesh, microbatches=None) \
+        -> Dict[str, Any]:
     """The cell's numbers at full depth and sequence, by the reference's
     trip-count rule. A superblock costs the same at every depth, and a
     Mamba or RWKV scan step (``layers.SCAN_STEPS``) the same at every
@@ -273,13 +279,17 @@ def measure_cell(cfg, shape_name: str, mesh) -> Dict[str, Any]:
     superblocks at K2 steps, and a number is ``base + n_super ·
     per(seq)`` with per-block ``per`` linear in the steps. The peak
     (``temp_bytes``) is extrapolated over superblocks only (at K1 steps
-    with scans: a peak is no sum over steps) and never taken below a
-    peak measured: an estimate.
+    with scans: a peak is no sum over steps), from a run at 2 and one at
+    3 superblocks (:func:`peak_rule`), and never taken below a peak
+    measured: an estimate. The 1-superblock run's peak is also returned,
+    as ``temp_bytes_1_2``, extrapolated from 1 and 2 (the rule before).
+    ``shape_name`` is a cell of ``configs.shapes.SHAPES`` or a
+    ``ShapeCell``; ``microbatches`` overrides ``microbatches_for``.
     Whisper's encoder has as many layers as its decoder's superblocks
     and is cut with them."""
     from ..models import layers as L
     n = cfg.n_super
-    shape = SHAPES[shape_name]
+    shape = steps_mod.shape_of(shape_name)
     scans = cfg.mixer in ("rwkv", "mamba_hybrid") and \
         shape.kind != "decode" and shape.seq > K2
     if cfg.encoder_layers and cfg.encoder_layers != n:
@@ -289,11 +299,14 @@ def measure_cell(cfg, shape_name: str, mesh) -> Dict[str, Any]:
     def run(blocks, steps=None):
         L.SCAN_STEPS = steps
         try:
-            return _measure(_cut(cfg, blocks), shape_name, mesh, cfg)
+            return _measure(_cut(cfg, blocks), shape_name, mesh, cfg,
+                            microbatches)
         finally:
             L.SCAN_STEPS = None
     if not scans and n <= 2:
-        return run(n)
+        out = run(n)
+        out["temp_bytes_1_2"] = out["temp_bytes"]
+        return out
     if not scans:
         c11, c21 = run(1), run(2)
         out = _comb((2 - n, c11), (n - 1, c21))
@@ -303,26 +316,44 @@ def measure_cell(cfg, shape_name: str, mesh) -> Dict[str, Any]:
         # base = 2·c11 − c21; per(K1) = c21 − c11; per(K2) = (c22 − base)/2
         out = _comb((2 - n, c11), (n * (1 - t / 2) - 1, c21),
                     (n * t / 2, c22))
-    # a peak is no sum over steps: over superblocks only (at K1 steps),
-    # and never below a peak measured
-    out["temp_bytes"] = max(_comb((2 - n, c11["temp_bytes"]),
-                                  (n - 1, c21["temp_bytes"])),
-                            c11["temp_bytes"], c21["temp_bytes"])
+    # a peak is no sum over steps: over superblocks only (at K1 steps)
+    peaks = [c["temp_bytes"] for c in (c11, c21)]
+    out["temp_bytes_1_2"] = max(_comb((2 - n, peaks[0]), (n - 1, peaks[1])),
+                                *peaks)
+    if n >= 3:
+        peaks.append(run(3, K1 if scans else None)["temp_bytes"])
+    out["temp_bytes"] = peak_rule(n, peaks)
     return out
 
 
+def peak_rule(n: int, peaks) -> float:
+    """The peak at ``n`` superblocks from the peaks measured at 1, 2 and
+    (with ``n`` ≥ 3) 3 of them: linear through 2 and 3, never below one
+    measured. The first superblock's peak is no point of the line: a
+    prefill's is 0.5-1 GiB under the second's and the later ones equal
+    the second's (direct runs at 1-4 superblocks, rwkv6-7b and jamba
+    ``prefill_32k``), where a line through 1 and 2 grows by that much a
+    superblock; a training step's peak grows by its saved superblock
+    inputs, the same from every superblock on."""
+    if n < 3:
+        return max(peaks[:n])
+    p2, p3 = peaks[1], peaks[2]
+    return max(p2 + (n - 2) * (p3 - p2), *peaks)
+
+
 def run_cell(cfg, shape_name: str, mesh, mesh_name: str,
-             out_dir: str) -> Dict[str, Any]:
+             out_dir: str) -> Tuple[Dict[str, Any], int]:
     """Measure one cell on ``mesh`` (a ``DeviceMesh``), write its record,
-    and return it."""
+    and return it with its memory a device under the peak rule before
+    (``temp_bytes_1_2``)."""
     t0 = time.time()
     nums = measure_cell(cfg, shape_name, mesh)
     t1 = time.time()
     mem = {k: int(round(nums[k])) for k in ("argument_bytes",
                                             "output_bytes", "temp_bytes",
                                             "alias_bytes")}
-    mem["total_bytes"] = mem["argument_bytes"] + mem["temp_bytes"] + \
-        mem["output_bytes"] - mem["alias_bytes"]
+    mem["total_bytes"] = total_bytes(mem)
+    before = total_bytes({**mem, "temp_bytes": nums["temp_bytes_1_2"]})
     ana = {"collective_bytes": float(nums["collective_bytes"]),
            "collective_by_type": {k: float(v) for k, v in
                                   nums["collective_by_type"].items()},
@@ -342,7 +373,13 @@ def run_cell(cfg, shape_name: str, mesh, mesh_name: str,
         "hlo_analysis": ana,
     }
     _write(out_dir, rec)
-    return rec
+    return rec, before
+
+
+def total_bytes(mem, temp_key="temp_bytes") -> int:
+    """argument + temp + output − alias, the reference's sum."""
+    return int(round(mem["argument_bytes"] + mem[temp_key]
+                     + mem["output_bytes"] - mem["alias_bytes"]))
 
 
 def _write(out_dir: str, rec: Dict[str, Any]):
@@ -401,12 +438,14 @@ def main(argv=None):
                     print(f"[skip] {cell}: {reason}")
                     continue
                 try:
-                    rec = run_cell(cfg, shape_name, mesh, mesh_name,
-                                   args.out)
+                    rec, before = run_cell(cfg, shape_name, mesh,
+                                           mesh_name, args.out)
                     rows.append(rec)
                     mb = rec["memory"]["total_bytes"] / 2**30
                     coll = rec["hlo_analysis"]["collective_bytes"] / 2**20
-                    print(f"[ok]   {cell}: {mb:.2f} GiB/dev, "
+                    print(f"[ok]   {cell}: {mb:.2f} GiB/dev "
+                          f"({before / 2**30:.2f} by the line through 1 "
+                          f"and 2 superblocks), "
                           f"compile {rec['compile_s']}s, "
                           f"coll {coll:.1f} MiB/dev", flush=True)
                 except Exception as e:  # noqa: BLE001

@@ -134,6 +134,10 @@ def tensor_bytes(t: torch.Tensor) -> int:
 
 
 _ACTIVE = []        # the StepCounters entered, innermost last
+# ShardingPropagator's method that runs an op on global fake shapes, by
+# the name it has in one PyTorch version or another
+_META_PROPAGATION = ("_propagate_tensor_meta_non_cached",
+                     "_propagate_tensor_meta")
 
 
 @contextlib.contextmanager
@@ -151,22 +155,28 @@ def planning():
 
 
 class StepCounter(TorchDispatchMode):
-    """Counts the collectives, the matmul FLOPs and the result bytes of
+    """Counts the collectives (and keeps each one's kind and operand
+    shapes, ``coll_shapes``), the matmul FLOPs and the result bytes of
     every aten op run under it, on the local shards, and tracks the
-    bytes of the storages those ops made that are still alive (its
-    ``peak_bytes``: the storages freed are found every ``SWEEP`` new
-    ones, so the peak may include up to that many dead ones)."""
+    bytes of the storages those ops made that are still alive: its
+    ``peak_bytes``, the most they held at once. The storages of
+    ``inputs`` (the step's arguments) are not the step's: an op that
+    writes one in place (an optimizer's update, a KV cache's write) makes
+    no new bytes. The storages freed are found every ``SWEEP`` new ones,
+    and before any new peak is taken, so the peak counts no dead one."""
 
     SWEEP = 8
 
-    def __init__(self):
+    def __init__(self, inputs=()):
         super().__init__()
+        self._inputs = {st._cdata for st in _storages(inputs)}
         from torch.utils.flop_counter import flop_registry
         self._flops = flop_registry
         self.flops = 0.0
         self.traffic = 0.0
         self.coll_by_type: Dict[str, float] = collections.defaultdict(float)
         self.coll_count = 0
+        self.coll_shapes = []       # (kind, operand shape), in order
         self.live_bytes = 0
         self.peak_bytes = 0
         self._live: Dict[int, tuple] = {}
@@ -175,20 +185,24 @@ class StepCounter(TorchDispatchMode):
 
     def __enter__(self):
         # DTensor runs each op once on global fake shapes to learn its
-        # output's metadata (``ShardingPropagator``, under its
-        # ``_fake_mode_lock``, cached by shape); those runs are not the
-        # step's work, so the lock's place marks them for the counter.
+        # output's metadata (``ShardingPropagator``'s tensor-meta
+        # propagation, cached by shape); those runs are not the step's
+        # work, so they run within ``planning`` while the counter is on.
         from torch.distributed.tensor._sharding_prop import \
-            ShardingPropagator
-        self._prop_lock = ShardingPropagator._fake_mode_lock
-        ShardingPropagator._fake_mode_lock = _Marked(self._prop_lock)
+            ShardingPropagator as prop
+        name = next(n for n in _META_PROPAGATION if hasattr(prop, n))
+        orig = getattr(prop, name)
+
+        def planned(*args, **kwargs):
+            with planning():
+                return orig(*args, **kwargs)
+        self._patched = (prop, name, orig)
+        setattr(prop, name, planned)
         _ACTIVE.append(self)
         return super().__enter__()
 
     def __exit__(self, *exc):
-        from torch.distributed.tensor._sharding_prop import \
-            ShardingPropagator
-        ShardingPropagator._fake_mode_lock = self._prop_lock
+        setattr(*self._patched)
         _ACTIVE.remove(self)
         return super().__exit__(*exc)
 
@@ -208,6 +222,8 @@ class StepCounter(TorchDispatchMode):
             nbytes = sum(tensor_bytes(t) for t in _tensors(args[:1]))
             self.coll_by_type[kind] += nbytes
             self.coll_count += 1
+            self.coll_shapes += [(kind, tuple(concrete(d) for d in t.shape))
+                                 for t in _tensors(args[:1])]
         if packet in self._flops:
             self.flops += float(concrete(self._flops[packet](
                 *args, **kwargs, out_val=out)))
@@ -228,6 +244,8 @@ class StepCounter(TorchDispatchMode):
         except (NotImplementedError, RuntimeError):
             return
         key = st._cdata
+        if key in self._inputs:
+            return
         entry = self._live.get(key)
         if entry is not None and not entry[0].expired():
             return
@@ -235,13 +253,18 @@ class StepCounter(TorchDispatchMode):
             self.live_bytes -= entry[1]
         self._added += 1
         if self._added % self.SWEEP == 0:
-            for k in [k for k, (ref, _) in self._live.items()
-                      if ref.expired()]:
-                self.live_bytes -= self._live.pop(k)[1]
+            self._sweep()
         nbytes = concrete(st.nbytes())
         self._live[key] = (StorageWeakRef(st), nbytes)
         self.live_bytes += nbytes
-        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+        if self.live_bytes > self.peak_bytes:
+            self._sweep()
+            self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+
+    def _sweep(self):
+        """Drop the storages freed since the last sweep."""
+        for k in [k for k, (ref, _) in self._live.items() if ref.expired()]:
+            self.live_bytes -= self._live.pop(k)[1]
 
     def analysis(self) -> Analysis:
         by_type = dict(self.coll_by_type)
@@ -253,32 +276,32 @@ class StepCounter(TorchDispatchMode):
                         trip_counts={})
 
 
-class _Marked:
-    """``inner`` (a context manager) within :func:`planning`."""
-
-    def __init__(self, inner):
-        self.inner = inner
-        self._plan = []
-
-    def __enter__(self):
-        plan = planning()
-        plan.__enter__()
-        self._plan.append(plan)
-        return self.inner.__enter__()
-
-    def __exit__(self, *exc):
+def _storages(tree):
+    """The storages of the tensors in ``tree`` (modules' parameters and
+    buffers, a DTensor's local shard), as ``_track`` takes them."""
+    from ..models.layers import is_dtensor
+    if isinstance(tree, torch.nn.Module):
+        tree = list(tree.parameters()) + list(tree.buffers())
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for t in tree:
+            yield from _storages(t)
+    elif isinstance(tree, torch.Tensor):
+        t = tree.to_local() if is_dtensor(tree) else tree
         try:
-            return self.inner.__exit__(*exc)
-        finally:
-            self._plan.pop().__exit__(None, None, None)
+            yield t.untyped_storage()
+        except (NotImplementedError, RuntimeError):
+            return
 
 
 def analyze_step(fn: Callable, *args, **kwargs) -> Tuple[Any, Analysis,
                                                           int]:
     """Run ``fn(*args, **kwargs)`` once under a :class:`StepCounter`:
     ``(its result, the Analysis, the peak bytes of the tensors the step
-    made that were alive at once)``."""
-    counter = StepCounter()
+    made that were alive at once)``; the arguments' own storages are
+    not the step's."""
+    counter = StepCounter((args, kwargs))
     with counter:
         out = fn(*args, **kwargs)
     return out, counter.analysis(), counter.peak_bytes

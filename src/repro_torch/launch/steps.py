@@ -65,13 +65,21 @@ def _is_device_mesh(mesh) -> bool:
     return getattr(mesh, "mesh_dim_names", None) is not None
 
 
-def build_step(cfg: ModelConfig, shape_name: str, mesh,
-               opt_cfg: OptConfig = None, *, size_of: ModelConfig = None):
+def shape_of(shape) -> ShapeCell:
+    """A ``ShapeCell``, or the one of ``SHAPES`` that ``shape`` names."""
+    return shape if isinstance(shape, ShapeCell) else SHAPES[shape]
+
+
+def build_step(cfg: ModelConfig, shape_name, mesh,
+               opt_cfg: OptConfig = None, *, size_of: ModelConfig = None,
+               microbatches: int = None):
     """Returns (fn, example_args (abstract), in_specs, out_specs).
+    ``shape_name`` names a cell of ``SHAPES`` or is a ``ShapeCell``.
     ``size_of`` (default ``cfg``) is the configuration whose parameter
     count picks the moments' dtype (the dry run builds cut-down depths
-    of a configuration)."""
-    shape = SHAPES[shape_name]
+    of a configuration); ``microbatches`` (default ``microbatches_for``)
+    splits a training step's batch."""
+    shape = shape_of(shape_name)
     if opt_cfg is None:
         # ≥50B params: bf16 optimizer moments (halves ZeRO state)
         big = param_count(size_of or cfg) > 50e9
@@ -84,7 +92,7 @@ def build_step(cfg: ModelConfig, shape_name: str, mesh,
     params_abs = abstract_params(cfg)
 
     if shape.kind == "train":
-        m = microbatches_for(cfg, shape, dp)
+        m = microbatches or microbatches_for(cfg, shape, dp)
         batch_abs = _batch_struct(cfg, shape)
         grad_sh = mb_sh = None
         if _is_device_mesh(mesh):

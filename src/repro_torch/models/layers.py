@@ -202,8 +202,14 @@ def _model_axis() -> int:
 
 class Summed(tuple):
     """An ``out_axes`` entry of :func:`shard_local` for an output that is
-    a partial sum over ``model`` (each model rank holds its own part,
-    ``Partial("sum")``), laid out by the spec over the other axes."""
+    a partial sum over ``over`` (``model`` by default: each rank there
+    holds its own part, ``Partial("sum")``), laid out by the spec over the
+    other axes."""
+
+    def __new__(cls, spec, over="model"):
+        out = super().__new__(cls, spec)
+        out.over = (over,) if isinstance(over, str) else tuple(over)
+        return out
 
 
 def summed(spec, split: bool):
@@ -236,7 +242,7 @@ def shard_local(fn, args, in_axes, out_axes):
     def out_placements(ax):
         pl = placements(ax, mesh)
         if isinstance(ax, Summed):
-            pl = tuple(Partial() if n == "model" else p
+            pl = tuple(Partial() if n in ax.over else p
                        for n, p in zip(mesh.mesh_dim_names, pl))
         return pl
 
@@ -349,6 +355,35 @@ def tp_ffn(body, x, cols, row):
         (xs, *(local_spec(w, (None, "model")) for w in cols), rs),
         summed(xs, rs[0] is not None))
     return to_stream(out)
+
+
+def weights_stay(x) -> bool:
+    """Whether the products of a sublayer that the reference leaves
+    unhinted contract each rank's own 2-D weight shard
+    (:func:`own_shard_mm`): ``x`` a DTensor whose batch the data axes do
+    not divide (a batch of one), on a mesh of more than one data rank.
+    There a weight gathered over ``data`` would be used by one token."""
+    return is_dtensor(x) and axis_sizes(x.device_mesh).get("data", 1) > 1 \
+        and stream_spec(x)[0] is None
+
+
+def own_shard_mm(t, w, w_axes, pre=None):
+    """``t @ w`` with the weight left where it lies: each rank contracts
+    its own 2-D shard of ``w`` (rows over ``w_axes[0]``, columns over
+    ``w_axes[1]``, sanitized as ``shard_hint`` sanitizes) with the same
+    slice of ``t``'s last dim (``pre``, elementwise, applied to that slice
+    first). The output keeps the columns' sharding and is a partial sum
+    over the rows' axis (:class:`Summed`); the reference's compiled step
+    lays a product of a replicated token and an FSDP-sharded weight out
+    so (:func:`weights_stay`)."""
+    ws = local_spec(w, w_axes)
+    ts = stream_spec(t)[:-1] + ws[:1]
+    out = ts[:-1] + ws[1:]
+
+    def prod(t, w):
+        return mm(t if pre is None else pre(t), w)
+    return shard_local(prod, (t, w), (ts, ws),
+                       Summed(out, ws[0]) if ws[0] else out)
 
 
 def gathered(fn, *args):

@@ -75,7 +75,7 @@ def _causal_conv(x, w, b, state=None):
         state = x.new_zeros((x.shape[0], dc - 1, x.shape[2]))
     t = torch.promote_types(state.dtype, x.dtype)
     xp = torch.cat([state.to(t), x.to(t)], dim=1)
-    new_state = xp[:, -(dc - 1):, :]
+    new_state = xp[:, -(dc - 1):, :].clone()  # a view would hold all of xp
     s = x.shape[1]
     y = sum(xp[:, j:j + s, :] * w[j] for j in range(dc))
     return y + b, new_state

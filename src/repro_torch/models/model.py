@@ -28,10 +28,9 @@ rest, the counterpart of ``jax.checkpoint_policies.checkpoint_dots``.
 
 On a ``DeviceMesh`` the parameters are DTensors placed by
 ``models.sharding`` and the batch is sharded over the data axes; the
-forward runs under ``layers.activation_mesh_scope`` of that mesh, and
-the loss's label pick runs per data shard, its logits gathered over
-``model`` only (``layers.shard_local``: DTensor has no sharding rule
-for it).
+forward runs under ``layers.activation_mesh_scope`` of that mesh. The
+head and the cross entropy are vocab-parallel (:func:`logits_of`,
+:func:`token_nll`): the logits stay sharded over ``model``.
 
 Entry points build on the card unless asked for another device:
 ``init_params(cfg, seed, device="cpu")`` on the CPU, ``device="meta"``
@@ -512,17 +511,25 @@ def dec_positions(model: Model, positions):
 
 
 def logits_of(cfg: ModelConfig, model: Model, x):
-    """Final norm and the (tied) head, float32 logits, softcapped."""
+    """Final norm and the (tied) head, float32 logits, softcapped. On a
+    ``DeviceMesh`` the head is column-parallel over the vocabulary (the
+    tied head is ``tok_embed``'s rows, vocab-sharded as the lookup takes
+    them): each model rank makes the logits of its own vocabulary range,
+    softcapped there, and they stay sharded over ``model`` (``Shard(-1)``,
+    the reference's layout); a vocabulary the axis does not divide is
+    whole on every rank."""
     x = L.apply_norm(model.final_norm, x)
-    # batch-shard the pre-logits activations so the head keeps the vocab
-    # axis sharded
-    x = L.shard_hint(x, ("pod", "data"), None, None)
-    head = model.tok_embed.T if cfg.tie_embeddings else model.lm_head
-    logits = (x @ head.to(x.dtype)).float()
-    if cfg.logits_softcap:
-        c = cfg.logits_softcap
-        logits = torch.tanh(logits / c) * c
-    return logits
+    tied = cfg.tie_embeddings
+    w = model.tok_embed if tied else model.lm_head
+    cap = cfg.logits_softcap
+
+    def head(x, w):
+        logits = (x @ (w.T if tied else w).to(x.dtype)).float()
+        return torch.tanh(logits / cap) * cap if cap else logits
+    xs = L.stream_spec(x)
+    ws = L.local_spec(w, ("model", None) if tied else (None, "model"))
+    return L.shard_local(head, (x, w), (xs, ws),
+                         xs[:-1] + [ws[0] if tied else ws[1]])
 
 
 def forward(cfg: ModelConfig, model: Model, batch, *, return_aux=True):
@@ -569,14 +576,42 @@ def loss_fn(cfg: ModelConfig, model: Model, batch):
     labels = batch["labels"]
     if cfg.family == "vlm":  # logits cover [patches; text] — text tail only
         logits = logits[:, -labels.shape[1]:]
-    # the label pick per data shard (DTensor has no sharding rule for
-    # it): the logits gathered over ``model`` only, each shard's tokens'
-    # losses kept batch-sharded, then summed over every token
-    spec = L.local_spec(logits, (("pod", "data"), None, None))
-    nll = L.shard_local(_token_nll, (logits, labels), (spec, spec[:2]),
-                        spec[:2])
+    nll = token_nll(logits, labels)
     ce = L.shard_hint(nll.sum() / torch.clamp((labels >= 0).sum(), min=1))
     return ce + cfg.moe_aux_coef * aux, {"ce": ce, "aux": aux}
+
+
+def token_nll(logits, labels):
+    """Each token's negative log-likelihood of its label (0 where the
+    label is masked), batch-sharded as ``labels``. With the logits
+    vocab-sharded over ``model`` the cross entropy is vocab-parallel, as
+    the reference's iota-mask form keeps it: each model rank takes the
+    logsumexp of its own vocabulary range and its label's logit where
+    the label falls in that range (a partial sum); the ranks'
+    logsumexps, one a token and rank, are combined over ``model`` and
+    the picks all-reduced, so no (B, S, V) tensor is gathered. Otherwise
+    per data shard, the logits whole over ``model``."""
+    spec = L.local_spec(logits, (L.DP, None, "model"))
+    bs = spec[:2]
+    if not L.is_dtensor(logits) or spec[-1] is None:
+        return L.shard_local(_token_nll, (logits, labels), (bs + [None], bs),
+                             bs)
+    lo = L.shard_start(logits.shape[-1], logits)
+
+    def parts(logits, labels):
+        local = torch.where(labels >= 0, labels, 0).long() - lo
+        hit = (local >= 0) & (local < logits.shape[-1])
+        ll = torch.take_along_dim(
+            logits, torch.where(hit, local, 0)[..., None], dim=-1)[..., 0]
+        return torch.logsumexp(logits, dim=-1, keepdim=True), \
+            torch.where(hit, ll, 0)
+    lse, ll = L.shard_local(parts, (logits, labels), (spec, bs),
+                            (bs + ["model"], L.Summed(bs)))
+
+    def combine(lse, ll, labels):
+        return (torch.logsumexp(lse, dim=-1) - ll) * (labels >= 0)
+    return L.shard_local(combine, (lse, ll, labels), (bs + [None], bs, bs),
+                         bs)
 
 
 def _token_nll(logits, labels):

@@ -84,22 +84,31 @@ def rwkv_tmix(p: RWKVTmix, x, dims: RWKVDims, *, state=None):
     gathered; then each model rank runs its own heads (when they divide
     the axis) from the r/k/v/g/decay projections (column-parallel) through
     the scan and the group norm to ``wo`` (row-parallel), whose partial
-    sums are all-reduced to the stream's layout."""
+    sums are all-reduced to the stream's layout. The reference hints none
+    of these weights: at a batch the data axes do not divide
+    (``layers.weights_stay``) no weight is gathered over ``data``, and
+    each product contracts the rank's own 2-D shard
+    (``layers.own_shard_mm``), its partial sums all-reduced."""
     b, s, d = x.shape
     h, hs = dims.n_heads, dims.head_size
     x_prev = _shifted(x, None if state is None else L.to_stream(
         state["shift"]))
-    new_shift = x[:, -1]
+    new_shift = x[:, -1].clone()  # a view would hold all of x
+    stay = L.weights_stay(x)
+
+    def lora_a(t, w):
+        if stay:
+            return L.to_stream(L.own_shard_mm(t, w, ("data", None)))
+        return L.col_gathered(t, w)
 
     # data-dependent token-shift interpolation (Finch LoRA)
     dx = (x_prev - x).float()
-    lora = L.col_gathered(torch.tanh(L.col_gathered(x, p.mu_lora_a)),
-                          p.mu_lora_b)
+    lora = L.col_gathered(torch.tanh(lora_a(x, p.mu_lora_a)), p.mu_lora_b)
     mix = p.mu[None, None].float() + L.split_last(lora, 5, d).float()
     xf = x.float()
     xr, xk, xv, xw, xg = [(xf + mix[:, :, i] * dx).to(x.dtype)
                           for i in range(5)]
-    ww = torch.tanh(L.col_gathered(xw, p.w_lora_a))
+    ww = torch.tanh(lora_a(xw, p.w_lora_a))
     chunked = L.OPT["mamba_recompute"] and state is None \
         and s % CHUNK == 0 and s >= 64
 
@@ -107,34 +116,52 @@ def rwkv_tmix(p: RWKVTmix, x, dims: RWKVDims, *, state=None):
     hx = "model" if split else None
     xs = L.stream_spec(x)
     st = xs[:1] + [hx, None, None]
-    cols = [L.fsdp_use(w, None, "model")
-            for w in (p.wr, p.wk, p.wv, p.wg, p.w_lora_b)]
-    wo = L.fsdp_use(p.wo, "model", None)
-    args = (xr, xk, xv, xg, ww, *cols, p.w0, p.u, p.gn_w, p.gn_b, wo)
-    axes = (xs,) * 5 + ((None, hx),) * 5 + ((hx,), (hx, None), (hx,),
-                                             (hx,), (hx, None))
+    ins = (xr, xk, xv, xg)
+    if stay:        # the products on each rank's own shards, then whole
+        ins = tuple(L.own_shard_mm(t, w, ("data", hx))
+                    for t, w in zip(ins, (p.wr, p.wk, p.wv, p.wg)))
+        cols = ()
+        wo = p.wo
+        wo_axes = L.local_spec(wo, (hx, "data"))
+        in_axes = (xs[:-1] + [hx],) * 4
+        out_spec = xs[:-1] + wo_axes[1:]
+    else:
+        cols = tuple(L.fsdp_use(w, None, "model")
+                     for w in (p.wr, p.wk, p.wv, p.wg))
+        wo = L.fsdp_use(p.wo, "model", None)
+        wo_axes = (hx, None)
+        in_axes = (xs,) * 4 + ((None, hx),) * 4
+        out_spec = xs
+    wlb = L.fsdp_use(p.w_lora_b, None, "model")
+    args = (*ins, *cols, ww, wlb, p.w0, p.u, p.gn_w, p.gn_b, wo)
+    axes = in_axes + (xs, (None, hx), (hx,), (hx, None), (hx,), (hx,),
+                      wo_axes)
     if state is not None:
         args, axes = args + (state["S"],), axes + (st,)
 
-    def heads(xr, xk, xv, xg, ww, wr, wk, wv, wg, wlb, w0, u, gn_w, gn_b,
-              wo, S=None):
+    def heads(*a):
+        if stay:
+            (rr, kk, vv, gg), a = a[:4], a[4:]
+        else:
+            (xr, xk, xv, xg, wr, wk, wv, wg), a = a[:8], a[8:]
+            rr, kk, vv, gg = mm(xr, wr), mm(xk, wk), mm(xv, wv), mm(xg, wg)
+        ww, wlb, w0, u, gn_w, gn_b, wo, *S = a
         n = u.shape[0]
 
         def split_heads(t):
             return t.reshape(*t.shape[:-1], n, hs)
-        rr = split_heads(mm(xr, wr)).float()
-        kk = split_heads(mm(xk, wk)).float()
-        vv = split_heads(mm(xv, wv)).float()
-        gg = F.silu(mm(xg, wg))
+        rr, kk, vv = (split_heads(t).float() for t in (rr, kk, vv))
+        gg = F.silu(gg)
         w = split_heads(torch.exp(-torch.exp(w0.float()
                                              + mm(ww, wlb).float())))
-        if S is None:
-            S = xr.new_zeros((xr.shape[0], n, hs, hs), dtype=torch.float32)
+        S = S[0] if S else ww.new_zeros((ww.shape[0], n, hs, hs),
+                                        dtype=torch.float32)
         ys, S = _scan(rr, kk, vv, w, u, S, chunked)
         ys = ys.reshape(ys.shape[0], ys.shape[1], -1)
-        ys = L.group_norm_local(ys.to(xr.dtype), gn_w, gn_b, hs)
+        ys = L.group_norm_local(ys.to(x.dtype), gn_w, gn_b, hs)
         return mm(ys * gg, wo), S
-    out, S = L.shard_local(heads, args, axes, (L.summed(xs, split), st))
+    out, S = L.shard_local(heads, args, axes,
+                           (L.summed(out_spec, split), st))
     new_state = None if state is None else {"shift": new_shift, "S": S}
     return L.to_stream(out), new_state
 
@@ -171,15 +198,49 @@ def _scan(rr, kk, vv, w, u, S, chunked):
 
 def rwkv_cmix(p: RWKVCmix, x, *, state=None):
     """Squared-ReLU channel mix with token shift; ``wk`` column-parallel
-    and ``wv`` row-parallel over ``model`` (``layers.tp_ffn``)."""
+    and ``wv`` row-parallel over ``model`` (``layers.tp_ffn``). At a
+    batch the data axes do not divide (``layers.weights_stay``) both
+    products contract each rank's own 2-D shard instead, as ``rwkv_tmix``
+    does."""
     x_prev = _shifted(x, None if state is None else L.to_stream(state))
-    new_shift = x[:, -1]
+    new_shift = x[:, -1].clone()  # a view would hold all of x
     xk = x + p.mu_k.to(x.dtype) * (x_prev - x)
+    if L.weights_stay(x):
+        k = L.own_shard_mm(xk, p.wk, ("data", "model"))
+        out = L.to_stream(L.own_shard_mm(k, p.wv, ("data", "model"),
+                                         pre=_squared_relu))
+    elif L.is_dtensor(x) and not torch.is_grad_enabled() \
+            and _local_tokens(x) < x.shape[-1]:
+        # a serving step of few tokens a rank (decode): ``wv`` is stored
+        # with its columns over ``model`` (the rule of every ``wv``), so
+        # it is used so, gathered over ``data`` only, and the hidden
+        # activations are gathered over ``model`` instead of its rows
+        # (d_ff x d/TP elements a rank moved to lay it out
+        # row-parallel). A training step keeps the row-parallel form: its
+        # backward would reduce the hidden activations' gradients too.
+        xs = L.stream_spec(xk)
+        wk = L.fsdp_use(p.wk, None, "model")
+        ws = L.local_spec(wk, (None, "model"))
+        k = L.shard_local(lambda xk, wk: _squared_relu(mm(xk, wk)),
+                          (xk, wk), (xs, ws), xs[:-1] + ws[1:])
+        out = L.col_gathered(k, p.wv)
+    else:
+        def body(xk, wk, wv):
+            return mm(_squared_relu(mm(xk, wk)), wv)
+        out = L.tp_ffn(body, xk, (p.wk,), p.wv)
+    return out, (None if state is None else new_shift)
 
-    def body(xk, wk, wv):
-        return mm(torch.square(F.relu(mm(xk, wk))), wv)
-    return L.tp_ffn(body, xk, (p.wk,), p.wv), \
-        (None if state is None else new_shift)
+
+def _local_tokens(x) -> int:
+    """The tokens of ``x`` (B, S, d) that one rank holds in the stream's
+    layout."""
+    from .sharding import mesh_axis_size
+    return x.shape[0] * x.shape[1] // max(
+        mesh_axis_size(x.device_mesh, L.stream_spec(x)[0]), 1)
+
+
+def _squared_relu(t):
+    return torch.square(F.relu(t))
 
 
 def init_rwkv_state(batch, d_model, dims: RWKVDims, dtype=torch.bfloat16,

@@ -19,7 +19,8 @@ parallelism over the in-process mesh against the local path, and smoke
 configurations as DTensors on a one-rank NCCL mesh against the plain
 card path. Serving under a mesh (``-k serve_mesh``): prefill and decode
 of smoke configurations with DTensor parameters and state on that mesh
-against the plain card path.
+against the plain card path. The property sweep's card sessions
+(``-k sweep``): ``"cuda"`` against port ``"np"`` at 10^6 rows.
 """
 import numpy as np
 import pytest
@@ -187,6 +188,19 @@ def test_heatmap_cuda_matches_torch(card):
         assert build.LAUNCHES[k] > before.get(k, 0), k
     assert torch.equal(engines["cuda"].index.perm, engines["torch"].index.perm)
     engines["cuda"].index.check_invariants("a0")
+
+
+def test_property_sweep_sessions_cuda_match_np(card):
+    """The property sweep's card sessions
+    (``benchmarks.property_sweep.CARD_SESSIONS``) on its dataset at 10^6
+    rows: ``"cuda"`` against port ``"np"``, batched, on the parity
+    contract after every query and at the end (chip_smoke's phase 10b)."""
+    from repro_torch.benchmarks import property_sweep
+    build.reset_launches()
+    done = property_sweep.sessions(n=10 ** 6, device=card, backend="cuda")
+    assert [(d["op_seed"], d["policies"]) for d in done] == \
+        property_sweep.CARD_SESSIONS
+    assert any(build.LAUNCHES.values())
 
 
 def test_main_path_cuda_matches_torch(card):

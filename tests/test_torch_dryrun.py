@@ -23,11 +23,18 @@ process group stays clean:
   (``tools/reference_dryrun.py``: XLA's fake CPU devices, ``Auto``
   axes, in one subprocess beside the others): the port's matmul FLOPs a
   device within 10 % of the reference's, cell by cell;
+- the loss on a ``(2, 4)`` mesh (gemma-7b smoke, tied head): no
+  collective moves a tensor of the logits' (B, S, V) elements, and the
+  loss's own are the (B, S) reductions (ROADMAP C.18);
+- the peak rule (``dryrun.peak_rule``): for a training, a prefill (with
+  RWKV scans) and a decode cell at 4 superblocks, the estimate from 1-3
+  superblocks equals a direct run at 4 within 1 %;
 - a spec forced not to divide its dim makes the CLI exit nonzero;
 - ``perf_cell.measure`` with ``fsdp_use_hint`` off, the toggle restored;
 - the AQP dry run on a fake group of 8 ranks.
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -107,6 +114,52 @@ MISMATCH = """
 """
 
 
+LOSS = """
+    import collections, json
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch import configs
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.core.mesh import AbstractMesh
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.hlo_analysis import StepCounter
+
+    mesh = dryrun.fake_device_mesh(AbstractMesh((2, 4), ("data", "model")))
+    cfg = dryrun._cut(configs.get_smoke("gemma-7b"), 1)
+    cell = ShapeCell("loss", "train", 64, 8)
+    fn, args, specs, _ = steps.build_step(cfg, cell, mesh, microbatches=1)
+    with FakeTensorMode(allow_non_fake_inputs=True), \\
+            dryrun.strided_sizes_on_host():
+        real = dryrun.placed_args(cfg, "train", args, specs, mesh)
+        counter = StepCounter()
+        with counter:
+            fn(*real)
+    print(json.dumps({"vocab": cfg.vocab, "shapes": counter.coll_shapes}))
+"""
+
+PEAKS = """
+    import json
+    from repro_torch import configs
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.core.mesh import AbstractMesh
+    from repro_torch.launch import dryrun
+    from repro_torch.models import layers as L
+
+    mesh = dryrun.fake_device_mesh(AbstractMesh((2, 4), ("data", "model")))
+    out = {}
+    for arch, shape, mb, scans in (
+            ("granite-8b", ShapeCell("train", "train", 256, 16), 2, False),
+            ("rwkv6-7b", "prefill_32k", None, True),
+            ("granite-8b", "decode_32k", None, False)):
+        cfg = dryrun._cut(configs.get_smoke(arch), 4)
+        est = dryrun.measure_cell(cfg, shape, mesh, microbatches=mb)
+        L.SCAN_STEPS = dryrun.K1 if scans else None
+        direct = dryrun._measure(cfg, shape, mesh, cfg, mb)["temp_bytes"]
+        L.SCAN_STEPS = None
+        out[arch + ":" + dryrun.steps_mod.shape_of(shape).kind] = [
+            est["temp_bytes"], est["temp_bytes_1_2"], direct]
+    print(json.dumps(out))
+"""
+
 REFERENCE = """
     import runpy
     tool = runpy.run_path(TOOL)["main"]
@@ -143,6 +196,8 @@ def runs(tmp_path_factory):
         "gemma": _cli(d / "gemma", "--archs", "gemma-7b", "--shapes",
                       "train_4k", "--mesh-shape", "2x4"),
         "golden": _py(GOLDEN, d / "aqp"),
+        "loss": _py(LOSS, d / "loss"),
+        "peaks": _py(PEAKS, d / "peaks"),
         "mismatch": _py(MISMATCH, d / "mismatch"),
         "reference": _py(REFERENCE, d / "reference"),
     }
@@ -278,6 +333,41 @@ def test_smoke_cell_flops_equal_the_reference(runs, name, fname, arch,
     port = _record(runs, name, fname)["hlo_analysis"]["matmul_flops"]
     ref = _record(runs, "reference", fname)["hlo_analysis"]["matmul_flops"]
     assert port == pytest.approx(ref, rel=0.10)
+
+
+def _printed(runs, name):
+    rc, so, se = runs[name]
+    assert rc == 0, se[-4000:]
+    return json.loads(so.strip().splitlines()[-1])
+
+
+def test_loss_gathers_no_logits_over_model(runs):
+    """The head and the cross entropy are vocab-parallel (ROADMAP C.18):
+    on the (2, 4) mesh a microbatch of 4 sequences of 64 tokens a data
+    rank holds (4, 64, V/4) logits; no collective of the step (forward
+    and backward) moves that many elements, and the loss combines the
+    ranks' logsumexps, (4, 64, 1) each, and their label picks, (4, 64)."""
+    got = _printed(runs, "loss")
+    shapes = [(kind, tuple(shape)) for kind, shape in got["shapes"]]
+    logits = 4 * 64 * got["vocab"] // 4
+    big = [s for s in shapes if math.prod(s[1]) >= logits]
+    assert not big, big
+    assert ("all-gather", (4, 64, 1)) in shapes
+    assert ("all-reduce", (4, 64)) in shapes
+
+
+def test_peak_rule_equals_a_direct_run_at_four_superblocks(runs):
+    """``measure_cell``'s peak from 1-3 superblocks against the peak of
+    a run at 4, for a training, a prefill (RWKV scans) and a decode
+    cell; the prefill's line through 1 and 2 superblocks (the rule
+    before) lies above it."""
+    got = _printed(runs, "peaks")
+    assert set(got) == {"granite-8b:train", "rwkv6-7b:prefill",
+                        "granite-8b:decode"}
+    for cell, (est, line_1_2, direct) in got.items():
+        assert est == pytest.approx(direct, rel=0.01), cell
+    est, line_1_2, direct = got["rwkv6-7b:prefill"]
+    assert line_1_2 > 1.03 * direct
 
 
 def test_forced_sharding_mismatch_exits_nonzero(runs):

@@ -9,7 +9,10 @@ attention), rwkv6-7b and jamba-1.5-large-398b (the recurrent states)
 and whisper-small (the cross K/V), float32 smoke: prefill of 8 tokens
 and 3 decode steps on DTensor parameters and state give every logit and
 every state leaf within 1e-4 of its largest |value| of the port's plain
-path, and every leaf keeps the placements of ``serve_state_specs``. For
+path, and every leaf keeps the placements of ``serve_state_specs``;
+rwkv6-7b also at a batch of one (``rwkv6-7b@b1``), which the data axis
+does not divide, so that each product contracts the ranks' own weight
+shards and no weight is gathered over ``data`` (ROADMAP C.18). For
 granite they also match the reference's ``prefill_step`` /
 ``decode_step`` with its state placed by its own ``serve_state_specs``
 on 8 fake XLA devices (a subprocess run beside the spawn, ``Auto``
@@ -135,11 +138,11 @@ def record(tmp_path_factory):
 def plain(arch):
     """The port's plain path on the same inputs: the logits of each step
     and the last state, flattened."""
-    cfg = cases.smoke_cfg(arch)
+    cfg, b = cases.smoke_cfg(arch), cases.batch_of(arch)
     model = params_from_numpy(cfg, shard.model_np(cfg), "cpu")
-    state = init_serve_state(cfg, cases.B, cases.MAX_LEN, torch.float32,
+    state = init_serve_state(cfg, b, cases.MAX_LEN, torch.float32,
                              device="cpu")
-    toks, extras = cases.inputs_np(cfg)
+    toks, extras = cases.inputs_np(cfg, b)
     logits, state = cases.run(
         cfg, model, state, toks, extras,
         lambda m, t, s, e: prefill_step(cfg, m, t, s, e),

@@ -21,8 +21,9 @@ own sharded loss on 8 fake jax devices (a mesh of ``Auto`` axes, built
 here) — against the unsharded reference they stay within the
 reference's own ``test_model_train_step_8dev_mesh`` tolerance (5e-2).
 
-For starcoder2-3b, starcoder2-15b and whisper-small (float32 smoke;
-ROADMAP C.17 and C.15c): the sharded loss within 1e-5 relative and
+For starcoder2-3b, starcoder2-15b, whisper-small and gemma-7b (float32
+smoke; ROADMAP C.17, C.15c, and C.18's vocab-parallel tied head and
+cross entropy): the sharded loss within 1e-5 relative and
 every gradient within 1e-4 of its leaf's largest |g| of the plain CPU
 path, and the loss within 1e-4 of the reference's sharded loss.
 

@@ -11,7 +11,9 @@ prefill and decode functions. Recorded whole (``full_tensor``) by rank
 0: the logits of each step, every leaf of the last state
 (``serve_state_to_numpy``), whether every leaf kept the placements of
 ``serve_state_specs``, and, for granite, whether a decode past
-``max_len`` raised on the mesh.
+``max_len`` raised on the mesh. A case ``arch@bN`` serves a batch of N:
+rwkv6-7b at a batch of one, which the data axis does not divide (its
+products contract each rank's own weight shards, ROADMAP C.18).
 """
 from __future__ import annotations
 
@@ -19,25 +21,30 @@ import numpy as np
 import torch
 
 ARCHS = ("granite-8b", "starcoder2-3b", "rwkv6-7b", "jamba-1.5-large-398b",
-         "whisper-small")
+         "whisper-small", "rwkv6-7b@b1")
 MESH = (2, 4)
 B, PREFILL, DECODE, MAX_LEN = 4, 8, 3, 16
 
 
-def smoke_cfg(arch):
+def smoke_cfg(case):
     import torch_shard_cases
-    return torch_shard_cases.smoke_cfg(arch)
+    return torch_shard_cases.smoke_cfg(case.split("@")[0])
 
 
-def inputs_np(cfg):
-    """The tokens (B, PREFILL + DECODE) and the extras (whisper's
-    frames)."""
+def batch_of(case) -> int:
+    """The batch a case serves: ``B``, or N for ``arch@bN``."""
+    return int(case.split("@b")[1]) if "@b" in case else B
+
+
+def inputs_np(cfg, b=B):
+    """The tokens (b, PREFILL + DECODE) and the extras (whisper's
+    frames); a smaller batch takes the first rows of ``B``'s."""
     rng = np.random.default_rng(5)
-    toks = rng.integers(0, cfg.vocab, (B, PREFILL + DECODE))
+    toks = rng.integers(0, cfg.vocab, (B, PREFILL + DECODE))[:b]
     extras = {}
     if cfg.family == "encdec":
         extras["frames"] = rng.normal(
-            size=(B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+            size=(B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)[:b]
     return toks, extras
 
 
@@ -101,19 +108,19 @@ def rank_main(rank, world, store, out_path):
         mesh = init_device_mesh("cpu", MESH,
                                 mesh_dim_names=("data", "model"))
         for arch in ARCHS:
-            cfg = smoke_cfg(arch)
+            cfg, b = smoke_cfg(arch), batch_of(arch)
             model = SH.distribute_params(
                 params_from_numpy(cfg, shard.model_np(cfg), "cpu"), mesh)
-            specs = SH.batch_specs(cfg, mesh, B)
+            specs = SH.batch_specs(cfg, mesh, b)
 
             def put(name, t):
                 return SH.distribute(t, mesh, SH.placements(specs[name],
                                                             mesh))
             prefill = build_step(cfg, "prefill_32k", mesh)[0]
             decode = build_step(cfg, "decode_32k", mesh)[0]
-            state = init_serve_state(cfg, B, MAX_LEN, torch.float32,
+            state = init_serve_state(cfg, b, MAX_LEN, torch.float32,
                                      device="cpu", mesh=mesh)
-            toks, extras = inputs_np(cfg)
+            toks, extras = inputs_np(cfg, b)
             logits, state = run(cfg, model, state, toks, extras, prefill,
                                 decode, put)
             for i, lg in enumerate(logits):

@@ -18,7 +18,9 @@ byte for byte. Then, for each configuration of ``GRAD_ARCHS``, the
 sharded loss and the gradient of every parameter (``batch_grads`` on
 ``distribute_params`` / ``distribute_batch``): starcoder2's 6 heads and
 2 KV heads do not divide the model axis (ROADMAP C.17), and whisper's
-encoder and cross-attention are what C.15c broke. Then the
+encoder and cross-attention are what C.15c broke, and gemma's tied head
+makes its logits from the vocab-sharded embedding table (the head and
+the cross entropy vocab-parallel, C.18). Then the
 expert-parallel MoE layer of ``moe_case`` on the ranks. Every value is
 saved whole (``full_tensor``) by rank 0.
 """
@@ -34,7 +36,7 @@ ARCHS = ("granite-8b", "deepseek-moe-16b", "jamba-1.5-large-398b",
 # two microbatches exercise mb_shardings; the heavier two take one
 MICROBATCHES = {"granite-8b": 2, "deepseek-moe-16b": 2,
                 "jamba-1.5-large-398b": 1, "rwkv6-7b": 1}
-GRAD_ARCHS = ("starcoder2-3b", "starcoder2-15b", "whisper-small")
+GRAD_ARCHS = ("starcoder2-3b", "starcoder2-15b", "whisper-small", "gemma-7b")
 MESH = (2, 4)
 OPT = dict(lr=1e-3, warmup_steps=0, total_steps=10)
 

@@ -16,6 +16,11 @@ Records go to ``--out`` (default ``experiments/dryrun``), one
 ``<arch>__<shape>__<mesh>.json`` a cell, with the keys of the port's
 (``python -m repro_torch.launch.dryrun``).
 
+``--dots FILE`` runs nothing: it prints the matmul FLOPs of an HLO dump
+that ``--keep-hlo`` kept (``<out>/<cell>.hlo``) by dot result and
+operand shapes, trip-count weighted (``PERF.md`` §6's attribution of
+cells under the reference's FLOPs).
+
 ``--compare DIR`` runs nothing: it prints, as a markdown table, each
 cell of the port's records in ``DIR`` (``experiments/dryrun_torch``)
 beside the reference's record of the same name in ``--out``: matmul
@@ -29,11 +34,15 @@ Usage:
         [--out experiments/dryrun] [--smoke] [--mesh-shape 2x4]
     python tools/reference_dryrun.py --compare experiments/dryrun_torch \\
         [--out experiments/dryrun]
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tools/reference_dryrun.py \\
+        --dots experiments/dryrun/<arch>__<shape>__pod16x16.hlo
 """
 import argparse
+import collections
 import glob
 import json
 import os
+import re
 import sys
 
 
@@ -80,15 +89,71 @@ def compare(port_dir: str, ref_dir: str) -> None:
               + " | ".join(cells.get(sh, "—") for sh in shapes) + " |")
 
 
+def dots(path: str, top: int = 12) -> None:
+    """Print the matmul FLOPs of an HLO dump of the reference's dry run
+    (``--keep-hlo``) by dot result and operand shapes, each weighted by
+    its loop's trip count as the reference's ``analyze_hlo`` weights it
+    (``--dots``)."""
+    from repro.launch import hlo_analysis as H
+    text = open(path).read()
+    comps, entry = H._parse_computations(text)
+    dims = {}
+    for instrs in comps.values():
+        for ins in instrs:
+            m = H._SHAPE_RE.search(ins.line.split("=", 1)[1]) \
+                if "=" in ins.line else None
+            if m:
+                dims[ins.name] = [int(d) for d in m.group(2).split(",")
+                                  if d]
+    # each computation's executions, as analyze_hlo's fixpoint counts them
+    mult = collections.defaultdict(float)
+    mult[entry] = 1.0
+    for _ in range(64):
+        new = collections.defaultdict(float)
+        new[entry] = 1.0
+        for name, instrs in comps.items():
+            m = mult.get(name, 0.0)
+            for ins in instrs if m else ():
+                if ins.opcode == "while":
+                    cond = re.search(r"condition=%?([\w\.\-]+)", ins.line)
+                    body = re.search(r"body=%?([\w\.\-]+)", ins.line)
+                    trips = H._trip_count(comps.get(cond.group(1), [])) \
+                        if cond else 1
+                    if body:
+                        new[body.group(1)] += m * trips
+                    if cond:
+                        new[cond.group(1)] += m * (trips + 1)
+                else:
+                    for f in ins.called or ():
+                        if f in comps:
+                            new[f] += m
+        if dict(new) == dict(mult):
+            break
+        mult = new
+    by = collections.Counter()
+    for name, instrs in comps.items():
+        for ins in instrs:
+            if ins.opcode == "dot" and mult.get(name):
+                res = H._SHAPE_RE.search(ins.line.split("=", 1)[1]).group(0)
+                ops = tuple(str(dims.get(o)) for o in ins.operands[:2])
+                by[(res, ops)] += H._dot_flops(ins, dims) * mult[name]
+    print(f"{path}: matmul FLOPs {sum(by.values()):.4g} a device")
+    for (res, ops), f in by.most_common(top):
+        print(f"  {f:12.4g} FLOPs  {res} = {' . '.join(ops)}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(allow_abbrev=False)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--mesh-shape", default=None)
     ap.add_argument("--out", default="experiments/dryrun")
     ap.add_argument("--compare", default=None)
+    ap.add_argument("--dots", default=None)
     args, rest = ap.parse_known_args(argv)
     if args.compare:
         return compare(args.compare, args.out)
+    if args.dots:
+        return dots(args.dots)
 
     from repro.launch import dryrun     # sets XLA_FLAGS before jax starts
     import jax
